@@ -1,0 +1,249 @@
+"""The paper's in-situ search (Alg. 1 / Fig. 11) on Hopper: the emission
+sort, the alignment search and the literal bit-serial minima scan.
+
+Three CUDA kernels (``csrc/insitu_search.cu``), each with a plain torch twin
+in this module and a launch counter on its wrapper:
+
+* ``emit_sort_keys`` replaces ``src/repro/kernels/insitu_search.py:
+  _make_emit_sort_kernel`` + ``_make_emit_merge_kernel``: the ascending
+  key-only bitonic sort of the packed product stream. Bound by bytes; every
+  stride below a 4096-key shared-memory tile runs in one tile pass, each
+  stride at or above it is one coalesced pass over device memory.
+  Plain twin: ``torch.sort`` (the reference's own ``jnp.sort`` realization).
+* ``align_keys`` replaces ``_make_align_kernel``: ``slot = #{uk < pk}``,
+  ``hit = pk ∈ uk``. The TPU kernel's O(S·u) broadcast compare becomes one
+  lower-bound binary search per product key, O(S log u), bound by bytes.
+  Plain twin: ``torch.searchsorted`` (the reference's ``searchsorted``).
+* ``minima_mask`` replaces ``_minima_kernel``: the 31-step bit scan, high bit
+  to low, kept bit-serial on purpose, one block ending each bit with a
+  block-wide OR. Plain twin: one min and a compare (``minima_mask_xla``).
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain twin
+only for tensors the caller put on the CPU. ``emit_sorted_unique``,
+``search_emit_sorted`` and ``_unique_heads`` keep the reference contracts
+(``uk`` ascending, KEY_INVALID-padded; ``nnz`` the TRUE unique count on the
+batched path and a floor of ``out_cap + 1`` on the faithful path when
+truncated).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+KEY_INVALID = 2 ** 31 - 1          # INT32_MAX: dead lane / consumed row
+EMIT_TILE = 4096                   # keys per shared-memory tile (16 KB)
+_LIB = "insitu_search"
+
+
+def next_pot(x: int) -> int:
+    """Smallest power of two ≥ ``x`` (≥ 1)."""
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def _cuda_operands(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA int32 contiguous operands on one device, False for CPU
+    ones (plain twin); raises on anything the kernel does not take."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on several devices {devices}")
+    (dev,) = devices
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"{name} kernel takes contiguous 1-D int32 keys, "
+                            f"got {t.dtype} of shape {tuple(t.shape)}")
+    return True
+
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def _fn(name: str, *argtypes):
+    """The C entry ``name`` with its argument types bound (pointers and the
+    stream as ``c_void_p``)."""
+    lib = _build.library(_LIB)
+    fn = getattr(lib, name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+# ---------------------------------------------------------------------------
+# K4: the literal Alg. 1 minima scan
+# ---------------------------------------------------------------------------
+
+def minima_mask_plain(v: torch.Tensor) -> torch.Tensor:
+    """Mask of the active rows holding min(v): the 31-step bit scan selects
+    exactly the argmin rows, so one min and a compare give the same mask."""
+    active = v != KEY_INVALID
+    vmin = torch.where(active, v, KEY_INVALID).min()
+    return active & (v == vmin)
+
+
+def minima_mask(v: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of the rows holding min(v). v: (n,) int32 ≥ 0;
+    KEY_INVALID marks consumed/invalid rows (the flipped sign bit)."""
+    if not _cuda_operands("minima_mask", v):
+        return minima_mask_plain(v)
+    mask = torch.empty(v.shape, dtype=torch.bool, device=v.device)
+    lib, fn = _fn("minima_mask", _P, _P, _L, _P)
+    with torch.cuda.device(v.device):
+        err = fn(v.data_ptr(), mask.data_ptr(), v.numel(),
+                 torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check(lib, _LIB, err)
+    minima_mask.launches += 1
+    return mask
+
+
+minima_mask.launches = 0
+
+
+def _emit_step(v: torch.Tensor):
+    """One Alg. 1 emission: ``v`` with the rows holding its minimum
+    invalidated, that minimum (KEY_INVALID once no valid row is left) and
+    how many rows held it."""
+    mask = minima_mask(v)
+    return (torch.where(mask, KEY_INVALID, v),      # flip consumed rows
+            torch.where(mask, v, KEY_INVALID).min(),
+            mask.sum(dtype=torch.int32))
+
+
+def search_emit_sorted(v: torch.Tensor, max_unique: int):
+    """Iterated Alg. 1 (Fig. 11): repeatedly emit the minimal value and
+    invalidate its rows — the sorted unique values in the hardware's
+    emission order. Returns (values, counts), each (max_unique,); empty
+    slots carry KEY_INVALID / 0."""
+    vals, counts = [v.new_empty(0)], [v.new_empty(0)]
+    for _ in range(max_unique):
+        v, val, cnt = _emit_step(v)
+        vals.append(val[None])
+        counts.append(cnt[None])
+    return torch.cat(vals), torch.cat(counts)
+
+
+# ---------------------------------------------------------------------------
+# K2: batched emission, the sorted key stream in one network
+# ---------------------------------------------------------------------------
+
+def emit_sort_keys_plain(key: torch.Tensor) -> torch.Tensor:
+    return torch.sort(key).values
+
+
+def emit_sort_keys(key: torch.Tensor, *, tile: int = EMIT_TILE) -> torch.Tensor:
+    """Ascending sort of a power-of-two int32 key stream."""
+    if not _cuda_operands("emit_sort_keys", key):
+        return emit_sort_keys_plain(key)
+    n = key.numel()
+    if n & (n - 1) or tile & (tile - 1):
+        raise ValueError(f"emit_sort_keys: stream {n} and tile {tile} must be "
+                         "powers of two")
+    t = min(tile, n)
+    out = torch.empty_like(key)
+    if n == 0:
+        return out
+    lib, tile_fn = _fn("emit_tile", _P, _P, _L, _I, _L, _P)
+    _, glob_fn = _fn("emit_merge_global", _P, _L, _L, _L, _P)
+    with torch.cuda.device(key.device):
+        stream = torch.cuda.current_stream(key.device).cuda_stream
+        _build.check(lib, _LIB, tile_fn(key.data_ptr(), out.data_ptr(), n, t,
+                                        0, stream))
+        emit_sort_keys.launches += 1
+        k = 2 * t
+        while k <= n:
+            j = k // 2
+            while j >= t:
+                _build.check(lib, _LIB, glob_fn(out.data_ptr(), n, j, k,
+                                                stream))
+                emit_sort_keys.launches += 1
+                j //= 2
+            _build.check(lib, _LIB, tile_fn(out.data_ptr(), out.data_ptr(), n,
+                                            t, k, stream))
+            emit_sort_keys.launches += 1
+            k *= 2
+    return out
+
+
+emit_sort_keys.launches = 0
+
+
+def _unique_heads(ks: torch.Tensor, out_cap: int):
+    """Run-head compaction of a sorted key stream: the first lane of every
+    equal-key run, packed densely — the emission order of the iterated
+    Alg. 1 scan. Returns (uk (out_cap,) ascending KEY_INVALID-padded,
+    nnz = TRUE unique count, > out_cap when truncated)."""
+    prev = torch.cat([ks.new_full((1,), -1), ks[:-1]])
+    head = (ks != prev) & (ks != KEY_INVALID)
+    heads = ks[head]
+    nnz = torch.tensor(heads.numel(), dtype=torch.int32, device=ks.device)
+    uk = torch.full((out_cap,), KEY_INVALID, dtype=torch.int32,
+                    device=ks.device)
+    kept = min(out_cap, heads.numel())
+    uk[:kept] = heads[:kept]
+    return uk, nnz
+
+
+def emit_sorted_unique(key: torch.Tensor, out_cap: int, *,
+                       faithful: bool = False, tile: int = EMIT_TILE):
+    """The ``'search'`` backend's emission phase: the sorted unique keys of
+    a packed product stream (Fig. 11c).
+
+    Returns ``(uk, nnz)``: ``uk`` (out_cap,) ascending with KEY_INVALID
+    padding, ``nnz`` the true unique-key count (``nnz > out_cap`` flags
+    truncation; the first ``out_cap`` unique keys are kept).
+    ``faithful=True`` runs the literal iterated Alg. 1 scan (``out_cap``
+    minima searches) instead of the batched sort; the two are bit-identical,
+    and the faithful ``nnz`` is ``out_cap + 1`` when truncated (a floor).
+    """
+    if faithful:
+        v, outs = key, [key.new_empty(0)]
+        for _ in range(out_cap):
+            v, val, _ = _emit_step(v)
+            outs.append(val[None])
+        uk = torch.cat(outs)
+        emitted = (uk != KEY_INVALID).sum(dtype=torch.int32)
+        leftover = (v != KEY_INVALID).any()
+        return uk, emitted + leftover.to(torch.int32)
+    return _unique_heads(emit_sort_keys(key, tile=tile), out_cap)
+
+
+# ---------------------------------------------------------------------------
+# K3: alignment, every product key located in the sorted unique list
+# ---------------------------------------------------------------------------
+
+def align_keys_plain(pk: torch.Tensor, uk: torch.Tensor):
+    u = uk.numel()
+    slot = torch.searchsorted(uk, pk, side="left", out_int32=True)
+    if u == 0:
+        return slot, torch.zeros(pk.shape, dtype=torch.bool, device=pk.device)
+    hit = uk[torch.clamp(slot, max=u - 1)] == pk
+    return slot, hit
+
+
+def align_keys(pk: torch.Tensor, uk: torch.Tensor):
+    """Locate every product key in the ascending unique list ``uk``.
+
+    Returns ``(slot, hit)``: ``slot[i] = #{j : uk[j] < pk[i]}`` and
+    ``hit[i] = pk[i] ∈ uk``, dead lanes included (a KEY_INVALID product key
+    gets slot = #{valid uk} and hits iff ``uk`` has padding; callers mask it).
+    """
+    if not _cuda_operands("align_keys", pk, uk):
+        return align_keys_plain(pk, uk)
+    slot = torch.empty(pk.shape, dtype=torch.int32, device=pk.device)
+    hit = torch.empty(pk.shape, dtype=torch.bool, device=pk.device)
+    lib, fn = _fn("align_keys", _P, _P, _P, _P, _L, _L, _P)
+    with torch.cuda.device(pk.device):
+        err = fn(pk.data_ptr(), uk.data_ptr(), slot.data_ptr(), hit.data_ptr(),
+                 pk.numel(), uk.numel(),
+                 torch.cuda.current_stream(pk.device).cuda_stream)
+    _build.check(lib, _LIB, err)
+    align_keys.launches += 1
+    return slot, hit
+
+
+align_keys.launches = 0

@@ -1,0 +1,71 @@
+"""Symbolic phase: size nnz(C) before the numeric SpGEMM, mirroring the
+``out_cap`` subset of ``src/repro/plan/symbolic.py``.
+
+  * ``product_count``   — Σ_c nnzcol_A(c)·nnzrow_B(c), the exact number of
+    scalar products SCCP performs.
+  * ``upper_bound_nnz`` — row-flop counting, clipped to the row width.
+  * ``exact_nnz``       — the exact unique-coordinate count from a
+    coordinate-only sort (no value multiply, no value sort).
+
+``out_cap_auto`` turns either into a Python int, rounded up to a multiple
+of ``LANE`` and at least ``LANE`` — with ``exact=True`` the same cap the
+reference planner gives a pinned backend.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.formats import EllCols, EllRows
+from ..core.sccp import count_products, count_products_rows
+
+LANE = 128
+
+
+def product_count(a: EllRows, b: EllCols) -> torch.Tensor:
+    """Exact count of valid SCCP products."""
+    return count_products(a, b)
+
+
+def product_count_rows(a: EllRows, b: EllCols) -> torch.Tensor:
+    """Per-output-row SCCP product counts."""
+    return count_products_rows(a, b)
+
+
+def upper_bound_nnz(a: EllRows, b: EllCols) -> torch.Tensor:
+    """Upper bound on nnz(C): per-row flops clipped to the row width."""
+    return torch.clamp(product_count_rows(a, b),
+                       max=b.n_cols).sum().to(torch.int32)
+
+
+def exact_nnz_rows(a: EllRows, b: EllCols) -> torch.Tensor:
+    """Per-row exact unique-coordinate counts of C (coordinate-only pass):
+    one sort of the broadcast coordinate planes, run heads counted per row."""
+    shape = (a.k, a.n_cols, b.k)
+    row = a.idx[:, :, None].expand(shape).reshape(-1)
+    col = b.idx[None, :, :].expand(shape).reshape(-1)
+    ok = (row >= 0) & (col >= 0)
+    row_s = torch.where(ok, row, a.n_rows).to(torch.int64)  # park invalid last
+    col_s = torch.where(ok, col, 0).to(torch.int64)
+    key = torch.sort((row_s << 32) | (col_s + 2 ** 31)).values
+    head = key != torch.roll(key, 1)
+    head[0] = True
+    row_s = key >> 32
+    head &= row_s < a.n_rows
+    counts = torch.zeros(a.n_rows + 1, dtype=torch.int32, device=key.device)
+    counts.index_add_(0, row_s.clamp(max=a.n_rows), head.to(torch.int32))
+    return counts[: a.n_rows]
+
+
+def exact_nnz(a: EllRows, b: EllCols) -> torch.Tensor:
+    """Exact nnz(C): coordinate-only symbolic pass (one sort, no values)."""
+    return exact_nnz_rows(a, b).sum().to(torch.int32)
+
+
+def out_cap_auto(a: EllRows, b: EllCols, *, exact: bool = True,
+                 slack: float = 1.0) -> int:
+    """Host-side ``out_cap`` from concrete operands: ``exact=True`` runs the
+    coordinate-only sort pass (tight), ``False`` the row-flop bound. Always
+    a multiple of LANE and at least LANE."""
+    nnz = int(exact_nnz(a, b) if exact else upper_bound_nnz(a, b))
+    want = int(-(-int(nnz * slack) // LANE)) * LANE
+    return max(LANE, want)

@@ -1,0 +1,110 @@
+"""The port's CUDA kernels against their plain torch versions, on a GPU.
+
+Every test is marked ``cuda`` and skips where there is no CUDA device (the
+kernels have no CPU mode); the plain versions are themselves held against
+the JAX reference by ``test_torch_kernels.py``. Run on a GPU machine with
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+This file imports no JAX, so it runs where only torch is installed.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels
+from repro_torch.kernels import insitu_search as tis
+from repro_torch.kernels import sccp_multiply as tsm
+
+KI = tis.KEY_INVALID
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _keys(seed, n, hi, dead=0.1):
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, hi, n).astype(np.int32)
+    key[rng.random(n) < dead] = KI
+    return torch.from_numpy(key)
+
+
+@pytest.mark.parametrize("k_a,n,k_b", [(1, 1, 1), (5, 37, 3), (72, 1000, 72),
+                                       (8, 4099, 16)])
+def test_sccp_multiply_kernel(cuda, k_a, n, k_b):
+    rng = np.random.default_rng(n)
+    a_val = torch.from_numpy(rng.standard_normal((k_a, n)).astype(np.float32))
+    b_val = torch.from_numpy(rng.standard_normal((n, k_b)).astype(np.float32))
+    a_idx = torch.from_numpy(rng.integers(-1, 50, (k_a, n)).astype(np.int32))
+    b_idx = torch.from_numpy(rng.integers(-1, 50, (n, k_b)).astype(np.int32))
+    args = [t.to(cuda) for t in (a_val, a_idx, b_val, b_idx)]
+    before = tsm.sccp_multiply.launches
+    got = tsm.sccp_multiply(*args)
+    torch.cuda.synchronize()
+    assert tsm.sccp_multiply.launches == before + 1
+    for g, w in zip(got, tsm.sccp_multiply_plain(*args)):
+        assert torch.equal(g, w)
+    with pytest.raises(TypeError):
+        tsm.sccp_multiply(args[0].double(), *args[1:])
+
+
+@pytest.mark.parametrize("n,tile", [(1, 4096), (2, 4096), (4096, 4096),
+                                    (1 << 13, 4096), (1 << 20, 4096),
+                                    (1 << 12, 64), (1 << 15, 256)])
+def test_emit_sort_kernel(cuda, n, tile):
+    key = _keys(n + tile, n, KI).to(cuda)
+    before = tis.emit_sort_keys.launches
+    got = tis.emit_sort_keys(key, tile=tile)
+    torch.cuda.synchronize()
+    assert tis.emit_sort_keys.launches > before
+    assert torch.equal(got, tis.emit_sort_keys_plain(key))
+    with pytest.raises(ValueError):
+        tis.emit_sort_keys(key[: n - 1] if n > 2 else key, tile=3)
+
+
+@pytest.mark.parametrize("s,u,pad", [(1, 1, 0), (1000, 300, 0),
+                                     (1 << 20, 1 << 16, 1000),
+                                     (4096, 4096, 4096)])
+def test_align_keys_kernel(cuda, s, u, pad):
+    rng = np.random.default_rng(s + u)
+    uk = np.sort(rng.choice(1 << 24, u - pad, replace=False)).astype(np.int32)
+    uk = torch.from_numpy(np.concatenate([uk, np.full(pad, KI, np.int32)]))
+    pk = _keys(u, s, 1 << 24).to(cuda)
+    if u > pad:                                        # plenty of hits
+        pk[: s // 2] = uk[torch.randint(0, u - pad, (s // 2,))].to(cuda)
+    uk = uk.to(cuda)
+    slot, hit = tis.align_keys(pk, uk)
+    slot_p, hit_p = tis.align_keys_plain(pk, uk)
+    torch.cuda.synchronize()
+    assert torch.equal(slot, slot_p) and torch.equal(hit, hit_p)
+
+
+@pytest.mark.parametrize("n,hi,dead", [(1, 8, 0.0), (1000, 4, 0.2),
+                                       (1 << 20, 1 << 30, 0.1),
+                                       (3000, 100, 1.0)])
+def test_minima_mask_kernel(cuda, n, hi, dead):
+    v = _keys(n, n, hi, dead).to(cuda)
+    got = tis.minima_mask(v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tis.minima_mask_plain(v))
+
+
+@pytest.mark.parametrize("cap", [64, 600])
+def test_faithful_emission_matches_batched(cuda, cap):
+    key = _keys(cap, 1024, 500).to(cuda)
+    uk_f, nnz_f = tis.emit_sorted_unique(key, cap, faithful=True)
+    uk_b, nnz_b = tis.emit_sorted_unique(key, cap)
+    assert torch.equal(uk_f, uk_b)
+    n_uniq = int(nnz_b)
+    assert int(nnz_f) == (n_uniq if n_uniq <= cap else cap + 1)
+
+
+def test_launch_counters_reset(cuda):
+    tis.minima_mask(_keys(0, 64, 10).to(cuda))
+    assert kernels.launch_counts()["minima_mask"] > 0
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)

@@ -1,0 +1,152 @@
+"""The kernels' plain torch versions against the JAX reference on the CPU:
+SCCP multiply against ``repro.core.sccp`` and the Pallas kernel in
+interpret mode, and the in-situ-search primitives (emission, alignment,
+minima scan) against ``repro.kernels.insitu_search``, bit for bit,
+truncation and KEY_INVALID lanes included. The CUDA kernels themselves are
+held against these plain versions by ``test_torch_cuda.py`` on a GPU."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from repro.core import ell_cols_from_dense, ell_rows_from_dense
+from repro.core.formats import EllCols, EllRows
+from repro.core.sccp import sccp_multiply as ref_sccp
+from repro.kernels import insitu_search as ref_is
+from repro.kernels.ops import sccp_multiply as ref_sccp_tiled
+from repro.kernels.sccp_multiply import sccp_multiply_pallas
+from repro_torch.kernels import insitu_search as tis
+from repro_torch.kernels import sccp_multiply as tsm
+
+KI = tis.KEY_INVALID
+assert KI == int(ref_is.KEY_INVALID)
+
+
+def _eq(got, want):
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def _planes(seed, m, n, p, density):
+    rng = np.random.default_rng(seed)
+    a = ((rng.random((m, n)) < density)
+         * rng.standard_normal((m, n))).astype(np.float32)
+    b = ((rng.random((n, p)) < density)
+         * rng.standard_normal((n, p))).astype(np.float32)
+    ka = max(1, int((a != 0).sum(0).max()))
+    kb = max(1, int((b != 0).sum(1).max()))
+    ea = ell_rows_from_dense(jnp.array(a), ka)
+    eb = ell_cols_from_dense(jnp.array(b), kb)
+    return [np.asarray(x) for x in (ea.val, ea.idx, eb.val, eb.idx)]
+
+
+@pytest.mark.parametrize("m,n,p,density", [(24, 40, 56, 0.2),
+                                           (16, 57, 9, 0.5),
+                                           (40, 128, 32, 0.1),
+                                           (8, 256, 8, 0.3)])
+def test_sccp_multiply_plain_matches_reference(m, n, p, density):
+    planes = _planes(m * n, m, n, p, density)
+    got = tsm.sccp_multiply(*(torch.from_numpy(x) for x in planes))
+    a_val, a_idx, b_val, b_idx = planes
+    ea = EllRows(val=jnp.asarray(a_val), idx=jnp.asarray(a_idx), n_rows=m)
+    eb = EllCols(val=jnp.asarray(b_val), idx=jnp.asarray(b_idx), n_cols=p)
+    for g, w in zip(got, ref_sccp(ea, eb)):
+        _eq(g, w)
+    # the Pallas kernel itself, interpreted (ragged n padded by ops)
+    tiled = (sccp_multiply_pallas(*map(jnp.asarray, planes), block_n=128,
+                                  interpret=True) if n % 128 == 0 else
+             ref_sccp_tiled(*map(jnp.asarray, planes)))
+    for g, w in zip(got, tiled):
+        _eq(g, w)
+    assert tsm.sccp_multiply.launches == 0          # plain twin on the CPU
+
+
+def _stream(seed, n, hi, n_valid):
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, hi, n).astype(np.int32)
+    key[n_valid:] = KI                              # stream padding lanes
+    return key
+
+
+STREAMS = [(256, 96, 200, 128), (256, 96, 200, 40),   # untruncated, truncated
+           (1024, 1 << 20, 1000, 256), (512, 4096, 512, 64),
+           (64, 8, 0, 16)]                            # all lanes dead
+
+
+@pytest.mark.parametrize("n,hi,n_valid,cap", STREAMS)
+@pytest.mark.parametrize("faithful", [False, True])
+def test_emit_sorted_unique_matches_reference(n, hi, n_valid, cap, faithful):
+    key = _stream(n + hi, n, hi, n_valid)
+    uk, nnz = tis.emit_sorted_unique(torch.from_numpy(key), cap,
+                                     faithful=faithful)
+    ruk, rnnz = ref_is.emit_sorted_unique(jnp.asarray(key), cap,
+                                          interpret=True, faithful=faithful)
+    _eq(uk, ruk)
+    assert uk.dtype == torch.int32 and int(nnz) == int(rnnz)
+    n_uniq = len(np.unique(key[:n_valid]))
+    assert int(nnz) == (n_uniq if not faithful or n_uniq <= cap
+                        else cap + 1)
+
+
+@pytest.mark.parametrize("n,tile", [(1024, 256), (4096, 4096)])
+def test_emit_sort_plain_matches_pallas_network(n, tile):
+    key = _stream(tile, n, 1 << 30, n - 100)
+    got = tis.emit_sort_keys(torch.from_numpy(key))
+    _eq(got, ref_is._emit_sort_keys_pallas(jnp.asarray(key), tile=tile,
+                                           interpret=True))
+    uk, nnz = tis._unique_heads(got, 512)
+    ruk, rnnz = ref_is._unique_heads(jnp.sort(jnp.asarray(key)), 512)
+    _eq(uk, ruk)
+    assert int(nnz) == int(rnnz)
+
+
+@pytest.mark.parametrize("u,pad", [(512, 100), (512, 0), (300, 0), (1, 1)])
+def test_align_keys_matches_reference(u, pad):
+    """slot = #{uk < pk}, hit = pk ∈ uk — dead KEY_INVALID lanes included:
+    they hit exactly when uk has padding."""
+    rng = np.random.default_rng(u + pad)
+    uk = np.sort(rng.choice(1 << 20, u - pad, replace=False)).astype(np.int32)
+    uk = np.concatenate([uk, np.full(pad, KI, np.int32)])
+    pk = np.concatenate([rng.integers(0, 1 << 20, 700).astype(np.int32),
+                         rng.choice(uk[: u - pad], 300) if u > pad else
+                         np.zeros(0, np.int32),
+                         np.full(24, KI, np.int32)]).astype(np.int32)
+    slot, hit = tis.align_keys(torch.from_numpy(pk), torch.from_numpy(uk))
+    rslot, rhit = ref_is.align_keys_xla(jnp.asarray(pk), jnp.asarray(uk))
+    _eq(slot, rslot)
+    _eq(hit, rhit)
+    assert slot.dtype == torch.int32 and hit.dtype == torch.bool
+    assert bool(hit[-1]) == (pad > 0)
+    if u % 512 == 0 or pad:          # the Pallas kernel pads uk otherwise
+        islot, ihit = ref_is.align_keys(jnp.asarray(pk), jnp.asarray(uk),
+                                        interpret=True)
+        _eq(slot, islot)
+        _eq(hit, ihit)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "dead_lanes", "all_dead"])
+def test_minima_mask_matches_bit_serial_reference(case):
+    rng = np.random.default_rng(7)
+    v = rng.integers(0, 1 << 30, 512).astype(np.int32)
+    if case == "ties":
+        v = rng.integers(0, 4, 512).astype(np.int32)
+    if case == "dead_lanes":
+        v[:400] = KI
+    if case == "all_dead":
+        v[:] = KI
+    got = tis.minima_mask(torch.from_numpy(v))
+    _eq(got, ref_is.minima_mask_pallas(jnp.asarray(v), interpret=True))
+    _eq(got, ref_is.minima_mask_xla(jnp.asarray(v)))
+    assert tis.minima_mask.launches == 0
+
+
+def test_search_emit_sorted_matches_reference():
+    v = np.random.default_rng(8).integers(0, 40, 128).astype(np.int32)
+    v[100:] = KI
+    vals, counts = tis.search_emit_sorted(torch.from_numpy(v), 48)
+    rvals, rcounts = ref_is.search_emit_sorted(jnp.asarray(v), 48,
+                                               interpret=True)
+    _eq(vals, rvals)
+    _eq(counts, rcounts)
