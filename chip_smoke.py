@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--seed N]
 
 Builds every CUDA kernel from ``src/repro_torch/csrc`` and drives the port's
-cold single-device SpGEMM at a real size: C = A·Aᵀ for the paper's Table-I
+cold single-device SpGEMM, through all five ported accumulators ('sort',
+'search', 'tiled', 'bucket', 'hash'), at a real size: C = A·Aᵀ for the
+paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
 this script keeps its own copy and imports nothing of the JAX package).
@@ -17,15 +19,18 @@ Phases (any failure exits non-zero before the last line):
 2. Each kernel against its plain torch version on the card, at the shapes
    the main path gives it, bit for bit, with its time, the plain version's
    time, one library call's time where one computes the same function, and
-   the least time the card could take (``bound_ms``).
+   the least time the card could take (``bound_ms``). The planner's sizes
+   for the 'bucket' and 'hash' paths are printed first (``[plan]``).
 3. The main path through the front door, with the launch counters zeroed
    just before each path and read just after: ``spgemm(a, b, check=True)``
-   (``'sort'``), ``spgemm(a, b, accumulator="search", check=True)``, and the
-   faithful Alg. 1 emission (``search_merge(faithful=True)``) on a
-   one-column cut of A. The two full outputs must be bit-identical, hold
-   exactly nnz(C) groups, and equal scipy's A @ Aᵀ.
-4. A ``kernels`` JSON line, the end-to-end times, the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+   (``'sort'``), ``spgemm(a, b, accumulator=X, check=True)`` for X in
+   ``'search'``, ``'tiled'``, ``'bucket'`` and ``'hash'``, and the faithful
+   Alg. 1 emission (``search_merge(faithful=True)``) on a one-column cut of
+   A. The five full outputs must be bit-identical, hold exactly nnz(C)
+   groups, and equal scipy's A @ Aᵀ.
+4. A ``kernels`` JSON line, the end-to-end times and the stage split, the
+   card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -44,6 +49,8 @@ REPO = Path(__file__).resolve().parent
 # Table I row 3 of the paper, as in benchmarks/common.py:
 # (id, name, dim, nnz, nnz_av, sigma)
 BCSSTK32 = (3, "bcsstk32", 45_000, 2_000_000, 45.2, 15.48)
+
+ACCUMULATORS = ("sort", "search", "tiled", "bucket", "hash")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the CUDA-core fp32
 # rate, the table's nearest entry for the int32 compares these kernels do.
@@ -260,6 +267,144 @@ def check_kernels(a, b, a_cut, b_cut) -> list:
     return rows
 
 
+def plan_sizes(a, b, nnz_c: int):
+    """The planner's blocking sizes for this operand, with the histogram
+    maxima they come from; printed as the ``[plan]`` line."""
+    from repro_torch.plan.planner import make_plan
+    from repro_torch.plan.symbolic import per_row_counts
+    plan = make_plan(a, b, backend="hash")
+    prod, uniq = (x.cpu().numpy() for x in per_row_counts(a, b))
+    rpb = -(-a.n_rows // plan.n_buckets)
+
+    def largest(per_row):
+        return int(np.pad(per_row, (0, plan.n_buckets * rpb - a.n_rows))
+                   .reshape(plan.n_buckets, rpb).sum(axis=1).max())
+
+    lanes = a.k * a.n_cols * b.k
+    pot = 1 << (lanes - 1).bit_length()
+    info = dict(lanes=lanes, stream_pot=pot, n_buckets=plan.n_buckets,
+                rows_per_bucket=rpb, largest_bucket_products=largest(prod),
+                bucket_cap=plan.bucket_cap,
+                bucket_lanes=plan.n_buckets * plan.bucket_cap,
+                n_blocks=plan.n_blocks, largest_block_uniques=largest(uniq),
+                block_cap=plan.block_cap,
+                table_slots=plan.n_blocks * plan.block_cap,
+                largest_block_load=largest(uniq) / plan.block_cap,
+                table_load=nnz_c / (plan.n_blocks * plan.block_cap),
+                tiled_tile=plan.tile,
+                tiled_merge_levels=(pot // plan.tile).bit_length() - 1,
+                out_cap=plan.out_cap)
+    print(f"[plan] {json.dumps(info)}", flush=True)
+    return plan
+
+
+def check_accumulator_kernels(a, b, plan) -> list:
+    """K5 (row sort), K6 (merge level) and K7 (bucket rank) against their
+    plain versions at the shapes the 'tiled', 'bucket' and 'hash' paths give
+    them: K5 at 4,096-lane rows over the packed stream, at ``bucket_cap``
+    rows over the binned buckets and at ``block_cap`` rows over the hash
+    tables; K6 at the merge tree's first and last level; K7 over every
+    lane's bucket id."""
+    import torch
+    from repro_torch.core.sccp import sccp_multiply
+    from repro_torch.kernels import bitonic_merge as bm
+    from repro_torch.kernels import hash_accum as ha
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import radix_bucket as rb
+
+    val, row, col = sccp_multiply(a, b)
+    key, v = ops._packed_stream(row, col, val, a.n_rows, b.n_cols)
+    del val, row, col
+    torch.cuda.empty_cache()
+    n = key.numel()
+    kpb = rb.bucket_bounds(a.n_rows, b.n_cols, plan.n_buckets)
+
+    def pair(name, kernel, plain, library, shape, n_bytes, n_ops):
+        got, want = kernel(), plain()
+        err = max(same(f"{name} key {shape}", got[0], want[0]),
+                  same(f"{name} total {shape}", got[1], want[1]))
+        del got, want
+        t, by = bound(n_bytes, n_ops)
+        r = dict(shape=shape, max_abs_err=err, ms=cuda_ms(kernel, 3),
+                 plain_ms=cuda_ms(plain, 2), library_ms=cuda_ms(library, 3),
+                 bound_ms=t, bound_by=by)
+        print(f"[kernel] {name} {shape}: bit-identical, {json.dumps(r)}",
+              flush=True)
+        return r
+
+    def sort_shape(what, k, w, tile):
+        log = tile.bit_length() - 1
+        return pair("sort_tiles", lambda: bm.sort_tiles(k, w, tile=tile),
+                    lambda: bm.sort_tiles_plain(k, w, tile=tile),
+                    lambda: torch.sort(k.view(-1, tile), dim=1),
+                    f"{what}: rows of {tile} over {k.numel()}",
+                    16 * k.numel(), k.numel() // 2 * log * (log + 1) // 2)
+
+    # K5 at its three main-path shapes
+    shapes = [sort_shape("tiled", key, v, plan.tile)]
+    bk, bv, _ = rb.bin_stream(key, v, n_buckets=plan.n_buckets,
+                              bucket_cap=plan.bucket_cap, keys_per_bucket=kpb)
+    shapes.append(sort_shape("bucket", bk, bv, plan.bucket_cap))
+    del bk, bv
+    tk, tv, _ = ha.hash_tables(key, v, n_blocks=plan.n_blocks,
+                               block_cap=plan.block_cap, keys_per_block=kpb)
+    shapes.append(sort_shape("hash", tk, tv, plan.block_cap))
+    del tk, tv
+    torch.cuda.empty_cache()
+
+    # K6 at the merge tree's first and last level; the whole tree's time
+    def merge_level(k, w, run):
+        return pair("merge_runs", lambda: bm.merge_runs(k, w, run=run),
+                    lambda: bm.merge_runs_plain(k, w, run=run),
+                    lambda: torch.sort(k.view(-1, 2 * run), dim=1),
+                    f"level run={run} over {k.numel()}", 16 * k.numel(),
+                    k.numel() // 2 * ((2 * run).bit_length() - 1))
+
+    k1, t1 = bm.sort_tiles(key, v, tile=plan.tile)
+    levels = [merge_level(k1, t1, plan.tile)]
+    run = plan.tile
+    while run < n // 2:
+        k1, t1 = bm.merge_runs(k1, t1, run=run)
+        run *= 2
+    levels.append(merge_level(k1, t1, run))
+    del k1, t1
+    torch.cuda.empty_cache()
+    tree_ms = cuda_ms(lambda: bm.sort_merge_tree(key, v, tile=plan.tile), 2)
+    print(f"[kernel] merge tree (K5 + {(n // plan.tile).bit_length() - 1} "
+          f"K6 levels) over {n}: {tree_ms:.3f} ms", flush=True)
+
+    # K7 over every lane's bucket id
+    bid = torch.where(key != ops.KEY_INVALID, key // kpb, -1).clamp(
+        max=plan.n_buckets - 1).to(torch.int32)
+    err = same("bin_ranks", rb.bin_ranks(bid, n_buckets=plan.n_buckets),
+               rb.bin_ranks_plain(bid, n_buckets=plan.n_buckets))
+    t, by = bound(8 * n, n)
+    rank = dict(shape=f"({n},) ids of {plan.n_buckets} buckets",
+                max_abs_err=err,
+                ms=cuda_ms(lambda: rb.bin_ranks(bid, n_buckets=plan.n_buckets),
+                           3),
+                plain_ms=cuda_ms(lambda: rb.bin_ranks_plain(
+                    bid, n_buckets=plan.n_buckets), 2),
+                library_ms=None, bound_ms=t, bound_by=by)
+    print(f"[kernel] bin_ranks {rank['shape']}: bit-identical, "
+          f"{json.dumps(rank)}", flush=True)
+    del key, v, bid
+    torch.cuda.empty_cache()
+
+    src = "src/repro_torch/csrc/bitonic_merge.cu"
+    return [
+        dict(name="sort_tiles", route="cuda", source=src,
+             replaces="src/repro/kernels/bitonic_merge.py:151",
+             **shapes[0], shapes=shapes),
+        dict(name="merge_runs", route="cuda", source=src,
+             replaces="src/repro/kernels/bitonic_merge.py:162",
+             **levels[0], shapes=levels, tree_ms=tree_ms),
+        dict(name="bin_ranks", route="cuda",
+             source="src/repro_torch/csrc/radix_bucket.cu",
+             replaces="src/repro/kernels/radix_bucket.py:49", **rank),
+    ]
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -289,6 +434,9 @@ def drive_paths(a, b, a_cut, b_cut):
                                              check=True),
         "search_faithful_cut": faithful,
     }
+    for acc in ACCUMULATORS[2:]:
+        paths[acc] = (lambda acc=acc: repro_torch.spgemm(
+            a, b, accumulator=acc, check=True))
     counts, out = {}, {}
     for name, fn in paths.items():
         torch.cuda.synchronize()
@@ -305,10 +453,15 @@ def drive_paths(a, b, a_cut, b_cut):
 
 def stage_ms(a, b) -> dict:
     """Host-clock ms of each stage of one cold call, each synchronised: the
-    symbolic out_cap pass, the SCCP multiply, and each accumulation."""
+    symbolic out_cap pass (and the planner's, which 'bucket' and 'hash' pay
+    instead), the SCCP multiply, each accumulation, and the torch parts of
+    'bucket' and 'hash' before their table sort (the binning, the probe
+    loop)."""
     import torch
     from repro_torch.core.sccp import sccp_multiply
     from repro_torch.core.spgemm import accumulate_stream
+    from repro_torch.kernels import hash_accum, ops, radix_bucket
+    from repro_torch.plan.planner import make_plan
     from repro_torch.plan.symbolic import out_cap_auto
 
     def timed(fn):
@@ -319,11 +472,23 @@ def stage_ms(a, b) -> dict:
         return out, (time.perf_counter() - t0) * 1e3
 
     cap, t_sym = timed(lambda: out_cap_auto(a, b))
+    plan, t_plan = timed(lambda: make_plan(a, b, backend="bucket"))
     (val, row, col), t_mul = timed(lambda: sccp_multiply(a, b))
-    st = {"symbolic_out_cap": t_sym, "sccp_multiply": t_mul}
-    for acc in ("sort", "search"):
+    st = {"symbolic_out_cap": t_sym, "make_plan": t_plan,
+          "sccp_multiply": t_mul}
+    for acc in ACCUMULATORS:
         _, st[f"accumulate_{acc}"] = timed(lambda: accumulate_stream(
-            row, col, val, cap, a.n_rows, b.n_cols, backend=acc))
+            row, col, val, cap, a.n_rows, b.n_cols, backend=acc, plan=plan))
+    (key, v), st["pack_stream"] = timed(lambda: ops._packed_stream(
+        row, col, val, a.n_rows, b.n_cols))
+    del val, row, col
+    kpb = radix_bucket.bucket_bounds(a.n_rows, b.n_cols, plan.n_buckets)
+    _, st["bucket_bin_stream"] = timed(lambda: radix_bucket.bin_stream(
+        key, v, n_buckets=plan.n_buckets, bucket_cap=plan.bucket_cap,
+        keys_per_bucket=kpb))
+    _, st["hash_tables"] = timed(lambda: hash_accum.hash_tables(
+        key, v, n_blocks=plan.n_blocks, block_cap=plan.block_cap,
+        keys_per_block=kpb))
     return st
 
 
@@ -413,6 +578,8 @@ def main(argv=None) -> int:
 
     # -- phase 2: kernels against their plain versions ------------------------
     rows = check_kernels(a, b, a_cut, b_cut)
+    plan = plan_sizes(a, b, nnz_c)
+    rows += check_accumulator_kernels(a, b, plan)
 
     # -- phase 3: the main path -------------------------------------------------
     counts, out = drive_paths(a, b, a_cut, b_cut)
@@ -421,12 +588,22 @@ def main(argv=None) -> int:
         require(counts["search"][kname] > 0, f"search path skipped {kname}")
     require(counts["search_faithful_cut"]["minima_mask"] > 0,
             "faithful path skipped minima_mask")
-    c_sort, c_search = out["sort"][0], out["search"][0]
-    for f in ("row", "col", "val", "ngroups"):
-        same(f"sort vs search .{f}", getattr(c_search, f), getattr(c_sort, f))
+    for acc, kernels_run in (("tiled", ("sccp_multiply", "sort_tiles",
+                                        "merge_runs")),
+                             ("bucket", ("sccp_multiply", "bin_ranks",
+                                         "sort_tiles")),
+                             ("hash", ("sccp_multiply", "sort_tiles"))):
+        for kname in kernels_run:
+            require(counts[acc][kname] > 0, f"{acc} path skipped {kname}")
+    c_sort = out["sort"][0]
     check_against_scipy("sort", c_sort, c_ref, nnz_c)
-    print(f"[check] sort == search bit for bit; ngroups {nnz_c} == nnz(C); "
-          "values == scipy A @ A.T", flush=True)
+    for acc in ACCUMULATORS[1:]:
+        for f in ("row", "col", "val", "ngroups"):
+            same(f"sort vs {acc} .{f}", getattr(out[acc][0], f),
+                 getattr(c_sort, f))
+    print(f"[check] sort == scipy A @ A.T, ngroups {nnz_c} == nnz(C); "
+          f"{', '.join(ACCUMULATORS[1:])} == sort bit for bit (row, col, "
+          "val, ngroups)", flush=True)
     c_f = out["search_faithful_cut"][0]
     A_cut64 = A_cut.astype(np.float64)
     cut_ref = (A_cut64 @ A_cut64.T).tocsr()
@@ -438,12 +615,12 @@ def main(argv=None) -> int:
         same(f"faithful vs batched .{f}", getattr(c_f, f), getattr(c_fb, f))
     print(f"[check] faithful cut (column {cut}): == batched search, == scipy",
           flush=True)
-    del out, c_sort, c_search, c_f, c_fb
+    del out, c_sort, c_f, c_fb
     torch.cuda.empty_cache()
 
     # -- end-to-end times, three more calls each ------------------------------
     e2e = {}
-    for acc in ("sort", "search"):
+    for acc in ACCUMULATORS:
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -461,9 +638,10 @@ def main(argv=None) -> int:
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
-          flush=True)
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "shapes", "tree_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

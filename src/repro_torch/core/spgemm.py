@@ -1,11 +1,18 @@
 """End-to-end SPLIM SpGEMM: SCCP multiply → in-situ-search-style accumulate,
 mirroring the cold single-device subset of ``src/repro/core/spgemm.py``.
 
-  * ``spgemm_coo``       — C = A·B as sorted COO with the ``'sort'`` (default)
-                           or ``'search'`` accumulation (the paper's own
-                           Alg. 1 / Fig. 11, kernels/insitu_search.py);
+  * ``spgemm_coo``       — C = A·B as sorted COO. Five accumulation backends:
+                           ``'sort'`` (the default, a two-key sort),
+                           ``'tiled'`` (the bitonic merge tree,
+                           kernels.ops.sort_merge), ``'bucket'`` (propagation
+                           blocking, kernels.radix_bucket), ``'hash'``
+                           (per-row-block open addressing,
+                           kernels.hash_accum) and ``'search'`` (the paper's
+                           own Alg. 1 / Fig. 11, kernels.insitu_search);
                            ``out_cap='auto'`` sizes the output symbolically,
-                           ``check=True`` raises on truncation.
+                           a ``plan`` (plan.make_plan) supplies the cap and
+                           the blocking sizes, ``check=True`` raises on
+                           truncation or a backend drop.
   * ``spgemm_dense``     — C dense via the same structured multiply.
   * ``spgemm_streaming`` — loop over A slabs, scatter-accumulating dense C.
   * ``spgemm_coo_batched`` / ``spgemm_dense_batched`` — a loop over a
@@ -17,8 +24,12 @@ Backends, options and phases that later slices port raise
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from ..kernels import ops
+from ..kernels.insitu_search import KEY_INVALID
 from .accumulate import accumulate, check_no_overflow, scatter_dense
 from .formats import (INVALID, Coo, EllCols, EllRows, ell_cols_from_dense,
                       ell_rows_from_dense)
@@ -27,12 +38,8 @@ from .sccp import sccp_multiply, sccp_multiply_slab
 KEY_SPACE = 2 ** 31 - 1     # packed int32 keys span n_rows·n_cols below this
 BACKENDS = ("sort", "tiled", "bucket", "hash", "stream", "search")
 _LATER = {
-    "tiled": "ROADMAP queue 1 item 4 (remaining accumulators)",
-    "bucket": "ROADMAP queue 1 item 4 (remaining accumulators)",
-    "hash": "ROADMAP queue 1 item 4 (remaining accumulators)",
     "stream": "ROADMAP queue 1 item 5 (streaming engine)",
-    "auto": "ROADMAP queue 1 item 3 (planner)",
-    "plan": "ROADMAP queue 1 item 3 (planner)",
+    "auto": "ROADMAP queue 1 item 3 (planner: backend selection)",
     "structure": "ROADMAP queue 1 item 3 (warm numeric phase)",
     "mesh": "ROADMAP queue 1 item 9 (distributed SpGEMM)",
     "stream_cap": "ROADMAP queue 1 item 5 (streaming engine)",
@@ -54,6 +61,29 @@ def _poison_overflow(coo: Coo, dropped: torch.Tensor) -> Coo:
                ngroups=ng)
 
 
+def _coo_from_merged(key: torch.Tensor, tot: torch.Tensor, out_cap: int,
+                     n_rows: int, n_cols: int) -> Coo:
+    """Compact a merged stream (sorted keys, run-tail totals) to COO.
+
+    The tails are already in ascending key order, so a cumsum gives each its
+    output slot directly (no re-sort). Non-tail lanes and groups past
+    ``out_cap`` park in a discarded dump slot; the last lane's successor is
+    the run-tail sentinel KEY_INVALID−1, so a valid last lane is a tail."""
+    nxt = torch.cat([key[1:], key.new_full((1,), KEY_INVALID - 1)])
+    tail = (key != nxt) & (key != KEY_INVALID)
+    dst = torch.where(tail, torch.cumsum(tail, 0) - 1, out_cap)
+    dst = torch.clamp(dst, max=out_cap)
+
+    def scatter(src, fill):
+        out = src.new_full((out_cap + 1,), fill)
+        return out.scatter_(0, dst, src)[:out_cap]
+
+    return Coo(row=scatter((key // n_cols).to(torch.int32), INVALID),
+               col=scatter((key % n_cols).to(torch.int32), INVALID),
+               val=scatter(tot, 0), shape=(n_rows, n_cols),
+               ngroups=tail.sum(dtype=torch.int32))
+
+
 def _coo_from_slots(key: torch.Tensor, sums: torch.Tensor, nnz: torch.Tensor,
                     *, out_cap: int, n_rows: int, n_cols: int) -> Coo:
     """Dress segment-summed slot values in the sorted-COO contract:
@@ -69,43 +99,91 @@ def _coo_from_slots(key: torch.Tensor, sums: torch.Tensor, nnz: torch.Tensor,
 
 def accumulate_stream(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
                       out_cap: int, n_rows: int, n_cols: int, *,
-                      backend: str = "sort") -> Coo:
+                      backend: str = "sort", tile: int = 4096,
+                      plan=None) -> Coo:
     """Run one accumulation backend over a raw product stream → sorted COO
-    (the backend-dispatch half of ``spgemm_coo``)."""
+    (the backend-dispatch half of ``spgemm_coo``). ``plan`` supplies the
+    bucket and table sizes; products a backend drops poison
+    ``Coo.ngroups``."""
     if backend == "sort":
         return accumulate(row, col, val, out_cap, n_rows, n_cols)
+    if backend == "tiled":
+        key, tot = ops.sort_merge(row, col, val, n_rows, n_cols, tile=tile)
+        return _coo_from_merged(key, tot, out_cap, n_rows, n_cols)
     if backend == "search":
         # Paper Alg. 1 / Fig. 11: emit the sorted unique keys, align every
         # product against them — values are never sorted. Truncation keeps
         # the first out_cap unique keys and flags via nnz > out_cap.
-        from ..kernels import ops
         uk, sums, nnz = ops.search_merge(row, col, val, n_rows, n_cols,
                                          out_cap=out_cap)
         return _coo_from_slots(uk, sums, nnz, out_cap=out_cap,
                                n_rows=n_rows, n_cols=n_cols)
+    if backend == "bucket":
+        kw = dict(n_buckets=plan.n_buckets, bucket_cap=plan.bucket_cap) \
+            if plan is not None else {}
+        key, tot, dropped = ops.bucket_merge(row, col, val, n_rows, n_cols,
+                                             **kw)
+        return _poison_overflow(
+            _coo_from_merged(key, tot, out_cap, n_rows, n_cols), dropped)
+    if backend == "hash":
+        kw = dict(n_blocks=plan.n_blocks, block_cap=plan.block_cap,
+                  max_probes=plan.max_probes) if plan is not None else {}
+        key, tot, dropped = ops.hash_merge(row, col, val, n_rows, n_cols,
+                                           **kw)
+        return _poison_overflow(
+            _coo_from_merged(key, tot, out_cap, n_rows, n_cols), dropped)
     if backend in _LATER:
         _not_ported(f"accumulator {backend!r}", backend)
     raise ValueError(f"unknown accumulator {backend!r}")
 
 
+def _validate_plan_fp(plan, a: EllRows, b: EllCols) -> None:
+    """Raise on a stale plan: its sparsity fingerprint must match the
+    operands'. Skipped for ``fp=None`` (deliberate reuse, and the batched
+    path's representative-slice plan)."""
+    fp = getattr(plan, "fp", None)
+    if fp is None:
+        return
+    from ..plan.structure import fingerprint
+    got = fingerprint(a, b)
+    if got != fp:
+        raise ValueError(
+            f"stale plan: operands' sparsity fingerprint {got[:12]}… differs "
+            f"from the plan's {fp[:12]}… — the pattern the plan's capacities "
+            "were sized for changed, which silently truncates or poisons the "
+            "output. Rebuild with plan.make_plan on the new operands, or opt "
+            "out for deliberate cross-pattern reuse with "
+            "dataclasses.replace(plan, fp=None) (size slack accordingly)")
+
+
 def spgemm_coo(a: EllRows, b: EllCols, out_cap="auto", *,
-               accumulator: str | None = None, check: bool = False,
-               plan=None) -> Coo:
+               accumulator: str | None = None, tile: int | None = None,
+               check: bool = False, plan=None) -> Coo:
     """Sorted-COO SpGEMM (paper Fig. 7-11 pipeline, single device).
 
     Prefer ``repro_torch.spgemm(a, b, ...)``. ``out_cap`` is the static
-    output capacity, or ``'auto'`` to size it with the exact symbolic pass
-    (``plan.symbolic.out_cap_auto``). ``accumulator`` is ``'sort'``
-    (``None`` defaults to it) or ``'search'``; output spaces with
-    ``n_rows·n_cols ≥ 2³¹−1`` reroute to ``'sort'``, whose two-key sort is
-    the only lossless realization there. ``check=True`` raises
-    ``AccumulatorOverflow`` on truncation.
+    output capacity, or ``'auto'`` to size it with the exact symbolic pass.
+    ``accumulator`` is ``'sort'`` (``None`` defaults to it), ``'tiled'``,
+    ``'bucket'``, ``'hash'`` or ``'search'``. A ``plan`` (``plan.make_plan``,
+    of either package) supplies ``out_cap``, the backend, ``tile`` and the
+    blocking sizes, explicit arguments winning; it must have been sized for
+    these operands' pattern. Without a plan, ``'bucket'`` and ``'hash'``
+    with ``out_cap='auto'`` plan their sizes in the same symbolic pass; with
+    an int ``out_cap`` they take one stream-sized bucket or table. Output
+    spaces with ``n_rows·n_cols ≥ 2³¹−1`` reroute to ``'sort'``, whose
+    two-key sort is the only lossless realization there. ``check=True``
+    raises ``AccumulatorOverflow`` on truncation or a backend drop.
     """
     if plan is not None:
-        _not_ported("plan=", "plan")
+        _validate_plan_fp(plan, a, b)
+        out_cap = plan.out_cap if out_cap == "auto" else out_cap
+        accumulator = plan.backend if accumulator in (None, "auto") \
+            else accumulator
+        tile = plan.tile if tile is None else tile
     if accumulator == "auto":
         _not_ported("accumulator='auto'", "auto")
     accumulator = accumulator or "sort"
+    tile = tile or 4096
     if accumulator not in BACKENDS:
         raise ValueError(f"unknown accumulator {accumulator!r}")
     if a.n_rows * b.n_cols >= KEY_SPACE:
@@ -113,11 +191,16 @@ def spgemm_coo(a: EllRows, b: EllCols, out_cap="auto", *,
     if accumulator in _LATER:
         _not_ported(f"accumulator {accumulator!r}", accumulator)
     if out_cap == "auto":
-        from ..plan.symbolic import out_cap_auto
-        out_cap = out_cap_auto(a, b, exact=True)
+        if accumulator in ("bucket", "hash"):
+            from ..plan.planner import make_plan
+            plan = make_plan(a, b, backend=accumulator)
+            out_cap = plan.out_cap
+        else:
+            from ..plan.symbolic import out_cap_auto
+            out_cap = out_cap_auto(a, b, exact=True)
     val, row, col = sccp_multiply(a, b)
     coo = accumulate_stream(row, col, val, out_cap, a.n_rows, b.n_cols,
-                            backend=accumulator)
+                            backend=accumulator, tile=tile, plan=plan)
     if check:
         coo = check_no_overflow(coo)
     return coo
@@ -147,19 +230,23 @@ def _slices(a: EllRows, b: EllCols):
 
 
 def spgemm_coo_batched(a: EllRows, b: EllCols, out_cap="auto", *,
-                       accumulator: str | None = None, check: bool = False,
+                       accumulator: str | None = None,
+                       tile: int | None = None, check: bool = False,
                        plan=None) -> Coo:
     """Batched C[i] = A[i]·B[i] over a leading batch axis of the ELLPACK
     planes (shared n_rows/n_cols/k/caps). Every leaf of the result,
     ``ngroups`` included, has the batch as its leading axis. Needs a
-    concrete ``out_cap`` and backend; ``check`` runs once on the batch."""
-    if plan is not None:
-        _not_ported("plan=", "plan")
-    if accumulator == "auto" or out_cap == "auto":
+    concrete ``out_cap`` and backend, or a ``plan`` built with
+    ``plan.make_plan`` on a representative slice (its fingerprint is not
+    checked against the batch); ``check`` runs once on the batch."""
+    if plan is None and (accumulator == "auto" or out_cap == "auto"):
         raise ValueError("batched spgemm needs a concrete out_cap/backend: "
-                         "size one with plan.symbolic.out_cap_auto on a "
-                         "representative slice")
-    coos = [spgemm_coo(ai, bi, out_cap, accumulator=accumulator)
+                         "build one with plan.make_plan on a representative "
+                         "slice and pass plan=")
+    if plan is not None:
+        plan = dataclasses.replace(plan, fp=None)
+    coos = [spgemm_coo(ai, bi, out_cap, accumulator=accumulator, tile=tile,
+                       plan=plan)
             for ai, bi in _slices(a, b)]
     coo = Coo(row=torch.stack([c.row for c in coos]),
               col=torch.stack([c.col for c in coos]),

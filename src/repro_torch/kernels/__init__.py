@@ -3,20 +3,28 @@
   sccp_multiply — structured slab-pair multiply (paper Fig. 8)
   insitu_search — the paper's Alg. 1 / Fig. 11: emission sort, alignment
                   search, bit-serial minima scan
-  ops           — stream packing and the 'search' accumulation
+  bitonic_merge — the (key, value) row sort and merge-tree level with
+                  run-tail totals ('tiled', and the bucket/table sort)
+  radix_bucket  — stable binning ranks and propagation blocking ('bucket')
+  hash_accum    — open-addressing tables, probed in torch ('hash')
+  ops           — stream packing and the packed-key accumulations
   _build        — nvcc build of ``csrc/*.cu`` into ctypes libraries
 
 ``launch_counts`` reads, and ``reset_launch_counts`` zeroes, the launch
-counter of every kernel wrapper; a wrapper counts only real kernel launches,
-never its plain twin.
+counter of every kernel wrapper; a wrapper counts only real kernel launches
+(one per grid), never its plain twin.
 """
-from . import insitu_search, ops, sccp_multiply
+from . import (bitonic_merge, hash_accum, insitu_search, ops, radix_bucket,
+               sccp_multiply)
 
 WRAPPERS = {
     "sccp_multiply": sccp_multiply.sccp_multiply,
     "emit_sort": insitu_search.emit_sort_keys,
     "align_keys": insitu_search.align_keys,
     "minima_mask": insitu_search.minima_mask,
+    "sort_tiles": bitonic_merge.sort_tiles,
+    "merge_runs": bitonic_merge.merge_runs,
+    "bin_ranks": radix_bucket.bin_ranks,
 }
 
 
@@ -29,5 +37,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["WRAPPERS", "insitu_search", "launch_counts", "ops",
-           "reset_launch_counts", "sccp_multiply"]
+__all__ = ["WRAPPERS", "bitonic_merge", "hash_accum", "insitu_search",
+           "launch_counts", "ops", "radix_bucket", "reset_launch_counts",
+           "sccp_multiply"]

@@ -1,0 +1,170 @@
+"""The bitonic (key, value) network on Hopper: row sort + run-tail totals,
+one merge-tree level, and the blocked sort of a whole stream.
+
+Mirrors ``src/repro/kernels/bitonic_merge.py``. Two CUDA kernels
+(``csrc/bitonic_merge.cu``), each with a plain torch twin here and a launch
+counter on its wrapper (one per grid):
+
+* ``sort_tiles`` replaces ``_make_sort_kernel``: every power-of-two row of
+  ``tile`` (int32 key, float32 value) pairs sorted ascending, then each run
+  of equal keys leaves its value total on its last lane and 0 elsewhere. Row
+  tails are row-local: a row's last lane is a tail even when the next row
+  starts with the same key. Plain twin: ``torch.sort`` on the
+  ``(n/tile, tile)`` view, then the segmented total (``sort_tiles_xla``).
+* ``merge_runs`` replaces ``_make_merge_kernel``: adjacent ascending
+  coalesced runs of ``run`` lanes merged into rows of ``2·run`` by one
+  bitonic merge network, then the totals. Plain twin: ``torch.sort`` on the
+  ``(n/2run, 2run)`` view, then the segmented total.
+
+Both are bound by bytes. Strides below a 4,096-pair shared-memory tile run in
+one tile pass, each larger stride is one coalesced pass over device memory,
+and the totals are one more grid in which each run's tail walks back over its
+run. Each wrapper launches its kernels for CUDA tensors and runs the plain twin
+only for tensors the caller put on the CPU.
+
+Keys are KEY_INVALID on dead lanes, which sort last and carry total 0. On
+integer-valued inputs every total is exact, so the kernel and the plain twin
+agree bit for bit; on float inputs they sum a run in different orders.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .insitu_search import KEY_INVALID, next_pot
+
+_KEY_FILL = -2            # never a packed coordinate (>= 0) nor KEY_INVALID
+_LIB = "bitonic_merge"
+
+
+def _shift_right(x: torch.Tensor, d: int, fill) -> torch.Tensor:
+    pad = x.new_full(x.shape[:-1] + (d,), fill)
+    return torch.cat([pad, x[..., :-d]], dim=-1)
+
+
+def _segmented_total_rows(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Along the last (power-of-two) axis: the inclusive log-step segmented
+    scan, then each run's total kept on its tail lane, 0 elsewhere. Tails
+    are row-local and KEY_INVALID lanes get 0."""
+    for p in range(key.shape[-1].bit_length() - 1):
+        d = 1 << p
+        same = _shift_right(key, d, _KEY_FILL) == key
+        val = val + torch.where(same, _shift_right(val, d, 0), 0)
+    nxt = torch.cat([key[..., 1:],
+                     key.new_full(key.shape[:-1] + (1,), KEY_INVALID - 1)],
+                    dim=-1)
+    return torch.where((key != nxt) & (key != KEY_INVALID), val, 0)
+
+
+def _sort_rows_plain(key: torch.Tensor, val: torch.Tensor, row: int):
+    k2, order = torch.sort(key.reshape(-1, row), dim=1, stable=True)
+    v2 = torch.gather(val.reshape(-1, row), 1, order)
+    return k2.reshape(-1), _segmented_total_rows(k2, v2).reshape(-1)
+
+
+def sort_tiles_plain(key: torch.Tensor, val: torch.Tensor, *, tile: int):
+    return _sort_rows_plain(key, val, tile)
+
+
+def merge_runs_plain(key: torch.Tensor, val: torch.Tensor, *, run: int):
+    return _sort_rows_plain(key, val, 2 * run)
+
+
+def _rows(name: str, key: torch.Tensor, val: torch.Tensor, row: int) -> bool:
+    """Check the shapes; True for CUDA operands (kernel), False for CPU ones
+    (plain twin). Raises on anything the kernel does not take."""
+    n = key.numel()
+    if key.shape != val.shape or key.dim() != 1:
+        raise ValueError(f"{name}: key {tuple(key.shape)} and value "
+                         f"{tuple(val.shape)} must be one 1-D length")
+    if row < 1 or row & (row - 1) or n % row:
+        raise ValueError(f"{name}: rows of {row} must be a power of two "
+                         f"dividing the stream length {n}")
+    if key.device != val.device:
+        raise ValueError(f"{name}: operands on {key.device} and {val.device}")
+    if key.device.type == "cpu":
+        return False
+    if key.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {key.device}")
+    if key.dtype != torch.int32 or val.dtype != torch.float32 \
+            or not key.is_contiguous() or not val.is_contiguous():
+        raise TypeError(f"{name} kernel takes contiguous int32 keys and "
+                        f"float32 values, got {key.dtype}/{val.dtype}")
+    return True
+
+
+def _launch(wrapper, entry: str, key: torch.Tensor, val: torch.Tensor,
+            size: int):
+    """Run ``entry`` (sort_tiles_f32 / merge_runs_f32) on the current stream:
+    keys into a new tensor, values sorted into scratch, totals out."""
+    lib = _build.library(_LIB)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + \
+        [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    k_out = torch.empty_like(key)
+    v_sorted = torch.empty_like(val)
+    tot = torch.empty_like(val)
+    grids = ctypes.c_int(0)
+    with torch.cuda.device(key.device):
+        err = fn(key.data_ptr(), val.data_ptr(), k_out.data_ptr(),
+                 v_sorted.data_ptr(), tot.data_ptr(), key.numel(), size,
+                 ctypes.byref(grids),
+                 torch.cuda.current_stream(key.device).cuda_stream)
+    wrapper.launches += grids.value
+    _build.check(lib, _LIB, err)
+    return k_out, tot
+
+
+def sort_tiles(key: torch.Tensor, val: torch.Tensor, *, tile: int):
+    """Sort every length-``tile`` row of (key, val) ascending and coalesce:
+    returns ``(key_sorted, totals)``, run tails carrying totals, rest 0."""
+    if not _rows("sort_tiles", key, val, tile):
+        return sort_tiles_plain(key, val, tile=tile)
+    return _launch(sort_tiles, "sort_tiles_f32", key, val, tile)
+
+
+sort_tiles.launches = 0
+
+
+def merge_runs(key: torch.Tensor, val: torch.Tensor, *, run: int):
+    """One merge-tree level: adjacent sorted, coalesced runs of ``run``
+    lanes → sorted, coalesced runs of ``2·run``."""
+    if not _rows("merge_runs", key, val, 2 * run):
+        return merge_runs_plain(key, val, run=run)
+    return _launch(merge_runs, "merge_runs_f32", key, val, run)
+
+
+merge_runs.launches = 0
+
+
+def bitonic_merge(key: torch.Tensor, val: torch.Tensor):
+    """Sort and coalesce one power-of-two stream as a single row."""
+    return sort_tiles(key, val, tile=key.numel())
+
+
+def sort_merge_tree(key: torch.Tensor, val: torch.Tensor, *,
+                    tile: int = 4096):
+    """Blocked sort + coalesce of a power-of-two stream: a stream of at most
+    one ``tile`` is one row; a larger one is tile-sorted, then adjacent runs
+    are merged up the tree, log₂(n/tile) levels. Output: globally sorted keys
+    with run-tail totals."""
+    n = key.numel()
+    if n & (n - 1) or tile & (tile - 1):
+        raise ValueError(f"sort_merge_tree: stream {n} and tile {tile} must "
+                         "be powers of two")
+    if n <= tile:
+        return bitonic_merge(key, val)
+    key, val = sort_tiles(key, val, tile=tile)
+    run = tile
+    while run < n:
+        key, val = merge_runs(key, val, run=run)
+        run *= 2
+    return key, val
+
+
+__all__ = ["KEY_INVALID", "bitonic_merge", "merge_runs",
+           "merge_runs_plain", "next_pot", "sort_merge_tree", "sort_tiles",
+           "sort_tiles_plain"]

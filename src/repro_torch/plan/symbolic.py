@@ -9,7 +9,9 @@
 
 ``out_cap_auto`` turns either into a Python int, rounded up to a multiple
 of ``LANE`` and at least ``LANE`` — with ``exact=True`` the same cap the
-reference planner gives a pinned backend.
+reference planner gives a pinned backend. ``per_row_counts`` and
+``max_slab_products`` are the planner's histogram inputs
+(``plan.planner.make_plan``).
 """
 from __future__ import annotations
 
@@ -59,6 +61,30 @@ def exact_nnz_rows(a: EllRows, b: EllCols) -> torch.Tensor:
 def exact_nnz(a: EllRows, b: EllCols) -> torch.Tensor:
     """Exact nnz(C): coordinate-only symbolic pass (one sort, no values)."""
     return exact_nnz_rows(a, b).sum().to(torch.int32)
+
+
+def per_slab_products(a: EllRows, b: EllCols) -> torch.Tensor:
+    """Per-A-slab SCCP product counts: ``out[i] = Σ_c valid(a.idx[i, c]) ·
+    nnzrow_B(c)``."""
+    b_row_nnz = b.valid_mask().sum(dim=1)                       # (n,)
+    w = torch.where(a.idx >= 0, b_row_nnz[None, :], 0)          # (k_a, n)
+    return w.sum(dim=1).to(torch.int32)
+
+
+def max_slab_products(a: EllRows, b: EllCols) -> torch.Tensor:
+    """Largest single-slab product count: the streaming engine's per-tile
+    compaction bound (``Plan.stream_cap``)."""
+    return per_slab_products(a, b).max()
+
+
+def per_row_counts(a: EllRows, b: EllCols, *, exact: bool = True):
+    """(products_per_row, unique_per_row), the planner's histogram inputs.
+    ``exact=False`` puts the clipped row-flop bound in place of the unique
+    counts; sizes from it stay safe, as the bound dominates them."""
+    prod = product_count_rows(a, b)
+    uniq = (exact_nnz_rows(a, b) if exact
+            else torch.clamp(prod, max=b.n_cols).to(torch.int32))
+    return prod, uniq
 
 
 def out_cap_auto(a: EllRows, b: EllCols, *, exact: bool = True,

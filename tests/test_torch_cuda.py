@@ -11,8 +11,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro_torch as rt
 from repro_torch import kernels
+from repro_torch.kernels import bitonic_merge as tbm
 from repro_torch.kernels import insitu_search as tis
+from repro_torch.kernels import radix_bucket as trb
 from repro_torch.kernels import sccp_multiply as tsm
 
 KI = tis.KEY_INVALID
@@ -101,6 +104,100 @@ def test_faithful_emission_matches_batched(cuda, cap):
     assert torch.equal(uk_f, uk_b)
     n_uniq = int(nnz_b)
     assert int(nnz_f) == (n_uniq if n_uniq <= cap else cap + 1)
+
+
+def _pairs(seed, n, hi, dead=0.1):
+    """Keys from a small range (long runs of duplicates across tile and row
+    edges), integer values (every total exact), dead lanes."""
+    key = _keys(seed, n, hi, dead)
+    rng = np.random.default_rng(seed + 1)
+    val = torch.from_numpy(rng.integers(-4, 5, n).astype(np.float32))
+    val[key == KI] = 0
+    return key, val
+
+
+def _same_pairs(got, want):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,tile,hi", [
+    (1, 1, 8), (2, 2, 8), (256, 64, 40),             # rows inside one tile
+    (1 << 14, 4096, 1 << 12),                        # 'tiled' rows
+    (1 << 15, 8192, 300),                            # rows of two tiles
+    (4 * (1 << 16), 1 << 16, 1 << 20),               # odd rows ascend too
+    (1 << 21, 1 << 20, 1 << 10),                     # 'bucket'-sized rows
+])
+def test_sort_tiles_kernel(cuda, n, tile, hi):
+    key, val = (t.to(cuda) for t in _pairs(n + tile, n, hi))
+    before = tbm.sort_tiles.launches
+    got = tbm.sort_tiles(key, val, tile=tile)
+    torch.cuda.synchronize()
+    assert tbm.sort_tiles.launches > before
+    _same_pairs(got, tbm.sort_tiles_plain(key, val, tile=tile))
+    rows = got[0].view(-1, tile)
+    assert bool((rows[:, 1:] >= rows[:, :-1]).all())  # every row ascends
+
+
+@pytest.mark.parametrize("n,run", [(2, 1), (1024, 64), (1 << 13, 2048),
+                                   (1 << 14, 4096), (1 << 15, 8192),
+                                   (1 << 18, 1 << 16)])
+def test_merge_runs_kernel(cuda, n, run):
+    key, val = (t.to(cuda) for t in _pairs(n + run, n, max(2, n // 4)))
+    key, val = tbm.sort_tiles_plain(key, val, tile=run)
+    before = tbm.merge_runs.launches
+    got = tbm.merge_runs(key, val, run=run)
+    torch.cuda.synchronize()
+    assert tbm.merge_runs.launches > before
+    _same_pairs(got, tbm.merge_runs_plain(key, val, run=run))
+
+
+@pytest.mark.parametrize("n,tile", [(1 << 16, 4096), (1 << 12, 1 << 12)])
+def test_sort_merge_tree_kernels(cuda, n, tile):
+    key, val = (t.to(cuda) for t in _pairs(n, n, n // 3))
+    got = tbm.sort_merge_tree(key, val, tile=tile)
+    _same_pairs(got, tbm.sort_tiles_plain(key, val, tile=n))
+
+
+@pytest.mark.parametrize("n,n_buckets,dead", [
+    (1, 1, 0.0), (1000, 8, 0.2), (4096, 64, 0.5), (1 << 20, 64, 0.6),
+    (123457, 256, 0.1), (5000, 3, 1.0)])
+def test_bin_ranks_kernel(cuda, n, n_buckets, dead):
+    rng = np.random.default_rng(n + n_buckets)
+    # runs of one id (neighbouring products share a row), some ids out of
+    # range, dead lanes
+    bid = np.repeat(rng.integers(0, n_buckets + 2, -(-n // 37)), 37)[:n]
+    bid[rng.random(n) < dead] = -1
+    bid = torch.from_numpy(bid.astype(np.int32)).to(cuda)
+    before = trb.bin_ranks.launches
+    got = trb.bin_ranks(bid, n_buckets=n_buckets)
+    torch.cuda.synchronize()
+    assert trb.bin_ranks.launches == before + 3
+    assert torch.equal(got, trb.bin_ranks_plain(bid, n_buckets=n_buckets))
+    with pytest.raises(ValueError):
+        trb.bin_ranks(bid, n_buckets=trb.MAX_BUCKETS + 1)
+
+
+@pytest.mark.parametrize("accumulator,kw", [
+    ("tiled", {}), ("tiled", dict(tile=256)), ("bucket", {}), ("hash", {})])
+def test_backends_match_sort_on_card(cuda, accumulator, kw):
+    """Each new backend through the front door on the card, bit-identical to
+    'sort' on integer operands, with its kernels launched."""
+    rng = np.random.default_rng(21)
+    m = 300
+    a = ((rng.random((m, m)) < 0.05) * rng.integers(-4, 5, (m, m)))
+    a = a.astype(np.float32)
+    k = int((a != 0).sum(0).max())
+    ta = rt.ell_rows_from_dense(a, k, device=cuda)
+    tb = rt.ell_cols_from_dense(a.T.copy(), k, device=cuda)
+    want = rt.spgemm(ta, tb, check=True)
+    kernels.reset_launch_counts()
+    got = rt.spgemm(ta, tb, accumulator=accumulator, check=True, **kw)
+    counts = kernels.launch_counts()
+    for f in ("row", "col", "val", "ngroups"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert counts["sccp_multiply"] == 1 and counts["sort_tiles"] > 0
+    assert (counts["merge_runs"] > 0) == (accumulator == "tiled")
+    assert (counts["bin_ranks"] > 0) == (accumulator == "bucket")
 
 
 def test_launch_counters_reset(cuda):

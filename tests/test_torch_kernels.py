@@ -1,8 +1,10 @@
 """The kernels' plain torch versions against the JAX reference on the CPU:
 SCCP multiply against ``repro.core.sccp`` and the Pallas kernel in
-interpret mode, and the in-situ-search primitives (emission, alignment,
-minima scan) against ``repro.kernels.insitu_search``, bit for bit,
-truncation and KEY_INVALID lanes included. The CUDA kernels themselves are
+interpret mode, the in-situ-search primitives (emission, alignment, minima
+scan) against ``repro.kernels.insitu_search``, and the bitonic row sort,
+merge-tree level and bucket rank against ``repro.kernels.bitonic_merge`` /
+``radix_bucket`` (Pallas in interpret mode and the XLA realizations), bit
+for bit, truncation and KEY_INVALID lanes included. The CUDA kernels themselves are
 held against these plain versions by ``test_torch_cuda.py`` on a GPU."""
 import numpy as np
 import pytest
@@ -14,10 +16,14 @@ import jax.numpy as jnp
 from repro.core import ell_cols_from_dense, ell_rows_from_dense
 from repro.core.formats import EllCols, EllRows
 from repro.core.sccp import sccp_multiply as ref_sccp
+from repro.kernels import bitonic_merge as ref_bm
 from repro.kernels import insitu_search as ref_is
+from repro.kernels import radix_bucket as ref_rb
 from repro.kernels.ops import sccp_multiply as ref_sccp_tiled
 from repro.kernels.sccp_multiply import sccp_multiply_pallas
+from repro_torch.kernels import bitonic_merge as tbm
 from repro_torch.kernels import insitu_search as tis
+from repro_torch.kernels import radix_bucket as trb
 from repro_torch.kernels import sccp_multiply as tsm
 
 KI = tis.KEY_INVALID
@@ -150,3 +156,86 @@ def test_search_emit_sorted_matches_reference():
                                                interpret=True)
     _eq(vals, rvals)
     _eq(counts, rcounts)
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6 / K7: the bitonic row sort, the merge-tree level, the bucket rank
+# ---------------------------------------------------------------------------
+
+def _pairs(seed, n, hi, dead=0.1):
+    """Packed keys drawn from a small range (duplicates straddle every tile
+    edge), integer values, KEY_INVALID dead lanes carrying 0."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, hi, n).astype(np.int32)
+    val = rng.integers(-4, 5, n).astype(np.float32)
+    dead = rng.random(n) < dead
+    key[dead], val[dead] = KI, 0
+    return key, val
+
+
+@pytest.mark.parametrize("n,tile,hi", [(256, 64, 40), (512, 512, 1 << 20),
+                                       (1024, 128, 8)])
+def test_sort_tiles_plain_matches_pallas_and_xla(n, tile, hi):
+    key, val = _pairs(n + tile, n, hi)
+    got = tbm.sort_tiles(torch.from_numpy(key), torch.from_numpy(val),
+                         tile=tile)
+    for want in (ref_bm.sort_tiles_pallas(jnp.asarray(key), jnp.asarray(val),
+                                          tile=tile, interpret=True),
+                 ref_bm.sort_tiles_xla(jnp.asarray(key), jnp.asarray(val),
+                                       tile=tile)):
+        _eq(got[0], want[0])
+        _eq(got[1], want[1])
+    assert tbm.sort_tiles.launches == 0              # plain twin on the CPU
+
+
+def test_segmented_total_tails_are_row_local():
+    """A key that ends one row and starts the next has a tail in each row."""
+    key = torch.tensor([1, 2, 5, 5, 5, 5, 7, KI], dtype=torch.int32)
+    val = torch.arange(1, 9, dtype=torch.float32)
+    _, tot = tbm.sort_tiles(key, val, tile=4)
+    _eq(tot, np.asarray([1, 2, 0, 7, 0, 11, 7, 0], np.float32))
+    _eq(tot, ref_bm.sort_tiles_xla(jnp.asarray(key.numpy()),
+                                   jnp.asarray(val.numpy()), tile=4)[1])
+
+
+@pytest.mark.parametrize("run", [16, 128])
+def test_merge_runs_plain_matches_pallas(run):
+    key, val = _pairs(run, 512, 60)
+    k, v = ref_bm.sort_tiles_xla(jnp.asarray(key), jnp.asarray(val), tile=run)
+    got = tbm.merge_runs(torch.from_numpy(np.array(k)),
+                         torch.from_numpy(np.array(v)), run=run)
+    want = ref_bm.merge_runs_pallas(k, v, run=run, interpret=True)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+
+
+def test_sort_merge_tree_matches_reference():
+    key, val = _pairs(3, 2048, 300)
+    got = tbm.sort_merge_tree(torch.from_numpy(key), torch.from_numpy(val),
+                              tile=256)
+    want = ref_bm.sort_merge_tree_pallas(jnp.asarray(key), jnp.asarray(val),
+                                         tile=256, interpret=True)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    with pytest.raises(ValueError, match="power"):
+        tbm.sort_tiles(torch.from_numpy(key), torch.from_numpy(val), tile=96)
+
+
+@pytest.mark.parametrize("n,n_buckets", [(2048, 8), (1024, 64), (4096, 1)])
+def test_bin_ranks_plain_matches_reference(n, n_buckets):
+    rng = np.random.default_rng(n + n_buckets)
+    bid = np.repeat(rng.integers(0, n_buckets, n // 8), 8).astype(np.int32)
+    bid[rng.random(n) < 0.2] = -1                   # dead lanes rank -1
+    got = trb.bin_ranks(torch.from_numpy(bid), n_buckets=n_buckets)
+    _eq(got, ref_rb.bin_ranks_xla(jnp.asarray(bid), n_buckets=n_buckets))
+    _eq(got, ref_rb.bin_ranks_pallas(jnp.asarray(bid), n_buckets=n_buckets,
+                                     interpret=True))
+    assert got.dtype == torch.int32 and trb.bin_ranks.launches == 0
+
+
+def test_bin_ranks_out_of_range_ids_rank_like_the_pallas_kernel():
+    bid = np.asarray(([0, 3, 1, 3, 2, 5] * 200)[:1024], np.int32)
+    got = trb.bin_ranks(torch.from_numpy(bid), n_buckets=3)
+    _eq(got, ref_rb.bin_ranks_pallas(jnp.asarray(bid), n_buckets=3,
+                                     interpret=True))
+    assert (got.numpy()[bid >= 3] == -1).all()

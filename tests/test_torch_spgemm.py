@@ -256,9 +256,7 @@ def test_poison_overflow_matches_reference():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(accumulator="tiled"), dict(accumulator="bucket"),
-    dict(accumulator="hash"), dict(accumulator="stream"),
-    dict(accumulator="auto"), dict(plan=object()),
+    dict(accumulator="stream"), dict(accumulator="auto"),
     dict(structure=object()), dict(mesh=object(), axis="x"),
     dict(accumulator="stream", stream_cap=64),
 ])
@@ -280,8 +278,11 @@ def test_unknown_accumulator_raises():
 
 def test_port_and_chip_smoke_import_no_jax():
     code = ("import sys, repro_torch, repro_torch.core.api, "
-            "repro_torch.plan.symbolic, repro_torch.kernels._build, "
-            "chip_smoke\n"
+            "repro_torch.plan.symbolic, repro_torch.plan.planner, "
+            "repro_torch.plan.structure, repro_torch.kernels._build, "
+            "repro_torch.kernels.bitonic_merge, "
+            "repro_torch.kernels.radix_bucket, "
+            "repro_torch.kernels.hash_accum, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\nprint('clean')")
