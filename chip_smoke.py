@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed N]
 
 Builds every CUDA kernel from ``src/repro_torch/csrc`` and drives the port's
-cold single-device SpGEMM, through all five ported accumulators ('sort',
-'search', 'tiled', 'bucket', 'hash'), at a real size: C = A·Aᵀ for the
+single-device SpGEMM, cold through all six ported accumulators ('sort',
+'search', 'tiled', 'bucket', 'hash', 'stream') and warm through the numeric
+phase on a 'sort' and a 'stream' structure, at a real size: C = A·Aᵀ for the
 paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
@@ -20,17 +21,21 @@ Phases (any failure exits non-zero before the last line):
    the main path gives it, bit for bit, with its time, the plain version's
    time, one library call's time where one computes the same function, and
    the least time the card could take (``bound_ms``). The planner's sizes
-   for the 'bucket' and 'hash' paths are printed first (``[plan]``).
+   for the 'bucket' and 'hash' paths are printed first (``[plan]``). Then
+   ``make_structure`` for a 'sort' and a 'stream' plan, timed, and K1 and
+   K3 held again at the warm phase's own shapes on those structures.
 3. The main path through the front door, with the launch counters zeroed
    just before each path and read just after: ``spgemm(a, b, check=True)``
-   (``'sort'``), ``spgemm(a, b, accumulator=X, check=True)`` for X in
-   ``'search'``, ``'tiled'``, ``'bucket'`` and ``'hash'``, and the faithful
-   Alg. 1 emission (``search_merge(faithful=True)``) on a one-column cut of
-   A. The five full outputs must be bit-identical, hold exactly nnz(C)
-   groups, and equal scipy's A @ Aᵀ.
-4. A ``kernels`` JSON line, the end-to-end times and the stage split, the
-   card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   (``'sort'``), ``spgemm(a, b, accumulator=X, check=True)`` for the other
+   five, the faithful Alg. 1 emission (``search_merge(faithful=True)``) on a
+   one-column cut of A, and ``spgemm(a, b, structure=st, check=True)`` for
+   both structures. The eight full outputs must be bit-identical, hold
+   exactly nnz(C) groups, and equal scipy's A @ Aᵀ; a stale structure with
+   ``validate=False`` must poison ``ngroups``; the 'stream' call's stages,
+   replayed one by one, must give its result.
+4. A ``kernels`` JSON line, the end-to-end times with each path's per-call
+   peak memory and the stage split, the card's name and power limit, and as
+   the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ REPO = Path(__file__).resolve().parent
 # (id, name, dim, nnz, nnz_av, sigma)
 BCSSTK32 = (3, "bcsstk32", 45_000, 2_000_000, 45.2, 15.48)
 
-ACCUMULATORS = ("sort", "search", "tiled", "bucket", "hash")
+ACCUMULATORS = ("sort", "search", "tiled", "bucket", "hash", "stream")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the CUDA-core fp32
 # rate, the table's nearest entry for the int32 compares these kernels do.
@@ -151,9 +156,55 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def held_pair(name: str, kernel, plain, library, shape: str, n_bytes: float,
+              n_ops: float) -> dict:
+    """Hold ``kernel()`` against ``plain()`` bit for bit (every output of a
+    tuple), then time the kernel, the plain version and ``library`` (None
+    where no one library call computes the same function). Returns the
+    shape's entry, also printed as a ``[kernel]`` line."""
+    import torch
+    got, want = kernel(), plain()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = max(same(f"{name}[{i}] {shape}", g, w)
+              for i, (g, w) in enumerate(zip(got, want)))
+    del got, want
+    t, by = bound(n_bytes, n_ops)
+    r = dict(shape=shape, max_abs_err=err, ms=cuda_ms(kernel, 3),
+             plain_ms=cuda_ms(plain, 2),
+             library_ms=None if library is None else cuda_ms(library, 3),
+             bound_ms=t, bound_by=by)
+    print(f"[kernel] {name} {shape}: bit-identical, {json.dumps(r)}",
+          flush=True)
+    return r
+
+
+def kernel_row(name: str, source: str, replaces: str, shapes: list,
+               **extra) -> dict:
+    """A ``kernels`` line entry: the first shape's numbers, and all shapes."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                **shapes[0], shapes=shapes, **extra)
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: each kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
+
+def align_shape(shape: str, pk, uk) -> dict:
+    """K3 held against its plain version on product keys ``pk`` and the
+    ascending unique keys ``uk``; ``torch.searchsorted`` is the library
+    call. The bound reads each product key and writes its slot and hit;
+    of ``uk`` it counts at most one key a product key, since fewer product
+    keys than unique keys need not read all of them."""
+    import torch
+    from repro_torch.kernels import insitu_search as isr
+    s, u = pk.numel(), uk.numel()
+    return held_pair("align_keys", lambda: isr.align_keys(pk, uk),
+                     lambda: isr.align_keys_plain(pk, uk),
+                     lambda: torch.searchsorted(uk, pk, out_int32=True),
+                     shape, 9 * s + 4 * min(u, s),
+                     s * math.ceil(math.log2(u + 1)))
+
 
 def check_kernels(a, b, a_cut, b_cut) -> list:
     import torch
@@ -164,68 +215,40 @@ def check_kernels(a, b, a_cut, b_cut) -> list:
 
     # K1: SCCP multiply, (k_a, n) x (n, k_b)
     args = (a.val, a.idx, b.val, b.idx)
-    got = k1.sccp_multiply(*args)
-    want = k1.sccp_multiply_plain(*args)
-    err = max(same(f"sccp_multiply[{i}]", g, w)
-              for i, (g, w) in enumerate(zip(got, want)))
-    del want
     k_a, n = a.val.shape
     k_b = b.val.shape[1]
     lanes = k_a * n * k_b
-    t, by = bound(8 * (k_a * n + n * k_b) + 12 * lanes, lanes)
-    rows.append(dict(
-        name="sccp_multiply", route="cuda",
-        source="src/repro_torch/csrc/sccp_multiply.cu",
-        replaces="src/repro/kernels/sccp_multiply.py:29",
-        max_abs_err=err, shape=f"({k_a},{n})x({n},{k_b})",
-        ms=cuda_ms(lambda: k1.sccp_multiply(*args), 5),
-        plain_ms=cuda_ms(lambda: k1.sccp_multiply_plain(*args), 2),
-        bound_ms=t, bound_by=by, library_ms=None))
-    print(f"[kernel] sccp_multiply {rows[-1]['shape']}: bit-identical",
-          flush=True)
+    rows.append(kernel_row(
+        "sccp_multiply", "src/repro_torch/csrc/sccp_multiply.cu",
+        "src/repro/kernels/sccp_multiply.py:29", [held_pair(
+            "sccp_multiply", lambda: k1.sccp_multiply(*args),
+            lambda: k1.sccp_multiply_plain(*args), None,
+            f"({k_a},{n})x({n},{k_b})", 8 * (k_a * n + n * k_b) + 12 * lanes,
+            lanes)]))
 
     # K2: emission sort of the main path's packed key stream
-    val, row, col = got
+    val, row, col = k1.sccp_multiply(*args)
     key, _ = ops._packed_stream(row, col, val, a.n_rows, b.n_cols)
-    del got, val, row, col
+    del val, row, col
     torch.cuda.empty_cache()
     s = key.numel()
-    ks = isr.emit_sort_keys(key)
-    err = same("emit_sort", ks, isr.emit_sort_keys_plain(key))
-    t, by = bound(8 * s, s * math.log2(s))
-    rows.append(dict(
-        name="emit_sort", route="cuda",
-        source="src/repro_torch/csrc/insitu_search.cu",
-        replaces="src/repro/kernels/insitu_search.py:164",
-        max_abs_err=err, shape=f"({s},)",
-        ms=cuda_ms(lambda: isr.emit_sort_keys(key), 3),
-        plain_ms=cuda_ms(lambda: isr.emit_sort_keys_plain(key), 3),
-        bound_ms=t, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.sort(key), 3)))
-    print(f"[kernel] emit_sort {s} keys: bit-identical", flush=True)
+    rows.append(kernel_row(
+        "emit_sort", "src/repro_torch/csrc/insitu_search.cu",
+        "src/repro/kernels/insitu_search.py:164", [held_pair(
+            "emit_sort", lambda: isr.emit_sort_keys(key),
+            lambda: isr.emit_sort_keys_plain(key), lambda: torch.sort(key),
+            f"({s},)", 8 * s, s * math.log2(s))]))
 
     # K3: align every product key against the sorted unique keys
+    ks = isr.emit_sort_keys(key)
     n_unique = int(isr._unique_heads(ks, 1)[1])
     uk, _ = isr._unique_heads(ks, max(128, -(-n_unique // 128) * 128))
     del ks
-    slot, hit = isr.align_keys(key, uk)
-    slot_p, hit_p = isr.align_keys_plain(key, uk)
-    err = max(same("align_keys.slot", slot, slot_p),
-              same("align_keys.hit", hit, hit_p))
-    del slot, hit, slot_p, hit_p
-    u = uk.numel()
-    t, by = bound(9 * s + 4 * u, s * math.ceil(math.log2(u + 1)))
-    rows.append(dict(
-        name="align_keys", route="cuda",
-        source="src/repro_torch/csrc/insitu_search.cu",
-        replaces="src/repro/kernels/insitu_search.py:268",
-        max_abs_err=err, shape=f"({s},) in ({u},), {n_unique} unique",
-        ms=cuda_ms(lambda: isr.align_keys(key, uk), 3),
-        plain_ms=cuda_ms(lambda: isr.align_keys_plain(key, uk), 3),
-        bound_ms=t, bound_by=by,
-        library_ms=cuda_ms(
-            lambda: torch.searchsorted(uk, key, out_int32=True), 3)))
-    print(f"[kernel] align_keys {s} keys in {u}: bit-identical", flush=True)
+    rows.append(kernel_row(
+        "align_keys", "src/repro_torch/csrc/insitu_search.cu",
+        "src/repro/kernels/insitu_search.py:268",
+        [align_shape(f"search: ({s},) in ({uk.numel()},), {n_unique} unique",
+                     key, uk)]))
     del uk
 
     # K4: the bit-serial minima scan, at the main path's shape (the packed
@@ -319,22 +342,9 @@ def check_accumulator_kernels(a, b, plan) -> list:
     n = key.numel()
     kpb = rb.bucket_bounds(a.n_rows, b.n_cols, plan.n_buckets)
 
-    def pair(name, kernel, plain, library, shape, n_bytes, n_ops):
-        got, want = kernel(), plain()
-        err = max(same(f"{name} key {shape}", got[0], want[0]),
-                  same(f"{name} total {shape}", got[1], want[1]))
-        del got, want
-        t, by = bound(n_bytes, n_ops)
-        r = dict(shape=shape, max_abs_err=err, ms=cuda_ms(kernel, 3),
-                 plain_ms=cuda_ms(plain, 2), library_ms=cuda_ms(library, 3),
-                 bound_ms=t, bound_by=by)
-        print(f"[kernel] {name} {shape}: bit-identical, {json.dumps(r)}",
-              flush=True)
-        return r
-
     def sort_shape(what, k, w, tile):
         log = tile.bit_length() - 1
-        return pair("sort_tiles", lambda: bm.sort_tiles(k, w, tile=tile),
+        return held_pair("sort_tiles", lambda: bm.sort_tiles(k, w, tile=tile),
                     lambda: bm.sort_tiles_plain(k, w, tile=tile),
                     lambda: torch.sort(k.view(-1, tile), dim=1),
                     f"{what}: rows of {tile} over {k.numel()}",
@@ -354,7 +364,7 @@ def check_accumulator_kernels(a, b, plan) -> list:
 
     # K6 at the merge tree's first and last level; the whole tree's time
     def merge_level(k, w, run):
-        return pair("merge_runs", lambda: bm.merge_runs(k, w, run=run),
+        return held_pair("merge_runs", lambda: bm.merge_runs(k, w, run=run),
                     lambda: bm.merge_runs_plain(k, w, run=run),
                     lambda: torch.sort(k.view(-1, 2 * run), dim=1),
                     f"level run={run} over {k.numel()}", 16 * k.numel(),
@@ -393,25 +403,101 @@ def check_accumulator_kernels(a, b, plan) -> list:
 
     src = "src/repro_torch/csrc/bitonic_merge.cu"
     return [
-        dict(name="sort_tiles", route="cuda", source=src,
-             replaces="src/repro/kernels/bitonic_merge.py:151",
-             **shapes[0], shapes=shapes),
-        dict(name="merge_runs", route="cuda", source=src,
-             replaces="src/repro/kernels/bitonic_merge.py:162",
-             **levels[0], shapes=levels, tree_ms=tree_ms),
+        kernel_row("sort_tiles", src, "src/repro/kernels/bitonic_merge.py:151",
+                   shapes),
+        kernel_row("merge_runs", src, "src/repro/kernels/bitonic_merge.py:162",
+                   levels, tree_ms=tree_ms),
         dict(name="bin_ranks", route="cuda",
              source="src/repro_torch/csrc/radix_bucket.cu",
              replaces="src/repro/kernels/radix_bucket.py:49", **rank),
     ]
 
 
+def check_stream_kernel(a, b) -> dict:
+    """K8 (fused slab multiply + sort) against its plain version at the
+    shapes the 'stream' path gives it or can: one A slab times all of B (the
+    planner's group of 1 on this operand), a slab of at most 4,096 lanes
+    (one shared-memory residency) and a block of two slabs (group > 1)."""
+    import torch
+    from repro_torch.kernels import fused_sccp_stream as k8
+    k_b = b.val.shape[1]
+    n_small = 4096 // k_b
+    cases = [
+        ("one A slab x B", a.val[0], a.idx[0], b.val, b.idx),
+        ("slab cut to one tile", a.val[0, :n_small].contiguous(),
+         a.idx[0, :n_small].contiguous(), b.val[:n_small].contiguous(),
+         b.idx[:n_small].contiguous()),
+        ("group of 2 slabs", a.val[:2], a.idx[:2], b.val, b.idx),
+    ]
+    shapes = []
+    for what, *args in cases:
+        key = k8.fused_slab_sort(*args, n_cols=b.n_cols)[0]
+        require(bool((key[1:] >= key[:-1]).all()),
+                f"fused_slab_sort ({what}): keys not ascending")
+        pot = key.numel()
+        del key
+        packed, _ = k8._pack_tile(*args, b.n_cols, pot)
+        log = pot.bit_length() - 1
+        shapes.append(held_pair(
+            "fused_slab_sort",
+            lambda: k8.fused_slab_sort(*args, n_cols=b.n_cols),
+            lambda: k8.fused_slab_sort_plain(*args, n_cols=b.n_cols),
+            lambda: torch.sort(packed),
+            f"{what}: a {tuple(args[0].shape)} x b {tuple(args[2].shape)} "
+            f"-> {pot} lanes",
+            8 * (args[0].numel() + args[2].numel()) + 8 * pot,
+            pot // 2 * log * (log + 1) // 2))
+        del packed
+    torch.cuda.empty_cache()
+    return kernel_row("fused_slab_sort",
+                      "src/repro_torch/csrc/fused_sccp_stream.cu",
+                      "src/repro/kernels/fused_sccp_stream.py:58", shapes)
+
+
+def check_numeric_kernels(a, b, structures, rows) -> None:
+    """K1 and K3 at the warm phase's own shapes, each added to its kernel's
+    row as a further shape: K1 on one slab group of A times all of B (one
+    step of the 'stream' structure's numeric loop), K3 on that step's packed
+    product keys against the 'stream' structure's keys, and on the 'sort'
+    structure's path: every packed product key of the full stream (dead
+    lanes packed as 0) against the structure's KEY_INVALID-padded keys."""
+    import torch
+    from repro_torch.core.spgemm import _product_keys
+    from repro_torch.core.streaming import _slab_groups
+    from repro_torch.kernels import sccp_multiply as k1
+    by_name = {r["name"]: r for r in rows}
+    grp = max(1, min(structures["stream"].plan.stream_group, a.k))
+    a_val, a_idx, _ = _slab_groups(a, grp)
+    args = (a_val[:grp], a_idx[:grp], b.val, b.idx)
+    n, k_b = b.val.shape
+    lanes = grp * n * k_b
+    by_name["sccp_multiply"]["shapes"].append(held_pair(
+        "sccp_multiply", lambda: k1.sccp_multiply(*args),
+        lambda: k1.sccp_multiply_plain(*args), None,
+        f"numeric step: ({grp},{n})x({n},{k_b})",
+        8 * (grp * n + n * k_b) + 12 * lanes, lanes))
+    for what, st, mul_args in (("numeric step", structures["stream"], args),
+                               ("numeric", structures["sort"],
+                                (a.val, a.idx, b.val, b.idx))):
+        val, row, col = k1.sccp_multiply(*mul_args)
+        _, pk = _product_keys(row, col, b.n_cols)
+        del val, row, col
+        by_name["align_keys"]["shapes"].append(align_shape(
+            f"{what} ({st.plan.backend} structure): ({pk.numel()},) in "
+            f"({st.key.numel()},)", pk, st.key))
+        del pk
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def drive_paths(a, b, a_cut, b_cut):
+def drive_paths(a, b, a_cut, b_cut, structures):
     """Each path with the launch counters zeroed just before and read just
-    after. Returns ({path: counts}, {path: (coo, seconds)})."""
+    after: the six accumulators, the faithful cut, and the warm numeric
+    phase on each of ``structures`` ({backend: SpgemmStructure}). Returns
+    ({path: counts}, {path: (coo, seconds)})."""
     import torch
     import repro_torch
     from repro_torch import kernels
@@ -437,6 +523,9 @@ def drive_paths(a, b, a_cut, b_cut):
     for acc in ACCUMULATORS[2:]:
         paths[acc] = (lambda acc=acc: repro_torch.spgemm(
             a, b, accumulator=acc, check=True))
+    for backend, st in structures.items():
+        paths[f"numeric_{backend}"] = (lambda st=st: repro_torch.spgemm(
+            a, b, structure=st, check=True))
     counts, out = {}, {}
     for name, fn in paths.items():
         torch.cuda.synchronize()
@@ -490,6 +579,107 @@ def stage_ms(a, b) -> dict:
         key, v, n_blocks=plan.n_blocks, block_cap=plan.block_cap,
         keys_per_block=kpb))
     return st
+
+
+def stream_stage_ms(a, b, want) -> dict:
+    """Host-clock ms of one cold 'stream' call's stages, each synchronised:
+    the planner, then K8 and the two halves of ``streaming.absorb_sorted``
+    summed over the steps (the tile's compaction; the K6 merge with the
+    compaction back to the buffer width), and the final unpack. The staged
+    call's result must equal ``want`` bit for bit."""
+    import torch
+    from repro_torch.core import streaming as st
+    from repro_torch.kernels import ops
+    from repro_torch.plan.planner import make_plan
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    plan, t_plan = timed(lambda: make_plan(a, b, backend="stream"))
+    a_val, a_idx, n_groups = st._slab_groups(a, plan.stream_group)
+    state = st.stream_init(st.buffer_cap(plan.out_cap), a.val.dtype,
+                           a.val.device)
+    buf_cap = state.key.numel()
+    ms = dict(stream_make_plan=t_plan, stream_fused_slab_sort=0.0,
+              stream_compact_tile=0.0, stream_merge_tile=0.0)
+    for g in range(n_groups):
+        sl = slice(g * plan.stream_group, (g + 1) * plan.stream_group)
+        (key, tot), t = timed(lambda: ops.fused_slab_sort(
+            a_val[sl], a_idx[sl], b.val, b.idx, n_cols=b.n_cols))
+        ms["stream_fused_slab_sort"] += t
+        tile, t = timed(lambda: st._compact_tile(
+            key, tot, stream_cap=plan.stream_cap, buf_cap=buf_cap))
+        ms["stream_compact_tile"] += t
+        del key, tot
+        state, t = timed(lambda: st._merge_tile(state, *tile))
+        ms["stream_merge_tile"] += t
+        del tile
+    coo, ms["stream_finalize"] = timed(lambda: st.finalize(
+        state, plan.out_cap, a.n_rows, b.n_cols))
+    for f in ("row", "col", "val", "ngroups"):
+        same(f"staged stream vs path .{f}", getattr(coo, f), getattr(want, f))
+    sizes = dict(steps=n_groups, stream_group=plan.stream_group,
+                 stream_cap=plan.stream_cap, buf_cap=buf_cap,
+                 out_cap=plan.out_cap, merge_lanes=2 * buf_cap)
+    print(f"[stream] {json.dumps(sizes)}", flush=True)
+    return ms
+
+
+def numeric_stage_ms(a, b, st) -> dict:
+    """Host-clock ms of the warm phase's stages on a 'sort' structure
+    (``spgemm._slot_sums`` step by step), each synchronised: K1, the packed
+    product keys, K3, the slot sum as the path runs it (dead and missing
+    lanes spread over the dump slots) and, for comparison, the same sum
+    with every such lane sent to one dump slot, and over the valid lanes
+    only (their selection included)."""
+    import torch
+    from repro_torch.core import spgemm as sp
+    from repro_torch.core.sccp import sccp_multiply
+    from repro_torch.kernels.insitu_search import align_keys
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    ms = {}
+    (val, row, col), ms["numeric_sccp_multiply"] = timed(
+        lambda: sccp_multiply(a, b))
+    (valid, pk), ms["numeric_pack_keys"] = timed(
+        lambda: sp._product_keys(row, col, st.n_cols))
+    del row, col
+    val = torch.where(valid, val.reshape(-1), 0)
+    (slot, hit), ms["numeric_align_keys"] = timed(lambda: align_keys(pk,
+                                                                     st.key))
+    hit &= valid
+
+    def slot_sum():
+        sums = sp._slot_sums_init(st.out_cap, val.dtype, val.device)
+        return sums.index_add_(0, sp._slot_index(slot, hit, st.out_cap), val)
+
+    def one_dump_slot():
+        sums = sp._slot_sums_init(st.out_cap, val.dtype, val.device)
+        return sums.index_add_(0, torch.where(hit, slot, st.out_cap), val)
+
+    def valid_sum():
+        sel = torch.nonzero(hit).squeeze(1)
+        sums = sp._slot_sums_init(st.out_cap, val.dtype, val.device)
+        return sums.index_add_(0, slot[sel], val[sel])
+
+    want, ms["numeric_index_add_spread_dump"] = timed(slot_sum)
+    for name, fn in (("numeric_index_add_one_dump_slot", one_dump_slot),
+                     ("numeric_index_add_valid_lanes", valid_sum)):
+        got, ms[name] = timed(fn)
+        same(f"slot sums ({name})", got[:st.out_cap], want[:st.out_cap])
+    print(f"[numeric] {int(valid.sum())} valid of {valid.numel()} lanes",
+          flush=True)
+    return ms
 
 
 def coo_to_scipy(coo):
@@ -580,9 +770,24 @@ def main(argv=None) -> int:
     rows = check_kernels(a, b, a_cut, b_cut)
     plan = plan_sizes(a, b, nnz_c)
     rows += check_accumulator_kernels(a, b, plan)
+    rows.append(check_stream_kernel(a, b))
+
+    # -- the warm phase's structures (symbolic, once) --------------------------
+    structures, build_ms = {}, {}
+    for backend in ("sort", "stream"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        structures[backend] = repro_torch.make_structure(a, b,
+                                                         backend=backend)
+        torch.cuda.synchronize()
+        build_ms[backend] = (time.perf_counter() - t0) * 1e3
+        require(int(structures[backend].nnz) == nnz_c,
+                f"structure({backend}) nnz {int(structures[backend].nnz)}")
+    print(f"[structure] make_structure ms {json.dumps(build_ms)}", flush=True)
+    check_numeric_kernels(a, b, structures, rows)
 
     # -- phase 3: the main path -------------------------------------------------
-    counts, out = drive_paths(a, b, a_cut, b_cut)
+    counts, out = drive_paths(a, b, a_cut, b_cut, structures)
     require(counts["sort"]["sccp_multiply"] > 0, "sort path skipped K1")
     for kname in ("sccp_multiply", "emit_sort", "align_keys"):
         require(counts["search"][kname] > 0, f"search path skipped {kname}")
@@ -592,18 +797,41 @@ def main(argv=None) -> int:
                                         "merge_runs")),
                              ("bucket", ("sccp_multiply", "bin_ranks",
                                          "sort_tiles")),
-                             ("hash", ("sccp_multiply", "sort_tiles"))):
+                             ("hash", ("sccp_multiply", "sort_tiles")),
+                             ("stream", ("fused_slab_sort", "merge_runs")),
+                             ("numeric_sort", ("sccp_multiply",
+                                               "align_keys")),
+                             ("numeric_stream", ("sccp_multiply",
+                                                 "align_keys"))):
         for kname in kernels_run:
             require(counts[acc][kname] > 0, f"{acc} path skipped {kname}")
     c_sort = out["sort"][0]
     check_against_scipy("sort", c_sort, c_ref, nnz_c)
-    for acc in ACCUMULATORS[1:]:
+    others = ACCUMULATORS[1:] + tuple(f"numeric_{s}" for s in structures)
+    for acc in others:
         for f in ("row", "col", "val", "ngroups"):
             same(f"sort vs {acc} .{f}", getattr(out[acc][0], f),
                  getattr(c_sort, f))
     print(f"[check] sort == scipy A @ A.T, ngroups {nnz_c} == nnz(C); "
-          f"{', '.join(ACCUMULATORS[1:])} == sort bit for bit (row, col, "
-          "val, ngroups)", flush=True)
+          f"{', '.join(others)} == sort bit for bit (row, col, val, "
+          "ngroups)", flush=True)
+    require(counts["stream"]["sccp_multiply"] == 0,
+            "stream path materialized the product stream through K1")
+    stream_ms = stream_stage_ms(a, b, out["stream"][0])
+    # a stale structure (one product moved to a row its column lacks) with
+    # validate=False must poison ngroups
+    st = structures["sort"]
+    idx = a.idx.clone()
+    s0, c0 = (int(x) for x in torch.nonzero(idx >= 0)[0])
+    free = np.setdiff1d(np.arange(a.n_rows), idx[:, c0].cpu().numpy())
+    idx[s0, c0] = int(free[0])
+    a_stale = repro_torch.EllRows(val=a.val, idx=idx, n_rows=a.n_rows)
+    stale = repro_torch.spgemm(a_stale, b, structure=st, validate=False)
+    require(int(stale.ngroups) > st.out_cap,
+            f"stale structure not poisoned: ngroups {int(stale.ngroups)}")
+    print(f"[check] stale structure (validate=False): ngroups "
+          f"{int(stale.ngroups)} > out_cap {st.out_cap}", flush=True)
+    del stale, a_stale, idx
     c_f = out["search_faithful_cut"][0]
     A_cut64 = A_cut.astype(np.float64)
     cut_ref = (A_cut64 @ A_cut64.T).tocsr()
@@ -618,21 +846,49 @@ def main(argv=None) -> int:
     del out, c_sort, c_f, c_fb
     torch.cuda.empty_cache()
 
-    # -- end-to-end times, three more calls each ------------------------------
-    e2e = {}
-    for acc in ACCUMULATORS:
+    # -- end-to-end times, three more calls each; the first one's peak --------
+    # device memory (reset just before it), and what the call itself added
+    # on top of the resident operands and structures. With out_cap="auto"
+    # every cold call's peak includes its symbolic pass; a call given its
+    # backend's plan ("planned") shows the accumulation's own footprint.
+    from repro_torch.plan.planner import make_plan
+    plans = {acc: make_plan(a, b, backend=acc) for acc in ACCUMULATORS}
+    calls = {acc: (lambda acc=acc: repro_torch.spgemm(a, b, accumulator=acc))
+             for acc in ACCUMULATORS}
+    for backend, st in structures.items():
+        calls[f"numeric_{backend}"] = (
+            lambda st=st: repro_torch.spgemm(a, b, structure=st))
+    e2e, peak, planned_peak = {}, {}, {}
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated()
+        return dict(peak_gib=top / 2**30, call_gib=(top - base) / 2**30)
+
+    for name, fn in calls.items():
+        peak[name] = peak_of(fn)
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            repro_torch.spgemm(a, b, accumulator=acc)
+            fn()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        e2e[acc] = times
-    print(json.dumps({"e2e_ms": e2e, "stage_ms": stage_ms(a, b),
-                      "operand": BCSSTK32[1], "nnz_c": nnz_c,
-                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}),
-          flush=True)
+        e2e[name] = times
+    for acc, p in plans.items():
+        planned_peak[acc] = peak_of(lambda: repro_torch.spgemm(a, b, plan=p))
+    print(json.dumps({"e2e_ms": e2e, "peak_mem_per_call": peak,
+                      "peak_mem_per_planned_call": planned_peak,
+                      "make_structure_ms": build_ms,
+                      "stage_ms": {**stage_ms(a, b), **stream_ms,
+                                   **numeric_stage_ms(a, b,
+                                                      structures["sort"])},
+                      "operand": BCSSTK32[1], "nnz_c": nnz_c}), flush=True)
 
     # -- phase 4: the kernels line and the result ------------------------------
     for r in rows:

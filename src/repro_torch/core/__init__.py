@@ -1,26 +1,32 @@
-"""SPLIM core in PyTorch: the cold single-device SpGEMM.
+"""SPLIM core in PyTorch: the single-device SpGEMM, cold and warm.
 
   api        — the ``spgemm()`` front door (prefer ``repro_torch.spgemm``)
   formats    — COO / ELLPACK containers, converters, numpy carry-over
   sccp       — Structured Condensing Computation Paradigm multiply
   accumulate — the sort-and-segment-sum accumulation, overflow contract
-  spgemm     — end-to-end spgemm / spmm entry points
+  spgemm     — end-to-end spgemm / spmm entry points, the warm numeric
+               phase
+  streaming  — the slab-group streaming engine ('stream')
 """
-from . import accumulate, api, formats, sccp, spgemm
+from . import accumulate, api, formats, sccp, spgemm, streaming
 from .accumulate import AccumulatorOverflow, accumulate_checked, check_no_overflow
 from .formats import (Coo, EllCols, EllRows, coo_from_dense, default_device,
                       ell_cols_from_dense, ell_rows_from_dense, from_numpy,
                       to_numpy)
 from .spgemm import (accumulate_stream, spgemm_coo, spgemm_coo_batched,
+                     spgemm_coo_numeric, spgemm_coo_numeric_batched,
                      spgemm_dense, spgemm_dense_batched, spgemm_from_dense,
                      spgemm_streaming, spmm_dense_ell, spmm_ell_dense)
+from .streaming import spgemm_coo_stream, spgemm_coo_stream_numeric
 
 __all__ = [
-    "accumulate", "api", "formats", "sccp", "spgemm",
+    "accumulate", "api", "formats", "sccp", "spgemm", "streaming",
     "AccumulatorOverflow", "accumulate_checked", "check_no_overflow",
     "Coo", "EllCols", "EllRows", "coo_from_dense", "default_device",
     "ell_cols_from_dense", "ell_rows_from_dense", "from_numpy", "to_numpy",
-    "accumulate_stream", "spgemm_coo", "spgemm_coo_batched", "spgemm_dense",
+    "accumulate_stream", "spgemm_coo", "spgemm_coo_batched",
+    "spgemm_coo_numeric", "spgemm_coo_numeric_batched", "spgemm_coo_stream",
+    "spgemm_coo_stream_numeric", "spgemm_dense",
     "spgemm_dense_batched", "spgemm_from_dense", "spgemm_streaming",
     "spmm_dense_ell", "spmm_ell_dense",
 ]

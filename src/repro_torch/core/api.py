@@ -1,16 +1,24 @@
 """The SpGEMM front door: ``spgemm(a, b, ...)``, mirroring
-``src/repro/core/api.py`` for the cold single-device routes.
+``src/repro/core/api.py`` for the single-device routes.
 
-It dispatches on what it is handed: 3-D ELLPACK planes (a leading batch
-axis) go to ``spgemm_coo_batched``, 2-D ones to ``spgemm_coo``. ``out_cap``
-(``"auto"`` sizes it symbolically), ``accumulator`` (``'sort'``,
-``'tiled'``, ``'bucket'``, ``'hash'`` or ``'search'``), ``tile`` (the
-``'tiled'`` merge tree's tile), ``plan`` (``plan.make_plan``, of either
-package) and ``check`` mean what they mean there. ``accumulator='auto'``
-without a plan, ``'stream'``, the warm numeric phase (``structure=``), the
-sharded paths (``mesh=``/``axis=``) and the explicit stream sizes
-(``stream_cap=``/``group=``) raise ``NotImplementedError`` until their
-slices are ported.
+It dispatches on what it is handed (first match wins):
+
+* ``structure`` set → the warm numeric phase (``spgemm_coo_numeric``, or
+  ``spgemm_coo_numeric_batched`` for 3-D planes); stream-planned structures
+  go by slab groups by themselves. ``validate=False`` skips the structure's
+  fingerprint check.
+* ``accumulator='stream'`` with an explicit ``stream_cap`` or ``group`` →
+  ``spgemm_coo_stream`` (2-D planes only).
+* otherwise 3-D ELLPACK planes (a leading batch axis) go to
+  ``spgemm_coo_batched``, 2-D ones to ``spgemm_coo``.
+
+``out_cap`` (``"auto"`` sizes it symbolically), ``accumulator`` (``'sort'``,
+``'tiled'``, ``'bucket'``, ``'hash'``, ``'stream'`` or ``'search'``),
+``tile`` (the ``'tiled'`` merge tree's tile), ``plan`` (``plan.make_plan``,
+of either package) and ``check`` mean what they mean there.
+``accumulator='auto'`` without a plan and the sharded paths
+(``mesh=``/``axis=``) raise ``NotImplementedError`` until their slices are
+ported.
 """
 from __future__ import annotations
 
@@ -24,15 +32,11 @@ def spgemm(a: EllRows, b: EllCols, *, structure=None, mesh=None,
            accumulator: Optional[str] = None, tile: Optional[int] = None,
            plan=None,
            stream_cap: Optional[int] = None, group: Optional[int] = None,
-           check: bool = False) -> Coo:
+           check: bool = False, validate: bool = True) -> Coo:
     """C = A·B as sorted COO — dispatches to the right SpGEMM variant."""
-    from .spgemm import _not_ported, spgemm_coo, spgemm_coo_batched
-    if structure is not None:
-        _not_ported("structure=", "structure")
+    from . import spgemm as sp
     if mesh is not None or axis is not None:
-        _not_ported("mesh=/axis=", "mesh")
-    if stream_cap is not None or group is not None:
-        _not_ported("stream_cap=/group=", "stream_cap")
+        sp._not_ported("mesh=/axis=", "mesh")
     if batched == "auto":
         is_batched = a.val.ndim == 3
     else:
@@ -40,6 +44,20 @@ def spgemm(a: EllRows, b: EllCols, *, structure=None, mesh=None,
         if is_batched and a.val.ndim != 3:
             raise ValueError("batched=True needs 3-D ELLPACK planes "
                              f"(got a.val.ndim={a.val.ndim})")
-    fn = spgemm_coo_batched if is_batched else spgemm_coo
+    if structure is not None:
+        fn = sp.spgemm_coo_numeric_batched if is_batched \
+            else sp.spgemm_coo_numeric
+        return fn(a, b, structure, check=check, validate=validate)
+    if accumulator == "stream" and (stream_cap is not None
+                                    or group is not None):
+        if is_batched:
+            raise ValueError("batched stream SpGEMM: pass a plan= built "
+                             "with backend='stream' instead of explicit "
+                             "stream_cap/group")
+        from .streaming import spgemm_coo_stream
+        coo = spgemm_coo_stream(a, b, out_cap, stream_cap=stream_cap,
+                                group=group)
+        return sp.check_no_overflow(coo) if check else coo
+    fn = sp.spgemm_coo_batched if is_batched else sp.spgemm_coo
     return fn(a, b, out_cap, accumulator=accumulator, tile=tile, check=check,
               plan=plan)

@@ -1,26 +1,33 @@
 """End-to-end SPLIM SpGEMM: SCCP multiply → in-situ-search-style accumulate,
-mirroring the cold single-device subset of ``src/repro/core/spgemm.py``.
+mirroring the single-device subset of ``src/repro/core/spgemm.py``.
 
-  * ``spgemm_coo``       — C = A·B as sorted COO. Five accumulation backends:
+  * ``spgemm_coo``       — C = A·B as sorted COO. Six accumulation backends:
                            ``'sort'`` (the default, a two-key sort),
                            ``'tiled'`` (the bitonic merge tree,
                            kernels.ops.sort_merge), ``'bucket'`` (propagation
                            blocking, kernels.radix_bucket), ``'hash'``
                            (per-row-block open addressing,
-                           kernels.hash_accum) and ``'search'`` (the paper's
-                           own Alg. 1 / Fig. 11, kernels.insitu_search);
-                           ``out_cap='auto'`` sizes the output symbolically,
-                           a ``plan`` (plan.make_plan) supplies the cap and
-                           the blocking sizes, ``check=True`` raises on
-                           truncation or a backend drop.
+                           kernels.hash_accum), ``'stream'`` (slab-group
+                           multiply → sort → compact → merge,
+                           core.streaming, the only one that never
+                           materializes the (k_a, n, k_b) product stream) and
+                           ``'search'`` (the paper's own Alg. 1 / Fig. 11,
+                           kernels.insitu_search); ``out_cap='auto'`` sizes
+                           the output symbolically, a ``plan``
+                           (plan.make_plan) supplies the cap and the blocking
+                           sizes, ``check=True`` raises on truncation or a
+                           backend drop.
+  * ``spgemm_coo_numeric`` / ``_numeric_batched`` — the warm numeric phase
+                           on a precomputed ``plan.make_structure``: multiply
+                           and one slot sum, no planning, no sort.
   * ``spgemm_dense``     — C dense via the same structured multiply.
   * ``spgemm_streaming`` — loop over A slabs, scatter-accumulating dense C.
   * ``spgemm_coo_batched`` / ``spgemm_dense_batched`` — a loop over a
                            leading batch axis of both ELLPACK operands.
   * ``spmm_ell_dense`` / ``spmm_dense_ell`` — ELLPACK × dense.
 
-Backends, options and phases that later slices port raise
-``NotImplementedError`` naming their ROADMAP item.
+Options that later slices port raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,20 +36,19 @@ import dataclasses
 import torch
 
 from ..kernels import ops
-from ..kernels.insitu_search import KEY_INVALID
+from ..kernels.insitu_search import KEY_INVALID, align_keys
 from .accumulate import accumulate, check_no_overflow, scatter_dense
 from .formats import (INVALID, Coo, EllCols, EllRows, ell_cols_from_dense,
                       ell_rows_from_dense)
 from .sccp import sccp_multiply, sccp_multiply_slab
+from .streaming import (_slab_groups, accumulate_products_stream,
+                        spgemm_coo_stream)
 
 KEY_SPACE = 2 ** 31 - 1     # packed int32 keys span n_rows·n_cols below this
 BACKENDS = ("sort", "tiled", "bucket", "hash", "stream", "search")
 _LATER = {
-    "stream": "ROADMAP queue 1 item 5 (streaming engine)",
     "auto": "ROADMAP queue 1 item 3 (planner: backend selection)",
-    "structure": "ROADMAP queue 1 item 3 (warm numeric phase)",
     "mesh": "ROADMAP queue 1 item 9 (distributed SpGEMM)",
-    "stream_cap": "ROADMAP queue 1 item 5 (streaming engine)",
 }
 
 
@@ -107,6 +113,12 @@ def accumulate_stream(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     ``Coo.ngroups``."""
     if backend == "sort":
         return accumulate(row, col, val, out_cap, n_rows, n_cols)
+    if backend == "stream":
+        scap = plan.stream_cap if plan is not None else None
+        grp = plan.stream_group if plan is not None else 1
+        return accumulate_products_stream(row, col, val, out_cap, n_rows,
+                                          n_cols, chunk=tile,
+                                          stream_cap=scap, group=grp)
     if backend == "tiled":
         key, tot = ops.sort_merge(row, col, val, n_rows, n_cols, tile=tile)
         return _coo_from_merged(key, tot, out_cap, n_rows, n_cols)
@@ -132,8 +144,6 @@ def accumulate_stream(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
                                            **kw)
         return _poison_overflow(
             _coo_from_merged(key, tot, out_cap, n_rows, n_cols), dropped)
-    if backend in _LATER:
-        _not_ported(f"accumulator {backend!r}", backend)
     raise ValueError(f"unknown accumulator {backend!r}")
 
 
@@ -164,12 +174,15 @@ def spgemm_coo(a: EllRows, b: EllCols, out_cap="auto", *,
     Prefer ``repro_torch.spgemm(a, b, ...)``. ``out_cap`` is the static
     output capacity, or ``'auto'`` to size it with the exact symbolic pass.
     ``accumulator`` is ``'sort'`` (``None`` defaults to it), ``'tiled'``,
-    ``'bucket'``, ``'hash'`` or ``'search'``. A ``plan`` (``plan.make_plan``,
-    of either package) supplies ``out_cap``, the backend, ``tile`` and the
-    blocking sizes, explicit arguments winning; it must have been sized for
-    these operands' pattern. Without a plan, ``'bucket'`` and ``'hash'``
-    with ``out_cap='auto'`` plan their sizes in the same symbolic pass; with
-    an int ``out_cap`` they take one stream-sized bucket or table. Output
+    ``'bucket'``, ``'hash'``, ``'stream'`` or ``'search'``. A ``plan``
+    (``plan.make_plan``, of either package) supplies ``out_cap``, the
+    backend, ``tile`` and the blocking sizes, explicit arguments winning; it
+    must have been sized for these operands' pattern. Without a plan,
+    ``'bucket'``, ``'hash'`` and ``'stream'`` with ``out_cap='auto'`` plan
+    their sizes in the same symbolic pass; with an int ``out_cap`` they take
+    one stream-sized bucket or table, or one-slab stream steps compacted at
+    the full tile width. ``'stream'`` never forms the whole product stream
+    (``core.streaming.spgemm_coo_stream``). Output
     spaces with ``n_rows·n_cols ≥ 2³¹−1`` reroute to ``'sort'``, whose
     two-key sort is the only lossless realization there. ``check=True``
     raises ``AccumulatorOverflow`` on truncation or a backend drop.
@@ -188,19 +201,24 @@ def spgemm_coo(a: EllRows, b: EllCols, out_cap="auto", *,
         raise ValueError(f"unknown accumulator {accumulator!r}")
     if a.n_rows * b.n_cols >= KEY_SPACE:
         accumulator = "sort"
-    if accumulator in _LATER:
-        _not_ported(f"accumulator {accumulator!r}", accumulator)
     if out_cap == "auto":
-        if accumulator in ("bucket", "hash"):
+        if accumulator in ("bucket", "hash", "stream"):
             from ..plan.planner import make_plan
             plan = make_plan(a, b, backend=accumulator)
             out_cap = plan.out_cap
         else:
             from ..plan.symbolic import out_cap_auto
             out_cap = out_cap_auto(a, b, exact=True)
-    val, row, col = sccp_multiply(a, b)
-    coo = accumulate_stream(row, col, val, out_cap, a.n_rows, b.n_cols,
-                            backend=accumulator, tile=tile, plan=plan)
+    if accumulator == "stream":
+        # the point of this backend: the (k_a, n, k_b) stream never exists
+        coo = spgemm_coo_stream(
+            a, b, out_cap,
+            stream_cap=plan.stream_cap if plan is not None else None,
+            group=plan.stream_group if plan is not None else 1)
+    else:
+        val, row, col = sccp_multiply(a, b)
+        coo = accumulate_stream(row, col, val, out_cap, a.n_rows, b.n_cols,
+                                backend=accumulator, tile=tile, plan=plan)
     if check:
         coo = check_no_overflow(coo)
     return coo
@@ -229,6 +247,14 @@ def _slices(a: EllRows, b: EllCols):
                EllCols(val=b.val[i], idx=b.idx[i], n_cols=b.n_cols))
 
 
+def _stack(coos, n_rows: int, n_cols: int) -> Coo:
+    """One batched ``Coo`` of per-element results, batch axis first."""
+    return Coo(row=torch.stack([c.row for c in coos]),
+               col=torch.stack([c.col for c in coos]),
+               val=torch.stack([c.val for c in coos]), shape=(n_rows, n_cols),
+               ngroups=torch.stack([c.ngroups for c in coos]))
+
+
 def spgemm_coo_batched(a: EllRows, b: EllCols, out_cap="auto", *,
                        accumulator: str | None = None,
                        tile: int | None = None, check: bool = False,
@@ -248,11 +274,148 @@ def spgemm_coo_batched(a: EllRows, b: EllCols, out_cap="auto", *,
     coos = [spgemm_coo(ai, bi, out_cap, accumulator=accumulator, tile=tile,
                        plan=plan)
             for ai, bi in _slices(a, b)]
-    coo = Coo(row=torch.stack([c.row for c in coos]),
-              col=torch.stack([c.col for c in coos]),
-              val=torch.stack([c.val for c in coos]),
-              shape=(a.n_rows, b.n_cols),
-              ngroups=torch.stack([c.ngroups for c in coos]))
+    coo = _stack(coos, a.n_rows, b.n_cols)
+    if check:
+        coo = check_no_overflow(coo)
+    return coo
+
+
+# Dead and missing lanes are summed into this many discarded slots past
+# ``out_cap``, one by lane index, so that their atomic adds do not all land
+# on one address (most of a product stream's lanes are dead).
+DUMP_SLOTS = 1 << 16
+
+
+def _slot_sums_init(out_cap: int, dtype, device) -> torch.Tensor:
+    """Zeroed slot sums: ``out_cap`` output slots, then ``DUMP_SLOTS``."""
+    return torch.zeros(out_cap + DUMP_SLOTS, dtype=dtype, device=device)
+
+
+def _product_keys(row: torch.Tensor, col: torch.Tensor, n_cols: int):
+    """``(valid, pk)`` of a product stream, flattened: which lanes hold a
+    product, and each lane's packed int32 key (0 on dead lanes)."""
+    row, col = row.reshape(-1), col.reshape(-1)
+    valid = (row >= 0) & (col >= 0)
+    return valid, torch.where(valid, row * n_cols + col, 0).to(torch.int32)
+
+
+def _slot_index(slot: torch.Tensor, hit: torch.Tensor,
+                out_cap: int) -> torch.Tensor:
+    """Each lane's index into the slot sums: its output slot where ``hit``,
+    else one of the dump slots, chosen by the lane's position."""
+    lane = torch.arange(slot.numel(), dtype=torch.int32, device=slot.device)
+    return torch.where(hit, slot, out_cap + (lane & (DUMP_SLOTS - 1)))
+
+
+def _slot_sums(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+               key: torch.Tensor, n_cols: int, out_cap: int, sums: torch.Tensor):
+    """Add every product's value into its output slot of ``sums``
+    (``_slot_sums_init``). The slot is K3's ``align_keys`` against the
+    structure's sorted keys (``#{key < pk}``, the reference's
+    ``searchsorted``); dead lanes, and valid products whose key is not there
+    (a stale structure), go to the dump slots. Returns the count of such
+    misses."""
+    valid, pk = _product_keys(row, col, n_cols)
+    slot, hit = align_keys(pk, key)
+    hit &= valid                                   # dead lanes never count
+    sums.index_add_(0, _slot_index(slot, hit, out_cap),
+                    torch.where(valid, val.reshape(-1), 0))
+    return (valid & ~hit).sum(dtype=torch.int32)
+
+
+def _numeric_scatter(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+                     key: torch.Tensor, nnz: torch.Tensor, *, out_cap: int,
+                     n_rows: int, n_cols: int) -> Coo:
+    """Numeric-phase core: locate each product's packed key in the
+    structure's sorted unique keys, one segment-sum into the slots. No
+    planning, no coordinate sort. A valid product missing from the structure
+    (a stale one used with ``validate=False``) loses its value to a dump
+    slot and poisons ``Coo.ngroups`` past ``out_cap``, like a backend
+    drop."""
+    sums = _slot_sums_init(out_cap, val.dtype, val.device)
+    n_miss = _slot_sums(row, col, val, key, n_cols, out_cap, sums)
+    coo = _coo_from_slots(key, sums[:out_cap], nnz, out_cap=out_cap,
+                          n_rows=n_rows, n_cols=n_cols)
+    return _poison_overflow(coo, n_miss)
+
+
+def _numeric_stream(a: EllRows, b: EllCols, key: torch.Tensor,
+                    nnz: torch.Tensor, *, out_cap: int, n_rows: int,
+                    n_cols: int, group: int) -> Coo:
+    """Numeric phase for stream-planned structures: a loop over A slab
+    groups, each group's (group, n, k_b) products (K1) located and summed
+    into the slots. The whole product stream never exists: the working set
+    is O(group·n·k_b + out_cap), the cold stream path's, without its
+    compaction and merge."""
+    a_val, a_idx, n_groups = _slab_groups(a, group)
+    sums = _slot_sums_init(out_cap, torch.result_type(a.val, b.val),
+                           a.val.device)
+    n_miss = torch.zeros((), dtype=torch.int32, device=a.val.device)
+    for g in range(n_groups):
+        sl = slice(g * group, (g + 1) * group)
+        val, row, col = sccp_multiply(
+            EllRows(val=a_val[sl], idx=a_idx[sl], n_rows=a.n_rows), b)
+        n_miss += _slot_sums(row, col, val, key, n_cols, out_cap, sums)
+    coo = _coo_from_slots(key, sums[:out_cap], nnz, out_cap=out_cap,
+                          n_rows=n_rows, n_cols=n_cols)
+    return _poison_overflow(coo, n_miss)
+
+
+def spgemm_coo_numeric(a: EllRows, b: EllCols, structure, *,
+                       check: bool = False, validate: bool = True) -> Coo:
+    """Numeric phase of the two-phase SpGEMM: multiply + scatter into a
+    precomputed ``SpgemmStructure`` (``plan.make_structure``), no planning
+    and no coordinate sort. Prefer ``repro_torch.spgemm(a, b,
+    structure=st)``.
+
+    On integer-valued operands the result is bit-identical to the cold
+    ``spgemm_coo`` on the operands the structure was built from (float
+    operands differ only in summation order): one symbolic call, then any
+    number of numeric calls on new values. Structures from stream-planned
+    plans go by slab groups (``_numeric_stream``), so the product stream is
+    never materialized. ``validate=False`` skips the fingerprint check; a
+    stale structure then sends unknown keys to the discarded dump slot AND
+    poisons ``Coo.ngroups`` past ``out_cap``, so ``check=True`` raises."""
+    if validate:
+        structure.validate(a, b)
+    if a.val.dim() != 2:
+        raise ValueError("batched operands: use spgemm_coo_numeric_batched "
+                         "with a structure from make_structure_batched")
+    st = structure
+    if st.plan is not None and st.plan.backend == "stream":
+        coo = _numeric_stream(a, b, st.key, st.nnz, out_cap=st.out_cap,
+                              n_rows=st.n_rows, n_cols=st.n_cols,
+                              group=max(1, min(st.plan.stream_group, a.k)))
+    else:
+        val, row, col = sccp_multiply(a, b)
+        coo = _numeric_scatter(row, col, val, st.key, st.nnz,
+                               out_cap=st.out_cap, n_rows=st.n_rows,
+                               n_cols=st.n_cols)
+    if check:
+        coo = check_no_overflow(coo)
+    return coo
+
+
+def spgemm_coo_numeric_batched(a: EllRows, b: EllCols, structure, *,
+                               check: bool = False,
+                               validate: bool = True) -> Coo:
+    """Batched numeric phase: the slot scatter per element of the leading
+    batch axis of both operands and of the structure's keys/nnz
+    (``plan.make_structure_batched``); ``spgemm_coo_numeric``'s contract,
+    ``check`` once on the batched result."""
+    if validate:
+        structure.validate(a, b)
+    if not structure.batched:
+        raise ValueError("structure is unbatched — build one with "
+                         "plan.make_structure_batched for batched operands")
+    st = structure
+    coos = []
+    for i, (ai, bi) in enumerate(_slices(a, b)):
+        val, row, col = sccp_multiply(ai, bi)
+        coos.append(_numeric_scatter(row, col, val, st.key[i], st.nnz[i],
+                                     out_cap=st.out_cap, n_rows=st.n_rows,
+                                     n_cols=st.n_cols))
+    coo = _stack(coos, a.n_rows, b.n_cols)
     if check:
         coo = check_no_overflow(coo)
     return coo

@@ -4,8 +4,11 @@
   insitu_search — the paper's Alg. 1 / Fig. 11: emission sort, alignment
                   search, bit-serial minima scan
   bitonic_merge — the (key, value) row sort and merge-tree level with
-                  run-tail totals ('tiled', and the bucket/table sort)
+                  run-tail totals ('tiled', the bucket/table sort, the
+                  streaming engine's merge)
   radix_bucket  — stable binning ranks and propagation blocking ('bucket')
+  fused_sccp_stream — one streaming step: multiply + sort + run totals
+                  fused ('stream')
   hash_accum    — open-addressing tables, probed in torch ('hash')
   ops           — stream packing and the packed-key accumulations
   _build        — nvcc build of ``csrc/*.cu`` into ctypes libraries
@@ -14,8 +17,8 @@
 counter of every kernel wrapper; a wrapper counts only real kernel launches
 (one per grid), never its plain twin.
 """
-from . import (bitonic_merge, hash_accum, insitu_search, ops, radix_bucket,
-               sccp_multiply)
+from . import (bitonic_merge, fused_sccp_stream, hash_accum, insitu_search,
+               ops, radix_bucket, sccp_multiply)
 
 WRAPPERS = {
     "sccp_multiply": sccp_multiply.sccp_multiply,
@@ -25,6 +28,7 @@ WRAPPERS = {
     "sort_tiles": bitonic_merge.sort_tiles,
     "merge_runs": bitonic_merge.merge_runs,
     "bin_ranks": radix_bucket.bin_ranks,
+    "fused_slab_sort": fused_sccp_stream.fused_slab_sort,
 }
 
 
@@ -37,6 +41,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["WRAPPERS", "bitonic_merge", "hash_accum", "insitu_search",
-           "launch_counts", "ops", "radix_bucket", "reset_launch_counts",
-           "sccp_multiply"]
+__all__ = ["WRAPPERS", "bitonic_merge", "fused_sccp_stream", "hash_accum",
+           "insitu_search", "launch_counts", "ops", "radix_bucket",
+           "reset_launch_counts", "sccp_multiply"]

@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface, loaded with ``ctypes``; no PyTorch header is included, which
 keeps a build to seconds. The libraries land in ``src/repro_torch/_build/``
-under a name keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. The first call builds every
+under a name keyed by a hash of the source, the shared headers (``*.cuh``)
+and the flags, so an edited source or header rebuilds and an unchanged one is
+reused. The first call builds every
 source at once, one ``nvcc`` process each, all started together.
 
 Nothing here runs at import: ``nvcc`` is looked up, and the sources built,
@@ -41,7 +42,11 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
+    """The library of ``src``, named by a hash of the source, every shared
+    header in ``csrc/`` (a source may include any of them) and the flags."""
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -14,7 +14,8 @@ counter on its wrapper (one per grid):
 * ``merge_runs`` replaces ``_make_merge_kernel``: adjacent ascending
   coalesced runs of ``run`` lanes merged into rows of ``2·run`` by one
   bitonic merge network, then the totals. Plain twin: ``torch.sort`` on the
-  ``(n/2run, 2run)`` view, then the segmented total.
+  ``(n/2run, 2run)`` view, then the segmented total. ``merge_coalesce_pair``
+  is one such level over two lists, the streaming engine's merge step.
 
 Both are bound by bytes. Strides below a 4,096-pair shared-memory tile run in
 one tile pass, each larger stride is one coalesced pass over device memory,
@@ -140,6 +141,19 @@ def merge_runs(key: torch.Tensor, val: torch.Tensor, *, run: int):
 merge_runs.launches = 0
 
 
+def merge_coalesce_pair(key_a: torch.Tensor, val_a: torch.Tensor,
+                        key_b: torch.Tensor, val_b: torch.Tensor):
+    """Two equal-length ascending streams → one ascending stream of twice
+    the length with run-tail totals: one ``merge_runs`` level over the
+    concatenated pair (the kernel's first stage compares lane i with lane
+    2L−1−i, so ``b`` needs no flipped copy). Each input follows the stream
+    contract (KEY_INVALID padding at the tail, every valid lane carrying a
+    total), so a key in both inputs ends with the grand total on its tail.
+    The streaming engine's per-step merge."""
+    return merge_runs(torch.cat([key_a, key_b]), torch.cat([val_a, val_b]),
+                      run=key_a.numel())
+
+
 def bitonic_merge(key: torch.Tensor, val: torch.Tensor):
     """Sort and coalesce one power-of-two stream as a single row."""
     return sort_tiles(key, val, tile=key.numel())
@@ -165,6 +179,6 @@ def sort_merge_tree(key: torch.Tensor, val: torch.Tensor, *,
     return key, val
 
 
-__all__ = ["KEY_INVALID", "bitonic_merge", "merge_runs",
-           "merge_runs_plain", "next_pot", "sort_merge_tree", "sort_tiles",
-           "sort_tiles_plain"]
+__all__ = ["KEY_INVALID", "bitonic_merge", "merge_coalesce_pair",
+           "merge_runs", "merge_runs_plain", "next_pot", "sort_merge_tree",
+           "sort_tiles", "sort_tiles_plain"]

@@ -2,8 +2,9 @@
 
 Mirrors ``src/repro/kernels/ops.py``: ``pad_to`` aligns a tensor to a
 multiple, ``_packed_stream`` flattens a product stream into packed int32
-``row·n_cols + col`` keys padded to a power of two, and four accumulations
-run over that stream:
+``row·n_cols + col`` keys padded to a power of two, ``fused_slab_sort`` forms
+and sorts one streaming step's products without a raw stream (K8), and four
+accumulations run over a packed stream:
 
   * ``sort_merge``   — the bitonic merge tree (``'tiled'``);
   * ``search_merge`` — the paper's in-situ search (emit the sorted unique
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from . import hash_accum, insitu_search, radix_bucket
+from . import fused_sccp_stream, hash_accum, insitu_search, radix_bucket
 from .bitonic_merge import sort_merge_tree
 from .insitu_search import KEY_INVALID
 
@@ -67,6 +68,15 @@ def _packed_or_raise(row, col, val, n_rows: int, n_cols: int):
     if packed is None:
         _unpackable(n_rows, n_cols)
     return packed
+
+
+def fused_slab_sort(a_val, a_idx, b_val, b_idx, *, n_cols: int):
+    """One streaming step: a block of A slabs times all of B → sorted packed
+    keys + run-tail totals (K8, ``fused_sccp_stream.fused_slab_sort``; its
+    plain twin for CPU operands). Coordinate spaces ≥ 2³¹−1 cannot pack;
+    the streaming engine refuses them before it gets here."""
+    return fused_sccp_stream.fused_slab_sort(a_val, a_idx, b_val, b_idx,
+                                             n_cols=n_cols)
 
 
 def sort_merge(row, col, val, n_rows: int, n_cols: int, *, tile: int = 4096):

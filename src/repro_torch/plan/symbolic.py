@@ -39,23 +39,39 @@ def upper_bound_nnz(a: EllRows, b: EllCols) -> torch.Tensor:
                        max=b.n_cols).sum().to(torch.int32)
 
 
-def exact_nnz_rows(a: EllRows, b: EllCols) -> torch.Tensor:
-    """Per-row exact unique-coordinate counts of C (coordinate-only pass):
-    one sort of the broadcast coordinate planes, run heads counted per row."""
-    shape = (a.k, a.n_cols, b.k)
-    row = a.idx[:, :, None].expand(shape).reshape(-1)
-    col = b.idx[None, :, :].expand(shape).reshape(-1)
+def sorted_coords(a_idx: torch.Tensor, b_idx: torch.Tensor, n_rows: int):
+    """The coordinate-only pass: every SCCP product's (row, col) as an int64
+    key ``row << 32 | (col + 2³¹)``, sorted (one sort of the broadcast
+    coordinate planes, no values; invalid lanes parked last at row
+    ``n_rows``), with the mask of the valid run heads (C's unique
+    coordinates) and each lane's row."""
+    shape = (a_idx.shape[0], a_idx.shape[1], b_idx.shape[1])
+    row = a_idx[:, :, None].expand(shape).reshape(-1)
+    col = b_idx[None, :, :].expand(shape).reshape(-1)
     ok = (row >= 0) & (col >= 0)
-    row_s = torch.where(ok, row, a.n_rows).to(torch.int64)  # park invalid last
+    row_s = torch.where(ok, row, n_rows).to(torch.int64)    # park invalid last
     col_s = torch.where(ok, col, 0).to(torch.int64)
     key = torch.sort((row_s << 32) | (col_s + 2 ** 31)).values
     head = key != torch.roll(key, 1)
     head[0] = True
     row_s = key >> 32
-    head &= row_s < a.n_rows
-    counts = torch.zeros(a.n_rows + 1, dtype=torch.int32, device=key.device)
-    counts.index_add_(0, row_s.clamp(max=a.n_rows), head.to(torch.int32))
-    return counts[: a.n_rows]
+    head &= row_s < n_rows
+    return key, head, row_s
+
+
+def row_counts(head: torch.Tensor, row: torch.Tensor,
+               n_rows: int) -> torch.Tensor:
+    """Per-row count of the ``head`` lanes (int32, rows ≥ n_rows dropped)."""
+    counts = torch.zeros(n_rows + 1, dtype=torch.int32, device=head.device)
+    counts.index_add_(0, row.clamp(max=n_rows), head.to(torch.int32))
+    return counts[:n_rows]
+
+
+def exact_nnz_rows(a: EllRows, b: EllCols) -> torch.Tensor:
+    """Per-row exact unique-coordinate counts of C (coordinate-only pass):
+    one sort of the broadcast coordinate planes, run heads counted per row."""
+    _, head, row = sorted_coords(a.idx, b.idx, a.n_rows)
+    return row_counts(head, row, a.n_rows)
 
 
 def exact_nnz(a: EllRows, b: EllCols) -> torch.Tensor:

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 import repro_torch as rt
 from repro_torch import kernels
 from repro_torch.kernels import bitonic_merge as tbm
+from repro_torch.kernels import fused_sccp_stream as tfs
 from repro_torch.kernels import insitu_search as tis
 from repro_torch.kernels import radix_bucket as trb
 from repro_torch.kernels import sccp_multiply as tsm
@@ -198,6 +199,130 @@ def test_backends_match_sort_on_card(cuda, accumulator, kw):
     assert counts["sccp_multiply"] == 1 and counts["sort_tiles"] > 0
     assert (counts["merge_runs"] > 0) == (accumulator == "tiled")
     assert (counts["bin_ranks"] > 0) == (accumulator == "bucket")
+
+
+def _slab(seed, group, n, k_b, n_cols, dead=0.3):
+    """A block of A slabs (group, n) and B (n, k_b): integer values, indices
+    drawn from few rows and columns (long runs of equal keys)."""
+    rng = np.random.default_rng(seed)
+    a_val = rng.integers(-3, 4, (group, n)).astype(np.float32)
+    a_idx = np.where(rng.random((group, n)) < 1 - dead,
+                     rng.integers(0, 40, (group, n)), -1).astype(np.int32)
+    b_val = rng.integers(-3, 4, (n, k_b)).astype(np.float32)
+    b_idx = np.where(rng.random((n, k_b)) < 1 - dead,
+                     rng.integers(0, n_cols, (n, k_b)), -1).astype(np.int32)
+    return [torch.from_numpy(x) for x in (a_val, a_idx, b_val, b_idx)]
+
+
+@pytest.mark.parametrize("group,n,k_b,dead", [
+    (1, 16, 4, 0.3),             # 2^6 lanes: one tile, one residency
+    (1, 1024, 4, 0.3),           # 2^12 lanes: exactly one shared tile
+    (1, 4096, 16, 0.3),          # 2^16 lanes: global strides and totals
+    (1, 1000, 3, 0.3),           # 3,000 lanes padded to 4,096
+    (3, 700, 9, 0.2),            # a group block, 18,900 lanes → 2^15
+    (1, 500, 8, 1.0),            # an all-invalid slab
+])
+def test_fused_slab_sort_kernel(cuda, group, n, k_b, dead):
+    ops_in = [t.to(cuda) for t in _slab(n + group, group, n, k_b, 97, dead)]
+    if group == 1:
+        ops_in[:2] = [t[0].contiguous() for t in ops_in[:2]]
+    before = tfs.fused_slab_sort.launches
+    got = tfs.fused_slab_sort(*ops_in, n_cols=97)
+    torch.cuda.synchronize()
+    assert tfs.fused_slab_sort.launches > before
+    _same_pairs(got, tfs.fused_slab_sort_plain(*ops_in, n_cols=97))
+    assert got[0].numel() == 1 << (group * n * k_b - 1).bit_length()
+    assert bool((got[0][1:] >= got[0][:-1]).all())
+    with pytest.raises(TypeError):
+        tfs.fused_slab_sort(ops_in[0].double(), *ops_in[1:], n_cols=97)
+
+
+def test_fused_slab_sort_kernel_extreme_key(cuda):
+    """row·n_cols + col = 2³¹−3 at n_rows·n_cols = 2³¹−2 packs and sorts."""
+    big = (1 << 30) - 1
+    ops_in = [torch.tensor([1.0, 2.0]), torch.tensor([1, 0], dtype=torch.int32),
+              torch.tensor([[3.0], [4.0]]),
+              torch.tensor([[big - 1], [big - 1]], dtype=torch.int32)]
+    key, tot = tfs.fused_slab_sort(*[t.to(cuda) for t in ops_in], n_cols=big)
+    assert key.tolist() == [big - 1, 2 ** 31 - 3] and tot.tolist() == [8, 3]
+
+
+@pytest.mark.parametrize("length", [128, 1 << 14])
+def test_merge_coalesce_pair_kernel(cuda, length):
+    """The streaming engine's merge step (one K6 level), the buffer width
+    down to its 128-lane minimum."""
+    rng = np.random.default_rng(length)
+    lists = []
+    for n_valid in (length // 2, length // 3):
+        key = np.full(length, KI, np.int32)
+        key[:n_valid] = np.sort(rng.choice(3 * length, n_valid,
+                                           replace=False))
+        val = np.zeros(length, np.float32)
+        val[:n_valid] = rng.integers(-4, 5, n_valid)
+        lists += [torch.from_numpy(key).to(cuda),
+                  torch.from_numpy(val).to(cuda)]
+    got = tbm.merge_coalesce_pair(*lists)
+    want = tbm.merge_runs_plain(torch.cat(lists[0::2]), torch.cat(lists[1::2]),
+                                run=length)
+    _same_pairs(got, want)
+
+
+def _square(cuda, m=300, density=0.05, seed=21):
+    rng = np.random.default_rng(seed)
+    a = ((rng.random((m, m)) < density) * rng.integers(-4, 5, (m, m)))
+    a = a.astype(np.float32)
+    k = int((a != 0).sum(0).max())
+    return (a, rt.ell_rows_from_dense(a, k, device=cuda),
+            rt.ell_cols_from_dense(a.T.copy(), k, device=cuda))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(group=3),
+                                dict(stream_cap=1 << 13, group=1)])
+def test_stream_matches_sort_on_card(cuda, kw):
+    """'stream' through the front door on the card: K8 every step, K6 for
+    every merge, bit-identical to 'sort' on integer operands."""
+    a, ta, tb = _square(cuda)
+    want = rt.spgemm(ta, tb, check=True)
+    kernels.reset_launch_counts()
+    got = rt.spgemm(ta, tb, accumulator="stream", **kw)
+    counts = kernels.launch_counts()
+    for f in ("row", "col", "val", "ngroups"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert counts["fused_slab_sort"] > 0 and counts["merge_runs"] > 0
+    assert counts["sccp_multiply"] == 0
+
+
+def test_undersized_stream_cap_poisons_on_card(cuda):
+    """A ``stream_cap`` below a group tile's uniques drops them on the card
+    too: ``ngroups`` is poisoned past the cap and ``check=True`` raises."""
+    _, ta, tb = _square(cuda)
+    got = rt.spgemm(ta, tb, accumulator="stream", stream_cap=256, group=1)
+    assert bool(got.overflowed())
+    with pytest.raises(rt.AccumulatorOverflow):
+        rt.spgemm(ta, tb, accumulator="stream", stream_cap=256, group=1,
+                  check=True)
+
+
+@pytest.mark.parametrize("backend", ["sort", "stream"])
+def test_numeric_phase_on_card(cuda, backend):
+    """The warm numeric phase through K1 and K3, bit-identical to the cold
+    path; a stale structure with validate=False poisons ngroups."""
+    a, ta, tb = _square(cuda, seed=22)
+    st = rt.make_structure(ta, tb, backend=backend)
+    cold = rt.spgemm(ta, tb, plan=st.plan, check=True)
+    kernels.reset_launch_counts()
+    warm = rt.spgemm(ta, tb, structure=st, check=True)
+    counts = kernels.launch_counts()
+    for f in ("row", "col", "val", "ngroups"):
+        assert torch.equal(getattr(warm, f), getattr(cold, f)), f
+    assert counts["sccp_multiply"] > 0 and counts["align_keys"] > 0
+    a2 = a.copy()                  # move one nonzero within its column
+    r, c = np.argwhere(a2 != 0)[0]
+    z = np.flatnonzero(a2[:, c] == 0)[0]
+    a2[r, c], a2[z, c] = 0.0, 3.0
+    ta2 = rt.ell_rows_from_dense(a2, ta.k, device=cuda)
+    stale = rt.spgemm(ta2, tb, structure=st, validate=False)
+    assert int(stale.ngroups) > st.out_cap
 
 
 def test_launch_counters_reset(cuda):

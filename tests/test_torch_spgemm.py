@@ -256,14 +256,22 @@ def test_poison_overflow_matches_reference():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(accumulator="stream"), dict(accumulator="auto"),
-    dict(structure=object()), dict(mesh=object(), axis="x"),
-    dict(accumulator="stream", stream_cap=64),
+    dict(call="StructureCache", autotune=True), dict(accumulator="auto"),
+    dict(call="make_structure", backend="sort", n_dev=2),
+    dict(mesh=object(), axis="x"),
+    dict(call="make_structure", backend=None),
 ])
 def test_unported_routes_raise(kwargs):
+    """Options whose slices are not ported raise, naming their ROADMAP item:
+    ``spgemm`` kwargs, and (``call``) the structure builder and cache."""
     (_, _), (ta, tb) = _pair(*ZOO["dup_heavy"][:2])
+    kwargs = dict(kwargs)
+    call = kwargs.pop("call", "spgemm")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        rt.spgemm(ta, tb, **kwargs)
+        if call == "StructureCache":
+            rt.StructureCache(**kwargs)
+        else:
+            getattr(rt, call)(ta, tb, **kwargs)
 
 
 def test_unknown_accumulator_raises():
@@ -282,7 +290,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.plan.structure, repro_torch.kernels._build, "
             "repro_torch.kernels.bitonic_merge, "
             "repro_torch.kernels.radix_bucket, "
-            "repro_torch.kernels.hash_accum, chip_smoke\n"
+            "repro_torch.kernels.hash_accum, "
+            "repro_torch.kernels.fused_sccp_stream, "
+            "repro_torch.core.streaming, repro_torch.plan.cache, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\nprint('clean')")
@@ -311,6 +321,8 @@ def test_no_cuda_means_no_device_and_no_launches():
     ta = rt.ell_rows_from_dense(a, 1, device="cpu")
     tb = rt.ell_cols_from_dense(a, 1, device="cpu")
     rt.spgemm(ta, tb, accumulator="search")
+    rt.spgemm(ta, tb, accumulator="stream")
+    rt.spgemm(ta, tb, structure=rt.make_structure(ta, tb, backend="stream"))
     val, row, col = tsp.sccp_multiply(ta, tb)
     kernels.ops.search_merge(row, col, val, 4, 4, out_cap=8, faithful=True)
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
