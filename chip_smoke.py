@@ -6,8 +6,9 @@
 Builds every CUDA kernel from ``src/repro_torch/csrc`` and drives the port's
 single-device SpGEMM, cold through all six ported accumulators ('sort',
 'search', 'tiled', 'bucket', 'hash', 'stream') and warm through the numeric
-phase on a 'sort' and a 'stream' structure, at a real size: C = A·Aᵀ for the
-paper's Table-I
+phase on a 'sort' and a 'stream' structure, and its SpMM side (MoE with
+``dispatch='spmm'``, ``SparseMLP``/``SparseLinear``), at a real size: C = A·Aᵀ
+for the paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
 this script keeps its own copy and imports nothing of the JAX package).
@@ -33,18 +34,37 @@ Phases (any failure exits non-zero before the last line):
    exactly nnz(C) groups, and equal scipy's A @ Aᵀ; a stale structure with
    ``validate=False`` must poison ``ngroups``; the 'stream' call's stages,
    replayed one by one, must give its result.
-4. A ``kernels`` JSON line, the end-to-end times with each path's per-call
-   peak memory and the stage split, the card's name and power limit, and as
-   the last line ``{"ok": true, "device": {...}}``.
+4. The end-to-end times with each path's per-call peak memory and the
+   stage split.
+5. The SpMM slice at deepseek-v2-lite's published widths (d_model 2048, 64
+   routed experts top-6 with d_ff_expert 1408, 2 shared experts, capacity
+   factor 1.25, dense FFN 10944) on a prefill batch of 4 x 1,024 tokens:
+   K9 at the MoE dispatch and combine shapes and K10 at the 2:4
+   ``SparseMLP``'s fc_in and fc_out shapes, each bit for bit against its
+   plain version on integer-valued operands, with the same times and bound;
+   beside K10, the time of its probe build with no gather (every lane reads
+   its window's first column: ``_build.VARIANTS["nm_spmm_broadcast"]``).
+6. The SpMM paths, counters zeroed around each, with per-call peak memory:
+   ``moe_apply`` (two K9 launches; routing equal to, and y within 1e-4 of
+   max|y| of, the same call on CPU tensors), ``SparseMLP(w_in, w_out, 0.5,
+   nm=(2, 4))`` (two K10 launches; each layer bit-identical to ``x @ wp``
+   with TF32 off), the ELLPACK twin on 8 tokens (bit-identical to the N:M
+   route), ``SparseLinear(nm="auto")`` at a 90% global prune (routes to
+   ELLPACK), and ``matmul_sparse(backend='sort')`` twice (a cache miss,
+   then a hit); then three timed calls of the MoE layer and the MLP.
+7. A ``kernels`` JSON line (all ten kernels), the card's name and power
+   limit, and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -125,6 +145,16 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_ms(fn):
+    """``fn()`` and its host-clock ms, synchronised before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -546,36 +576,28 @@ def stage_ms(a, b) -> dict:
     instead), the SCCP multiply, each accumulation, and the torch parts of
     'bucket' and 'hash' before their table sort (the binning, the probe
     loop)."""
-    import torch
     from repro_torch.core.sccp import sccp_multiply
     from repro_torch.core.spgemm import accumulate_stream
     from repro_torch.kernels import hash_accum, ops, radix_bucket
     from repro_torch.plan.planner import make_plan
     from repro_torch.plan.symbolic import out_cap_auto
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    cap, t_sym = timed(lambda: out_cap_auto(a, b))
-    plan, t_plan = timed(lambda: make_plan(a, b, backend="bucket"))
-    (val, row, col), t_mul = timed(lambda: sccp_multiply(a, b))
+    cap, t_sym = timed_ms(lambda: out_cap_auto(a, b))
+    plan, t_plan = timed_ms(lambda: make_plan(a, b, backend="bucket"))
+    (val, row, col), t_mul = timed_ms(lambda: sccp_multiply(a, b))
     st = {"symbolic_out_cap": t_sym, "make_plan": t_plan,
           "sccp_multiply": t_mul}
     for acc in ACCUMULATORS:
-        _, st[f"accumulate_{acc}"] = timed(lambda: accumulate_stream(
+        _, st[f"accumulate_{acc}"] = timed_ms(lambda: accumulate_stream(
             row, col, val, cap, a.n_rows, b.n_cols, backend=acc, plan=plan))
-    (key, v), st["pack_stream"] = timed(lambda: ops._packed_stream(
+    (key, v), st["pack_stream"] = timed_ms(lambda: ops._packed_stream(
         row, col, val, a.n_rows, b.n_cols))
     del val, row, col
     kpb = radix_bucket.bucket_bounds(a.n_rows, b.n_cols, plan.n_buckets)
-    _, st["bucket_bin_stream"] = timed(lambda: radix_bucket.bin_stream(
+    _, st["bucket_bin_stream"] = timed_ms(lambda: radix_bucket.bin_stream(
         key, v, n_buckets=plan.n_buckets, bucket_cap=plan.bucket_cap,
         keys_per_bucket=kpb))
-    _, st["hash_tables"] = timed(lambda: hash_accum.hash_tables(
+    _, st["hash_tables"] = timed_ms(lambda: hash_accum.hash_tables(
         key, v, n_blocks=plan.n_blocks, block_cap=plan.block_cap,
         keys_per_block=kpb))
     return st
@@ -587,19 +609,11 @@ def stream_stage_ms(a, b, want) -> dict:
     summed over the steps (the tile's compaction; the K6 merge with the
     compaction back to the buffer width), and the final unpack. The staged
     call's result must equal ``want`` bit for bit."""
-    import torch
     from repro_torch.core import streaming as st
     from repro_torch.kernels import ops
     from repro_torch.plan.planner import make_plan
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    plan, t_plan = timed(lambda: make_plan(a, b, backend="stream"))
+    plan, t_plan = timed_ms(lambda: make_plan(a, b, backend="stream"))
     a_val, a_idx, n_groups = st._slab_groups(a, plan.stream_group)
     state = st.stream_init(st.buffer_cap(plan.out_cap), a.val.dtype,
                            a.val.device)
@@ -608,17 +622,17 @@ def stream_stage_ms(a, b, want) -> dict:
               stream_compact_tile=0.0, stream_merge_tile=0.0)
     for g in range(n_groups):
         sl = slice(g * plan.stream_group, (g + 1) * plan.stream_group)
-        (key, tot), t = timed(lambda: ops.fused_slab_sort(
+        (key, tot), t = timed_ms(lambda: ops.fused_slab_sort(
             a_val[sl], a_idx[sl], b.val, b.idx, n_cols=b.n_cols))
         ms["stream_fused_slab_sort"] += t
-        tile, t = timed(lambda: st._compact_tile(
+        tile, t = timed_ms(lambda: st._compact_tile(
             key, tot, stream_cap=plan.stream_cap, buf_cap=buf_cap))
         ms["stream_compact_tile"] += t
         del key, tot
-        state, t = timed(lambda: st._merge_tile(state, *tile))
+        state, t = timed_ms(lambda: st._merge_tile(state, *tile))
         ms["stream_merge_tile"] += t
         del tile
-    coo, ms["stream_finalize"] = timed(lambda: st.finalize(
+    coo, ms["stream_finalize"] = timed_ms(lambda: st.finalize(
         state, plan.out_cap, a.n_rows, b.n_cols))
     for f in ("row", "col", "val", "ngroups"):
         same(f"staged stream vs path .{f}", getattr(coo, f), getattr(want, f))
@@ -641,22 +655,15 @@ def numeric_stage_ms(a, b, st) -> dict:
     from repro_torch.core.sccp import sccp_multiply
     from repro_torch.kernels.insitu_search import align_keys
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     ms = {}
-    (val, row, col), ms["numeric_sccp_multiply"] = timed(
+    (val, row, col), ms["numeric_sccp_multiply"] = timed_ms(
         lambda: sccp_multiply(a, b))
-    (valid, pk), ms["numeric_pack_keys"] = timed(
+    (valid, pk), ms["numeric_pack_keys"] = timed_ms(
         lambda: sp._product_keys(row, col, st.n_cols))
     del row, col
     val = torch.where(valid, val.reshape(-1), 0)
-    (slot, hit), ms["numeric_align_keys"] = timed(lambda: align_keys(pk,
-                                                                     st.key))
+    (slot, hit), ms["numeric_align_keys"] = timed_ms(
+        lambda: align_keys(pk, st.key))
     hit &= valid
 
     def slot_sum():
@@ -672,10 +679,10 @@ def numeric_stage_ms(a, b, st) -> dict:
         sums = sp._slot_sums_init(st.out_cap, val.dtype, val.device)
         return sums.index_add_(0, slot[sel], val[sel])
 
-    want, ms["numeric_index_add_spread_dump"] = timed(slot_sum)
+    want, ms["numeric_index_add_spread_dump"] = timed_ms(slot_sum)
     for name, fn in (("numeric_index_add_one_dump_slot", one_dump_slot),
                      ("numeric_index_add_valid_lanes", valid_sum)):
-        got, ms[name] = timed(fn)
+        got, ms[name] = timed_ms(fn)
         same(f"slot sums ({name})", got[:st.out_cap], want[:st.out_cap])
     print(f"[numeric] {int(valid.sum())} valid of {valid.numel()} lanes",
           flush=True)
@@ -702,6 +709,387 @@ def check_against_scipy(name: str, coo, c_ref, nnz_ref: int) -> None:
     diff = coo_to_scipy(coo) - c_ref
     diff.eliminate_zeros()
     require(diff.nnz == 0, f"{name}: {diff.nnz} entries differ from scipy")
+
+
+# ---------------------------------------------------------------------------
+# The SpMM slice: MoE dispatch='spmm' (K9) and SparseMLP's N:M route (K10)
+# ---------------------------------------------------------------------------
+
+# a prefill batch at deepseek-v2-lite's published widths: 4 requests x 1,024
+# tokens; the ELLPACK twin materializes (tokens, d_in·k) products, so it runs
+# on a cut of ELL_CUT tokens
+PREFILL = (4, 1024)
+ELL_CUT = 8
+
+
+def moe_operands(seed: int):
+    """deepseek-v2-lite's MoE layer (``dispatch='spmm'`` over the config's
+    ``'sort'``), its parameters and a prefill batch, float32 on the CPU.
+
+    Tokens are multiples of 2^-3 in [-1, 1] with feature 0 fixed at 1; the
+    router's rows are multiples of 2^-6 in [-2^-5, 2^-5], except row 0,
+    which holds the tags e·2^-17. Every logit is then a multiple of 2^-17
+    well inside float32's 24 bits, exact in any summation order, and no two
+    experts of a token tie (the tags sit below the grid of the rest), so
+    both devices route every token alike; ``route_exactly`` checks it. The
+    expert weights are normal draws over sqrt(fan_in)."""
+    import torch
+    from repro_torch.configs import deepseek_v2_lite
+    base = deepseek_v2_lite.CONFIG
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dispatch="spmm"))
+    m = cfg.moe
+    d, e, f = cfg.d_model, m.n_experts, m.d_ff_expert
+    rng = np.random.default_rng(seed)
+
+    def lin(*shape):
+        w = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(w / np.float32(math.sqrt(shape[-2])))
+
+    router = rng.integers(-2, 3, (d, e)).astype(np.float32) / 64
+    router[0] = np.arange(e, dtype=np.float32) * np.float32(2.0 ** -17)
+    p = {"router": torch.from_numpy(router), "w_gate": lin(e, d, f),
+         "w_up": lin(e, d, f), "w_down": lin(e, f, d)}
+    fs = m.n_shared * f
+    p["shared"] = {"w_gate": lin(d, fs), "w_up": lin(d, fs),
+                   "w_down": lin(fs, d)}
+    x = rng.integers(-8, 9, (*PREFILL, d)).astype(np.float32) / 8
+    x[..., 0] = 1.0
+    return cfg, p, torch.from_numpy(x)
+
+
+def route_exactly(x, router) -> None:
+    """Require float32 logits equal to float64 ones and distinct in every
+    token, on the operand's device."""
+    import torch
+    x2 = x.reshape(-1, x.shape[-1])
+    l64 = x2.double().cpu() @ router.double().cpu()
+    require(torch.equal((x2 @ router).double().cpu(), l64),
+            f"router logits on {x.device} are not exact")
+    srt = l64.sort(dim=-1).values
+    require(bool((srt[:, 1:] > srt[:, :-1]).all()), "router logits tie")
+
+
+def int_tensor(rng, shape, dev):
+    import torch
+    return torch.from_numpy(rng.integers(-4, 5, shape).astype(np.float32)) \
+        .to(dev)
+
+
+def sparse_rows(val, idx, n_rows: int):
+    """A of row-wise ELLPACK planes as a torch CSR tensor (the library
+    call's operand; built outside its timing)."""
+    import torch
+    s, c = torch.nonzero(idx >= 0, as_tuple=True)
+    with warnings.catch_warnings():        # torch's beta-state notices
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_coo_tensor(torch.stack([idx[s, c].long(), c]),
+                                    val[s, c], (n_rows, val.shape[1]))
+        return a.coalesce().to_sparse_csr()
+
+
+def check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed: int) -> list:
+    """K9 at the MoE path's dispatch and combine shapes and K10 at
+    SparseMLP's fc_in and fc_out shapes, each held bit for bit against its
+    plain twin on integer-valued operands (|partial sums| < 2^24, so every
+    order of the atomics and of the products gives the same bits). K9's
+    planes are the routing's own (dispatch: value 1 on each kept pair;
+    combine: the slot → token index with integer values in place of the
+    routing weights); its library call is ``torch.sparse.mm`` of A as a CSR
+    tensor, and its bound reads X only at the columns of A with a valid
+    lane. K10's is ``x @ wp``, the dense product of the pruned weight,
+    TF32 off; each K10 entry also holds ``broadcast_ms``, the probe build
+    of its source with the gather taken out (a wrong result, not checked),
+    which times the loop with no bank conflicts."""
+    import torch
+    from repro_torch.kernels import ell_spmm as k9
+    from repro_torch.kernels import nm_spmm as k10
+    from repro_torch.models import ffn
+    dev = x.device
+    rng = np.random.default_rng(seed + 1)
+    t, d = x.shape[0] * x.shape[1], cfg.d_model
+    logits = x.reshape(1, t, d) @ p["router"]
+    w, _, _, kept, slot = ffn._spmm_route(logits, cfg)
+    n_slots = cfg.moe.n_experts * ffn.moe_capacity(t, cfg)
+    disp = ffn.dispatch_planes(kept[0], slot[0], n_slots, torch.float32)
+    comb = ffn.combine_planes(kept[0], slot[0], w[0], n_slots, torch.float32)
+    comb_val = torch.where(comb.idx >= 0, int_tensor(rng, comb.val.shape,
+                                                     dev), 0.0)
+    ell = []
+    for what, val, idx, xx, n_rows in (
+            ("dispatch", disp.val, disp.idx, int_tensor(rng, (t, d), dev),
+             n_slots),
+            ("combine", comb_val, comb.idx, int_tensor(rng, (n_slots, d),
+                                                       dev), t)):
+        k, n = val.shape
+        valid = (idx >= 0) & (idx < n_rows)
+        n_used = int(valid.any(0).sum())       # columns whose X row is read
+        a_csr = sparse_rows(val, idx, n_rows)
+        ell.append(held_pair(
+            "ell_spmm", lambda: k9.ell_spmm(val, idx, xx, n_rows),
+            lambda: k9.ell_spmm_plain(val, idx, xx, n_rows),
+            lambda: torch.sparse.mm(a_csr, xx),
+            f"{what}: ({k},{n}) x ({n},{d}) -> ({n_rows},{d}), "
+            f"{int(valid.sum())} valid lanes in {n_used} columns",
+            8 * k * n + 4 * n_used * d + 4 * n_rows * d,
+            2 * int(valid.sum()) * d))
+        del a_csr, xx
+    nm = []
+    for what, layer, xx in (("fc_in", mlp.fc_in, x_int),
+                            ("fc_out", mlp.fc_out, h_int)):
+        wn = layer.w_nm
+        wp = wn.to_dense()
+        nm.append(held_pair(
+            "nm_spmm", lambda: k10.nm_spmm(xx, wn.val, wn.off, n=wn.n,
+                                           m=wn.m),
+            lambda: k10.nm_spmm_plain(xx, wn.val, wn.off, n=wn.n, m=wn.m),
+            lambda: xx @ wp,
+            f"{what}: ({t},{wn.d_in}) x {wn.n}:{wn.m} ({wn.r},{wn.d_out})",
+            4 * t * wn.d_in + 5 * wn.r * wn.d_out + 4 * t * wn.d_out,
+            2 * t * wn.r * wn.d_out))
+        nm[-1]["broadcast_ms"] = cuda_ms(lambda: k10.launch(
+            "nm_spmm_broadcast", xx, wn.val, wn.off, n=wn.n, m=wn.m), 3)
+        print(f"[probe] nm_spmm {what} with no gather (broadcast reads): "
+              f"{nm[-1]['broadcast_ms']:.4f} ms, as built "
+              f"{nm[-1]['ms']:.4f} ms", flush=True)
+        del wp
+    torch.cuda.empty_cache()
+    return [kernel_row("ell_spmm", "src/repro_torch/csrc/ell_spmm.cu",
+                       "src/repro/kernels/ell_spmm.py:33", ell),
+            kernel_row("nm_spmm", "src/repro_torch/csrc/nm_spmm.cu",
+                       "src/repro/kernels/nm_spmm.py:41", nm)]
+
+
+def peak_of(fn):
+    """Run ``fn`` once; its result, the device's peak memory during the
+    call, and what the call added above the memory allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    top = torch.cuda.max_memory_allocated()
+    return out, dict(peak_gib=top / 2**30, call_gib=(top - base) / 2**30)
+
+
+def drive_spmm_paths(paths: dict):
+    """Each SpMM path once, with the launch counters zeroed just before and
+    read just after. Returns ({path: counts}, {path: result},
+    {path: (ms, peak)})."""
+    import torch
+    from repro_torch import kernels
+    counts, out, cost = {}, {}, {}
+    for name, fn in paths.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, peak = peak_of(fn)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts[name] = kernels.launch_counts()
+        out[name], cost[name] = res, (ms, peak)
+        print(f"[path] {name}: {ms:.1f} ms, peak {json.dumps(peak)}, "
+              f"launches {counts[name]}", flush=True)
+    return counts, out, cost
+
+
+
+def spmm_stage_ms(cfg, p, x, mlp, x_int) -> dict:
+    """Host-clock ms of one ``moe_apply`` call's stages, each synchronised
+    (``models.ffn._moe_spmm`` step by step: router product and routing,
+    K9 dispatch, the three expert ``bmm``s with the SiLU, the combine
+    planes, K9 combine, the shared SwiGLU), and of one ``SparseMLP`` call's
+    (K10, GELU, K10)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import ffn
+    t, d = x.shape[0] * x.shape[1], cfg.d_model
+    e = cfg.moe.n_experts
+    cap = ffn.moe_capacity(t, cfg)
+    x_grp = x.reshape(1, t, d)
+    ms = {}
+    (w, _, _, kept, slot), ms["moe_router_and_routing"] = timed_ms(
+        lambda: ffn._spmm_route(x_grp @ p["router"], cfg))
+    disp, ms["moe_dispatch_planes"] = timed_ms(
+        lambda: ffn.dispatch_planes(kept[0], slot[0], e * cap, x.dtype))
+    xe, ms["moe_k9_dispatch"] = timed_ms(
+        lambda: ffn._spmm_ell_auto(disp, x_grp[0]).reshape(e, cap, d))
+
+    def experts():
+        h = torch.bmm(xe, p["w_gate"])
+        u = torch.bmm(xe, p["w_up"])
+        return torch.bmm(F.silu(h) * u, p["w_down"]).reshape(e * cap, d)
+
+    ye, ms["moe_expert_bmm"] = timed_ms(experts)
+    comb, ms["moe_combine_planes"] = timed_ms(
+        lambda: ffn.combine_planes(kept[0], slot[0], w[0], e * cap, x.dtype))
+    _, ms["moe_k9_combine"] = timed_ms(lambda: ffn._spmm_ell_auto(comb, ye))
+    _, ms["moe_shared_swiglu"] = timed_ms(
+        lambda: ffn.swiglu_apply(p["shared"], x_grp, x.dtype))
+    h, ms["mlp_k10_fc_in"] = timed_ms(lambda: mlp.fc_in(x_int))
+    g, ms["mlp_gelu"] = timed_ms(lambda: F.gelu(h, approximate="tanh"))
+    _, ms["mlp_k10_fc_out"] = timed_ms(lambda: mlp.fc_out(g))
+    return ms
+
+
+def spmm_slice(seed: int):
+    """The SpMM slice end to end: returns (kernel rows, {path: counts},
+    the e2e summary). See the module docstring, phases 5-6."""
+    import torch
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core.formats import params_from_numpy
+    from repro_torch.models import sparse as sl
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False    # full float32 products
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, p_cpu, x_cpu = moe_operands(seed)
+    p = params_from_numpy(p_cpu, device=dev)
+    x = x_cpu.to(dev)
+    route_exactly(x_cpu, p_cpu["router"])
+    route_exactly(x, p["router"])
+    d, f = cfg.d_model, cfg.d_ff
+    t = PREFILL[0] * PREFILL[1]
+    rng = np.random.default_rng(seed + 2)
+    w_in, w_out = int_tensor(rng, (d, f), dev), int_tensor(rng, (f, d), dev)
+    mlp = repro_torch.SparseMLP(w_in, w_out, 0.5, nm=(2, 4))
+    x_int, h_int = int_tensor(rng, (t, d), dev), int_tensor(rng, (t, f), dev)
+    w_auto = torch.from_numpy(rng.standard_normal((d, f), dtype=np.float32)
+                              ).to(dev)
+    lin_auto = repro_torch.SparseLinear(w_auto, 0.9, nm="auto")
+    a_dense = int_tensor(rng, (64, d), dev) \
+        * (torch.rand((64, d), device=dev) < 0.05)
+    a_act = repro_torch.ell_rows_from_dense(
+        a_dense, int((a_dense != 0).sum(0).max()), device=dev)
+    torch.cuda.synchronize()
+    print(f"[spmm] deepseek-v2-lite MoE E={cfg.moe.n_experts} "
+          f"top-{cfg.moe.top_k} d_ff_expert={cfg.moe.d_ff_expert} "
+          f"shared={cfg.moe.n_shared} T={t}; SparseMLP {d}->{f}->{d} 2:4 "
+          f"(ELL twin k {mlp.fc_in.w_ell.k}/{mlp.fc_out.w_ell.k}); "
+          f"90% SparseLinear k {lin_auto.w_ell.k}; set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 5: K9 and K10 against their plain twins ------------------------
+    rows = check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed)
+
+    # -- phase 6: the paths, counters zeroed around each -----------------------
+    x_cut, h_cut = x_int[:ELL_CUT], h_int[:ELL_CUT]
+    paths = {
+        "moe_spmm": lambda: repro_torch.moe_apply(p, x, cfg, torch.float32),
+        "sparse_mlp": lambda: mlp(x_int),
+        "sparse_linear_ellpack_cut": lambda: (
+            sl.sparse_linear_apply(x_cut, mlp.fc_in.w_ell),
+            sl.sparse_linear_apply(h_cut, mlp.fc_out.w_ell)),
+        "sparse_linear_auto_cut": lambda: lin_auto(x_cut),
+        "matmul_sparse_miss": lambda: lin_auto.matmul_sparse(
+            a_act, backend="sort"),
+        "matmul_sparse_hit": lambda: lin_auto.matmul_sparse(
+            a_act, backend="sort"),
+    }
+    counts, out, cost = drive_spmm_paths(paths)
+    require(counts["moe_spmm"]["ell_spmm"] == 2,
+            f"moe path launched K9 {counts['moe_spmm']['ell_spmm']} times")
+    require(counts["sparse_mlp"]["nm_spmm"] == 2,
+            f"SparseMLP launched K10 {counts['sparse_mlp']['nm_spmm']} times")
+    for name in ("matmul_sparse_miss", "matmul_sparse_hit"):
+        for kname in ("sccp_multiply", "align_keys"):
+            require(counts[name][kname] > 0, f"{name} skipped {kname}")
+
+    # MoE: the same call on CPU tensors (the plain twins), same routing
+    y, aux = out["moe_spmm"]
+    require(y.shape == x.shape and bool(torch.isfinite(y).all()),
+            "moe output not finite or misshapen")
+    t_cpu = time.perf_counter()
+    y_cpu, aux_cpu = repro_torch.moe_apply(p_cpu, x_cpu, cfg, torch.float32)
+    t_cpu = time.perf_counter() - t_cpu
+    from repro_torch.models import ffn
+    r_dev = ffn._spmm_route(x.reshape(1, t, d) @ p["router"], cfg)
+    r_cpu = ffn._spmm_route(x_cpu.reshape(1, t, d) @ p_cpu["router"], cfg)
+    for i, name in ((1, "ids"), (3, "kept"), (4, "slot")):
+        require(r_dev[i].is_cuda, f"moe routing {name} not on the card")
+        same(f"moe routing {name}, card vs CPU", r_dev[i].cpu(), r_cpu[i])
+    moe_err = float((y.cpu() - y_cpu).abs().max())
+    moe_tol = 1e-4 * float(y_cpu.abs().max())
+    require(moe_err <= moe_tol, f"moe y off by {moe_err} > {moe_tol}")
+    aux_err = abs(float(aux) - float(aux_cpu))
+    require(aux_err <= 1e-5 * abs(float(aux_cpu)), f"moe aux off by {aux_err}")
+    print(f"[check] moe_apply card == CPU routing (ids, kept, slots; "
+          f"{int(r_cpu[3].sum())} of {r_cpu[3].numel()} pairs kept), y "
+          f"max|diff| {moe_err:.3e} <= 1e-4·max|y| = {moe_tol:.3e}, aux "
+          f"{float(aux):.6f} vs {float(aux_cpu):.6f}; CPU call "
+          f"{t_cpu:.1f} s", flush=True)
+    del y_cpu, aux_cpu, p_cpu
+
+    # SparseMLP: each layer equals the dense product of its pruned weight
+    wp_in, wp_out = mlp.fc_in.w_nm.to_dense(), mlp.fc_out.w_nm.to_dense()
+    same("SparseMLP fc_in vs x @ wp", mlp.fc_in(x_int), x_int @ wp_in)
+    same("SparseMLP fc_out vs h @ wp", mlp.fc_out(h_int), h_int @ wp_out)
+    ym = out["sparse_mlp"]
+    require(ym.shape == (t, d) and bool(torch.isfinite(ym).all()),
+            "SparseMLP output not finite or misshapen")
+    want = mlp.fc_out(torch.nn.functional.gelu(x_int @ wp_in,
+                                               approximate="tanh"))
+    same("SparseMLP vs fc_out(gelu(x @ wp))", ym, want)
+    # the ELLPACK twin equals the N:M route on the cut
+    e_in, e_out = out["sparse_linear_ellpack_cut"]
+    same("ELLPACK twin fc_in", e_in, mlp.fc_in(x_cut))
+    same("ELLPACK twin fc_out", e_out, mlp.fc_out(h_cut))
+    print(f"[check] SparseMLP layers == x @ wp bit for bit (TF32 off); "
+          f"ELLPACK twin == N:M route on {ELL_CUT} tokens", flush=True)
+    del wp_in, wp_out, want
+    # 'auto' at a 90% global prune routes to ELLPACK
+    require(lin_auto.w_nm is None, "90% global prune routed to N:M")
+    ya = out["sparse_linear_auto_cut"]
+    ref = x_cut @ lin_auto.w_ell.to_dense()
+    auto_err = float((ya - ref).abs().max())
+    require(auto_err <= 1e-5 * float(ref.abs().max()),
+            f"auto ELLPACK apply off by {auto_err}")
+    # matmul_sparse: a miss then a hit, both equal to the dense product
+    st = lin_auto.cache.stats()
+    require(st["misses"] == 1 and st["hits"] == 1, f"cache stats {st}")
+    c_ref = a_dense @ lin_auto.w_ell.to_dense()
+    for name in ("matmul_sparse_miss", "matmul_sparse_hit"):
+        coo = out[name]
+        require(not bool(coo.overflowed()), f"{name} overflowed")
+        err = float((coo.to_dense() - c_ref).abs().max())
+        require(err <= 1e-5 * float(c_ref.abs().max()),
+                f"{name} off the dense product by {err}")
+    # same coordinates; the values are float sums whose slot index_add_
+    # lands in a different order each call
+    hit, miss = out["matmul_sparse_hit"], out["matmul_sparse_miss"]
+    for f_ in ("row", "col", "ngroups"):
+        same(f"matmul_sparse hit vs miss .{f_}", getattr(hit, f_),
+             getattr(miss, f_))
+    require(float((hit.val - miss.val).abs().max())
+            <= 1e-5 * float(miss.val.abs().max()),
+            "matmul_sparse hit vs miss values differ")
+    print(f"[check] 'auto' at 90% -> ELLPACK (k {lin_auto.w_ell.k}), max|diff| "
+          f"{auto_err:.3e}; matmul_sparse miss then hit {st}, "
+          f"{int(out['matmul_sparse_hit'].ngroups)} groups", flush=True)
+    del out
+
+    # -- e2e: three timed calls each, K9 / K10 twice a call --------------------
+    e2e = {}
+    for name, kname in (("moe_spmm", "ell_spmm"), ("sparse_mlp", "nm_spmm")):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            paths[name]()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            n = kernels.launch_counts()[kname]
+            require(n == 2, f"{name} launched {kname} {n} times")
+        e2e[name] = times
+    summary = {"spmm_e2e_ms": e2e,
+               "spmm_stage_ms": spmm_stage_ms(cfg, p, x, mlp, x_int),
+               "spmm_path_ms": {k: v[0] for k, v in cost.items()},
+               "spmm_peak_mem_per_call": {k: v[1] for k, v in cost.items()},
+               "moe_max_abs_err_vs_cpu": moe_err}
+    return rows, counts, summary
 
 
 def main(argv=None) -> int:
@@ -859,19 +1247,8 @@ def main(argv=None) -> int:
         calls[f"numeric_{backend}"] = (
             lambda st=st: repro_torch.spgemm(a, b, structure=st))
     e2e, peak, planned_peak = {}, {}, {}
-
-    def peak_of(fn):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        top = torch.cuda.max_memory_allocated()
-        return dict(peak_gib=top / 2**30, call_gib=(top - base) / 2**30)
-
     for name, fn in calls.items():
-        peak[name] = peak_of(fn)
+        peak[name] = peak_of(fn)[1]
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -881,7 +1258,8 @@ def main(argv=None) -> int:
             times.append((time.perf_counter() - t0) * 1e3)
         e2e[name] = times
     for acc, p in plans.items():
-        planned_peak[acc] = peak_of(lambda: repro_torch.spgemm(a, b, plan=p))
+        planned_peak[acc] = peak_of(
+            lambda: repro_torch.spgemm(a, b, plan=p))[1]
     print(json.dumps({"e2e_ms": e2e, "peak_mem_per_call": peak,
                       "peak_mem_per_planned_call": planned_peak,
                       "make_structure_ms": build_ms,
@@ -890,7 +1268,13 @@ def main(argv=None) -> int:
                                                       structures["sort"])},
                       "operand": BCSSTK32[1], "nnz_c": nnz_c}), flush=True)
 
-    # -- phase 4: the kernels line and the result ------------------------------
+    # -- phases 5-6: the SpMM slice ---------------------------------------------
+    spmm_rows, spmm_counts, spmm_summary = spmm_slice(args.seed)
+    rows += spmm_rows
+    counts.update(spmm_counts)
+    print(json.dumps(spmm_summary), flush=True)
+
+    # -- phase 7: the kernels line and the result ------------------------------
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

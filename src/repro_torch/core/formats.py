@@ -13,7 +13,9 @@ reference, so the packed-key arithmetic and its sentinels behave the same.
 Constructors that make tensors take ``device=``, which defaults to
 ``default_device()`` (CUDA, or an error); compute follows the operands.
 ``from_numpy`` / ``to_numpy`` carry operands and results across from and
-to numpy, so the reference and the port compute on the same inputs.
+to numpy, so the reference and the port compute on the same inputs;
+``nm_from_numpy`` carries an N:M weight's planes and ``params_from_numpy``
+a nested parameter dict (the reference's MoE and FFN layouts).
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .nm import NmWeights
 
 INVALID = -1
 
@@ -254,6 +258,40 @@ def from_numpy(val, idx, *, n_rows: Optional[int] = None,
     if n_rows is not None:
         return EllRows(val=v, idx=i, n_rows=int(n_rows))
     return EllCols(val=v, idx=i, n_cols=int(n_cols))
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """``x`` as a tensor: a tensor stays on its device unless ``device`` is
+    given; anything else (numpy, the reference's arrays) goes to
+    ``resolve_device(device)``."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(torch.device(device))
+    return torch.from_numpy(np.array(x)).to(resolve_device(device))
+
+
+def nm_from_numpy(val, off, *, n: int, m: int, d_in: int, device=None):
+    """A ``core.nm.NmWeights`` from the reference's condensed planes (val
+    float, off int8) on ``device``."""
+    dev = resolve_device(device)
+    return NmWeights(val=torch.from_numpy(np.array(val)).to(dev),
+                     off=torch.from_numpy(np.array(off, dtype=np.int8))
+                     .to(dev), n=int(n), m=int(m), d_in=int(d_in))
+
+
+def params_from_numpy(params, *, device=None, dtype=None):
+    """A nested dict of arrays (the reference's parameter pytree as numpy,
+    e.g. the MoE layer's ``router``, ``w_gate``, ``w_up``, ``w_down`` and
+    nested ``shared``, in ``models/ffn.py``'s layouts) as the same dict of
+    tensors on ``device``, cast to ``dtype`` when one is given."""
+    dev = resolve_device(device)
+    out = {}
+    for name, v in params.items():
+        if isinstance(v, dict):
+            out[name] = params_from_numpy(v, device=dev, dtype=dtype)
+        else:
+            t = torch.from_numpy(np.array(v)).to(dev)
+            out[name] = t if dtype is None else t.to(dtype)
+    return out
 
 
 def to_numpy(coo: Coo):

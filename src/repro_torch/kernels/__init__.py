@@ -10,6 +10,10 @@
   fused_sccp_stream — one streaming step: multiply + sort + run totals
                   fused ('stream')
   hash_accum    — open-addressing tables, probed in torch ('hash')
+  ell_spmm      — ELLPACK-rows × dense SpMM by vector atomics (MoE
+                  'spmm' dispatch and combine)
+  nm_spmm       — N:M-condensed SpMM, nmSPARSE's conflict-free shared
+                  tiles (SparseLinear's N:M route)
   ops           — stream packing and the packed-key accumulations
   _build        — nvcc build of ``csrc/*.cu`` into ctypes libraries
 
@@ -17,8 +21,8 @@
 counter of every kernel wrapper; a wrapper counts only real kernel launches
 (one per grid), never its plain twin.
 """
-from . import (bitonic_merge, fused_sccp_stream, hash_accum, insitu_search,
-               ops, radix_bucket, sccp_multiply)
+from . import (bitonic_merge, ell_spmm, fused_sccp_stream, hash_accum,
+               insitu_search, nm_spmm, ops, radix_bucket, sccp_multiply)
 
 WRAPPERS = {
     "sccp_multiply": sccp_multiply.sccp_multiply,
@@ -29,6 +33,8 @@ WRAPPERS = {
     "merge_runs": bitonic_merge.merge_runs,
     "bin_ranks": radix_bucket.bin_ranks,
     "fused_slab_sort": fused_sccp_stream.fused_slab_sort,
+    "ell_spmm": ell_spmm.ell_spmm,
+    "nm_spmm": nm_spmm.nm_spmm,
 }
 
 
@@ -41,6 +47,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["WRAPPERS", "bitonic_merge", "fused_sccp_stream", "hash_accum",
-           "insitu_search", "launch_counts", "ops", "radix_bucket",
-           "reset_launch_counts", "sccp_multiply"]
+__all__ = ["WRAPPERS", "bitonic_merge", "ell_spmm", "fused_sccp_stream",
+           "hash_accum", "insitu_search", "launch_counts", "nm_spmm", "ops",
+           "radix_bucket", "reset_launch_counts", "sccp_multiply"]

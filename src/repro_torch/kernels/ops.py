@@ -13,6 +13,9 @@ accumulations run over a packed stream:
   * ``bucket_merge`` — propagation blocking by row range (``'bucket'``);
   * ``hash_merge``   — per-row-block open-addressing tables (``'hash'``).
 
+``ell_spmm`` is the ELLPACK × dense SpMM behind MoE's ``'spmm'`` dispatch
+(K9).
+
 Coordinate spaces with ``n_rows·n_cols ≥ 2³¹−1`` cannot pack and raise;
 ``spgemm_coo`` reroutes them to the unpacked two-key ``'sort'``.
 """
@@ -20,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from . import fused_sccp_stream, hash_accum, insitu_search, radix_bucket
+from . import (ell_spmm as _ell_spmm, fused_sccp_stream, hash_accum,
+               insitu_search, radix_bucket)
 from .bitonic_merge import sort_merge_tree
 from .insitu_search import KEY_INVALID
 
@@ -148,3 +152,11 @@ def hash_merge(row, col, val, n_rows: int, n_cols: int, *,
         key, val, n_blocks=n_blocks, block_cap=block_cap or key.numel(),
         keys_per_block=radix_bucket.bucket_bounds(n_rows, n_cols, n_blocks),
         max_probes=max_probes)
+
+
+def ell_spmm(a_val, a_idx, x, n_rows: int):
+    """A (row-wise ELLPACK planes) @ X → (n_rows, d) in ``x.dtype`` (K9,
+    ``ell_spmm.ell_spmm``; its plain twin for CPU operands). The kernel
+    masks the ragged edges itself, so nothing is padded and X is not cut
+    into the reference's 512-wide chunks."""
+    return _ell_spmm.ell_spmm(a_val, a_idx, x, n_rows)

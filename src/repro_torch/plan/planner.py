@@ -13,6 +13,9 @@ plan is accepted by the other.
 
 Choosing the backend (``backend=None``, behind ``accumulator='auto'``) is not
 ported: its cost constants were set for the TPU.
+
+``plan_spmm_format`` routes a pruned weight to its SpMM storage format (N:M
+condensed planes or ELLPACK), the weights-side twin of the backend choice.
 """
 from __future__ import annotations
 
@@ -138,3 +141,17 @@ def make_plan(a: EllRows, b: EllCols, *, out_cap: Optional[int] = None,
                 n_buckets=n_buckets, bucket_cap=bucket_cap,
                 n_blocks=n_blocks, block_cap=block_cap, max_probes=None,
                 fp=fingerprint(a, b))
+
+
+def plan_spmm_format(w, candidates=None):
+    """Route a pruned dense ``(d_in, d_out)`` weight to its SpMM format:
+    ``("nm", (n, m))`` when some candidate N:M window balances every
+    column's reduction windows (the ``kernels/nm_spmm.py`` route),
+    ``("ellpack", None)`` otherwise (``spmm_dense_ell``, any pattern at
+    worst-row slab width). Results are bit-identical either way;
+    ``models.sparse.SparseLinear`` consumes the decision."""
+    from ..core.nm import NM_CANDIDATES, detect_nm
+    shape = detect_nm(w, NM_CANDIDATES if candidates is None else candidates)
+    if shape is not None:
+        return ("nm", shape)
+    return ("ellpack", None)

@@ -14,8 +14,10 @@ torch = pytest.importorskip("torch")
 import repro_torch as rt
 from repro_torch import kernels
 from repro_torch.kernels import bitonic_merge as tbm
+from repro_torch.kernels import ell_spmm as tes
 from repro_torch.kernels import fused_sccp_stream as tfs
 from repro_torch.kernels import insitu_search as tis
+from repro_torch.kernels import nm_spmm as tnm
 from repro_torch.kernels import radix_bucket as trb
 from repro_torch.kernels import sccp_multiply as tsm
 
@@ -330,3 +332,159 @@ def test_launch_counters_reset(cuda):
     assert kernels.launch_counts()["minima_mask"] > 0
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
+
+
+# ---------------------------------------------------------------------------
+# K9 (ELLPACK x dense SpMM) and K10 (N:M SpMM)
+# ---------------------------------------------------------------------------
+
+def _ints(rng, shape):
+    return rng.integers(-4, 5, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("k,n,n_rows,d,hot", [
+    (1, 1, 1, 1, 0.0), (3, 300, 150, 70, 0.0), (6, 4096, 480, 128, 0.0),
+    (1, 2000, 7, 2048, 0.0), (4, 513, 129, 36, 0.9), (2, 1000, 64, 3, 0.5)])
+def test_ell_spmm_kernel(cuda, k, n, n_rows, d, hot):
+    """Integer-valued operands: bit-identical to the plain twin whatever
+    order the atomics land in. Ragged n, n_rows and d (d % 4 != 0 takes the
+    scalar atomics), idx −1 lanes, and ``hot`` of the lanes on row 0 (many
+    atomics on one output row)."""
+    rng = np.random.default_rng(n + d)
+    a_val = _ints(rng, (k, n))
+    a_idx = rng.integers(-1, n_rows, (k, n)).astype(np.int32)
+    a_idx[rng.random((k, n)) < hot] = 0
+    x = _ints(rng, (n, d))
+    args = [torch.from_numpy(t).to(cuda) for t in (a_val, a_idx, x)]
+    before = tes.ell_spmm.launches
+    got = tes.ell_spmm(*args, n_rows)
+    torch.cuda.synchronize()
+    assert tes.ell_spmm.launches == before + 1
+    assert torch.equal(got, tes.ell_spmm_plain(*args, n_rows))
+
+
+def test_ell_spmm_kernel_float_and_checks(cuda):
+    """Float operands within float32 summation order; a wrong dtype or a
+    non-contiguous plane raises."""
+    rng = np.random.default_rng(9)
+    a_val = torch.from_numpy(rng.standard_normal((6, 777))
+                             .astype(np.float32)).to(cuda)
+    a_idx = torch.from_numpy(rng.integers(-1, 100, (6, 777))
+                             .astype(np.int32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((777, 256))
+                         .astype(np.float32)).to(cuda)
+    torch.testing.assert_close(tes.ell_spmm(a_val, a_idx, x, 100),
+                               tes.ell_spmm_plain(a_val, a_idx, x, 100),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError):
+        tes.ell_spmm(a_val, a_idx, x.double(), 100)
+    with pytest.raises(TypeError):
+        tes.ell_spmm(a_val, a_idx.long(), x, 100)
+    with pytest.raises(ValueError):
+        tes.ell_spmm(a_val.T.contiguous().T, a_idx, x, 100)
+
+
+@pytest.mark.parametrize("t,d_in,d_out,nm", [
+    (1, 4, 1, (1, 4)), (130, 64, 131, (2, 4)), (257, 96, 300, (1, 4)),
+    (129, 128, 129, (2, 8)), (200, 256, 257, (4, 8)), (64, 1032, 96, (2, 4)),
+    (128, 66, 128, (3, 6))])
+def test_nm_spmm_kernel(cuda, t, d_in, d_out, nm):
+    """Every NM_CANDIDATES window (and a 3:6 one), ragged t, d_out and
+    window chunks, integer-valued operands: bit-identical to the plain twin
+    and to X @ W."""
+    n, m = nm
+    rng = np.random.default_rng(t + d_in + d_out)
+    w = torch.from_numpy(_ints(rng, (d_in, d_out))).to(cuda)
+    wp = rt.models.magnitude_prune_nm(w, n, m)
+    w_nm = rt.nm_from_dense(wp, n, m)
+    x = torch.from_numpy(_ints(rng, (t, d_in))).to(cuda)
+    before = tnm.nm_spmm.launches
+    got = tnm.nm_spmm(x, w_nm.val, w_nm.off, n=n, m=m)
+    torch.cuda.synchronize()
+    assert tnm.nm_spmm.launches == before + 1
+    assert torch.equal(got, tnm.nm_spmm_plain(x, w_nm.val, w_nm.off, n=n,
+                                              m=m))
+    assert torch.equal(got, x @ wp)
+
+
+def test_nm_spmm_kernel_checks(cuda):
+    """Offsets outside [0, M) add nothing, as in the masked products; a
+    wrong dtype or a non-contiguous plane raises."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(_ints(rng, (70, 32))).to(cuda)
+    val = torch.from_numpy(_ints(rng, (16, 40))).to(cuda)
+    off = torch.from_numpy(rng.integers(-2, 6, (16, 40))
+                           .astype(np.int8)).to(cuda)
+    assert torch.equal(tnm.nm_spmm(x, val, off, n=2, m=4),
+                       tnm.nm_spmm_plain(x, val, off, n=2, m=4))
+    with pytest.raises(TypeError):
+        tnm.nm_spmm(x, val, off.to(torch.int32), n=2, m=4)
+    with pytest.raises(TypeError):
+        tnm.nm_spmm(x.double(), val, off, n=2, m=4)
+    with pytest.raises(ValueError):
+        tnm.nm_spmm(x.T.contiguous().T, val, off, n=2, m=4)
+    with pytest.raises(ValueError):
+        tnm.nm_spmm(x, val[:, ::2], off[:, ::2], n=2, m=4)
+
+
+
+def test_nm_spmm_broadcast_probe(cuda):
+    """The probe build (every lane reads its window's first column) counts
+    no launch, and equals K10 where every offset is 0."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(_ints(rng, (130, 64))).to(cuda)
+    val = torch.from_numpy(_ints(rng, (32, 131))).to(cuda)
+    off = torch.zeros((32, 131), dtype=torch.int8, device=cuda)
+    before = tnm.nm_spmm.launches
+    got = tnm.launch("nm_spmm_broadcast", x, val, off, n=2, m=4)
+    torch.cuda.synchronize()
+    assert tnm.nm_spmm.launches == before
+    assert torch.equal(got, tnm.nm_spmm(x, val, off, n=2, m=4))
+
+def test_sparse_layers_on_card(cuda):
+    """SparseMLP's N:M route launches K10 once a layer and equals the dense
+    product of the pruned weights; the ELLPACK twin equals the N:M route."""
+    rng = np.random.default_rng(5)
+    w_in = torch.from_numpy(_ints(rng, (64, 96))).to(cuda)
+    w_out = torch.from_numpy(_ints(rng, (96, 64))).to(cuda)
+    mlp = rt.SparseMLP(w_in, w_out, 0.5, nm=(2, 4))
+    x = torch.from_numpy(_ints(rng, (33, 64))).to(cuda)
+    kernels.reset_launch_counts()
+    mlp(x)
+    assert kernels.launch_counts()["nm_spmm"] == 2
+    wp = rt.models.magnitude_prune_nm(w_in, 2, 4)
+    assert torch.equal(mlp.fc_in(x), x @ wp)
+    assert torch.equal(rt.models.sparse_linear_apply(x, mlp.fc_in.w_ell),
+                       mlp.fc_in(x))
+
+
+def test_moe_apply_on_card(cuda):
+    """dispatch='spmm' launches K9 twice a call and agrees with the same
+    call on CPU tensors (the plain twins) within float32 summation order."""
+    import dataclasses
+    from repro_torch.configs import deepseek_v2_lite
+    from repro_torch.core.formats import params_from_numpy
+    base = deepseek_v2_lite.CONFIG.reduced()
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dispatch="spmm"))
+    rng = np.random.default_rng(6)
+    d, e, f = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+    p = {"router": rng.standard_normal((d, e)) / 8,
+         "w_gate": rng.standard_normal((e, d, f)) / 8,
+         "w_up": rng.standard_normal((e, d, f)) / 8,
+         "w_down": rng.standard_normal((e, f, d)) / 8,
+         "shared": {"w_gate": rng.standard_normal((d, 2 * f)) / 8,
+                    "w_up": rng.standard_normal((d, 2 * f)) / 8,
+                    "w_down": rng.standard_normal((2 * f, d)) / 8}}
+    x = rng.standard_normal((2, 40, d)).astype(np.float32)
+    kernels.reset_launch_counts()
+    y, aux = rt.moe_apply(params_from_numpy(p, device=cuda,
+                                            dtype=torch.float32),
+                          torch.from_numpy(x).to(cuda), cfg, torch.float32)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ell_spmm"] == 2
+    y_c, aux_c = rt.moe_apply(params_from_numpy(p, device="cpu",
+                                                dtype=torch.float32),
+                              torch.from_numpy(x), cfg, torch.float32)
+    torch.testing.assert_close(y.cpu(), y_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), aux_c, rtol=1e-5, atol=1e-5)
