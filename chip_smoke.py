@@ -21,7 +21,11 @@ Phases (any failure exits non-zero before the last line):
 2. Each kernel against its plain torch version on the card, at the shapes
    the main path gives it, bit for bit, with its time, the plain version's
    time, one library call's time where one computes the same function, and
-   the least time the card could take (``bound_ms``). The planner's sizes
+   the least time the card could take (``bound_ms``); K2 and K5 also with
+   the grids one call launches, with each radix grid's time at the first
+   and last digit (K2's stream, K5's 'hash' tables); K5 also at the rows of
+   a 'tiled' call with ``tile=256``, where one shared tile holds 16 rows.
+   The planner's sizes
    for the 'bucket' and 'hash' paths are printed first (``[plan]``). Then
    ``make_structure`` for a 'sort' and a 'stream' plan, timed, and K1 and
    K3 held again at the warm phase's own shapes on those structures.
@@ -81,6 +85,8 @@ ACCUMULATORS = ("sort", "search", "tiled", "bucket", "hash", "stream")
 # rate, the table's nearest entry for the int32 compares these kernels do.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+RADIX_TILE = 4096        # kernels/radix_sort.py TILE: longer rows are segmented
+SHORT_ROW = 256          # a 'tiled' call's tile=, 16 rows a radix tile
 
 
 class SmokeFailure(RuntimeError):
@@ -209,6 +215,55 @@ def held_pair(name: str, kernel, plain, library, shape: str, n_bytes: float,
     return r
 
 
+def grids_of(wrapper, fn) -> int:
+    """The grids one call of ``fn`` launches, read from ``wrapper``'s
+    launch counter."""
+    import torch
+    before = wrapper.launches
+    fn()
+    torch.cuda.synchronize()
+    return wrapper.launches - before
+
+
+def radix_grid_ms(key, val, row: int) -> dict:
+    """Device ms of each grid of one segmented radix pass
+    (``csrc/radix_sort.cuh``) at the first and the last digit, as
+    ``radix_sort.sort_rows`` launches them on ``key`` (and ``val``) in rows
+    of ``row``: the count, the in-place scan (timed on restored copies of
+    the counts, the copy's time taken off) and the scatter into scratch."""
+    import torch
+    from repro_torch.kernels import radix_sort as rs
+    _, fns = rs._entries()
+    stream = torch.cuda.current_stream().cuda_stream
+    n = key.numel()
+    g = rs.geometry(n, row)
+    counts = torch.empty(g.counts, dtype=torch.int32, device=key.device)
+    k_out = torch.empty_like(key)
+    v_out = None if val is None else torch.empty_like(val)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    out = {}
+    for shift in (rs.SHIFTS[0], rs.SHIFTS[-1]):
+        geo = (n, row, g.blocks_per_row, g.tiles_per_block, shift)
+        count = (lambda: fns["radix_upsweep"](key.data_ptr(),
+                                              counts.data_ptr(), *geo,
+                                              stream))
+        out[f"count_{shift}"] = cuda_ms(count, 5)
+        raw = counts.clone()
+        restore = (lambda: counts.copy_(raw))
+        scan = (lambda: (restore(), fns["radix_scan"](
+            counts.data_ptr(), g.rows, g.blocks_per_row, stream)))
+        out[f"scan_{shift}"] = cuda_ms(scan, 5) - cuda_ms(restore, 5)
+        scan()
+        out[f"scatter_{shift}"] = cuda_ms(lambda: fns["radix_downsweep"](
+            key.data_ptr(), ptr(val), k_out.data_ptr(), ptr(v_out),
+            counts.data_ptr(), *geo, stream), 5)
+    torch.cuda.synchronize()
+    print(f"[probe] radix grids, rows of {row} over {n}"
+          f"{'' if val is None else ' with values'}: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def kernel_row(name: str, source: str, replaces: str, shapes: list,
                **extra) -> dict:
     """A ``kernels`` line entry: the first shape's numbers, and all shapes."""
@@ -262,12 +317,16 @@ def check_kernels(a, b, a_cut, b_cut) -> list:
     del val, row, col
     torch.cuda.empty_cache()
     s = key.numel()
-    rows.append(kernel_row(
-        "emit_sort", "src/repro_torch/csrc/insitu_search.cu",
-        "src/repro/kernels/insitu_search.py:164", [held_pair(
-            "emit_sort", lambda: isr.emit_sort_keys(key),
-            lambda: isr.emit_sort_keys_plain(key), lambda: torch.sort(key),
-            f"({s},)", 8 * s, s * math.log2(s))]))
+    emit = held_pair("emit_sort", lambda: isr.emit_sort_keys(key),
+                     lambda: isr.emit_sort_keys_plain(key),
+                     lambda: torch.sort(key), f"({s},)", 8 * s,
+                     s * math.log2(s))
+    emit["grids"] = grids_of(isr.emit_sort_keys,
+                             lambda: isr.emit_sort_keys(key))
+    if s > RADIX_TILE:
+        emit["grid_ms"] = radix_grid_ms(key, None, s)
+    rows.append(kernel_row("emit_sort", "src/repro_torch/csrc/insitu_search.cu",
+                           "src/repro/kernels/insitu_search.py:164", [emit]))
 
     # K3: align every product key against the sorted unique keys
     ks = isr.emit_sort_keys(key)
@@ -373,14 +432,17 @@ def check_accumulator_kernels(a, b, plan) -> list:
     kpb = rb.bucket_bounds(a.n_rows, b.n_cols, plan.n_buckets)
 
     def sort_shape(what, k, w, tile):
-        log = tile.bit_length() - 1
-        return held_pair("sort_tiles", lambda: bm.sort_tiles(k, w, tile=tile),
-                    lambda: bm.sort_tiles_plain(k, w, tile=tile),
-                    lambda: torch.sort(k.view(-1, tile), dim=1),
-                    f"{what}: rows of {tile} over {k.numel()}",
-                    16 * k.numel(), k.numel() // 2 * log * (log + 1) // 2)
+        r = held_pair("sort_tiles", lambda: bm.sort_tiles(k, w, tile=tile),
+                      lambda: bm.sort_tiles_plain(k, w, tile=tile),
+                      lambda: torch.sort(k.view(-1, tile), dim=1),
+                      f"{what}: rows of {tile} over {k.numel()}",
+                      16 * k.numel(), k.numel() * (tile.bit_length() - 1))
+        r["grids"] = grids_of(bm.sort_tiles,
+                              lambda: bm.sort_tiles(k, w, tile=tile))
+        return r
 
-    # K5 at its three main-path shapes
+    # K5 at its three main-path shapes, then at 'tiled''s rows with
+    # tile=SHORT_ROW, where one shared tile holds many rows
     shapes = [sort_shape("tiled", key, v, plan.tile)]
     bk, bv, _ = rb.bin_stream(key, v, n_buckets=plan.n_buckets,
                               bucket_cap=plan.bucket_cap, keys_per_bucket=kpb)
@@ -389,8 +451,11 @@ def check_accumulator_kernels(a, b, plan) -> list:
     tk, tv, _ = ha.hash_tables(key, v, n_blocks=plan.n_blocks,
                                block_cap=plan.block_cap, keys_per_block=kpb)
     shapes.append(sort_shape("hash", tk, tv, plan.block_cap))
+    if plan.block_cap > RADIX_TILE:
+        shapes[-1]["grid_ms"] = radix_grid_ms(tk, tv, plan.block_cap)
     del tk, tv
     torch.cuda.empty_cache()
+    shapes.append(sort_shape(f"tiled, tile={SHORT_ROW}", key, v, SHORT_ROW))
 
     # K6 at the merge tree's first and last level; the whole tree's time
     def merge_level(k, w, run):
@@ -1279,7 +1344,7 @@ def main(argv=None) -> int:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "shapes", "tree_ms")
+            "grids", "shapes", "tree_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}), flush=True)
     print(gpu_line(), flush=True)

@@ -1,45 +1,42 @@
-// The bitonic (key, value) network of the 'tiled', 'bucket' and 'hash'
-// accumulators for Hopper (sm_90a): the row sort, one merge-tree level, and
-// the row-local run-tail totals both end with.
+// The (key, value) row sort, merge-tree level and run-tail totals of the
+// 'tiled', 'bucket' and 'hash' accumulators for Hopper (sm_90a).
 //
-// 1. sort_tiles replaces src/repro/kernels/bitonic_merge.py:_make_sort_kernel:
-//    every power-of-two row of (int32 key, float32 value) pairs sorted
-//    ascending, then the run-tail totals. Rows are 4,096 lanes for 'tiled',
-//    2^21-2^22 lanes for 'bucket' and 'hash'.
-// 2. merge_runs replaces src/repro/kernels/bitonic_merge.py:_make_merge_kernel:
-//    adjacent ascending runs of length `run` merged into ascending rows of
-//    2*run (one bitonic merge network, no full re-sort), then the totals.
+// 1. The row sort (K5) replaces src/repro/kernels/bitonic_merge.py:
+//    _make_sort_kernel: every power-of-two row of (int32 key, float32 value)
+//    pairs sorted ascending, ties in lane order, then the run-tail totals.
+//    Rows are 4,096 lanes for 'tiled', 2^21-2^22 lanes for 'bucket' and
+//    'hash'. Bound: bytes, 16 a lane (the pair read and written, the total
+//    written, the value re-read). The TPU's bitonic network made one pass
+//    over device memory for every stride at or above a shared tile: 66
+//    passes at a 2^22 row. Design: the LSD radix sort of csrc/radix_sort.cu
+//    (its own library) with the value carried beside its key, its
+//    histograms and offset scans per (row, digit) so each row sorts on its
+//    own: rows above one 4,096-lane tile take three grids a digit, four
+//    digits; rows of at most one tile are sorted in shared memory, one block
+//    a tile of whole rows (radix_rows). This file holds its last grid,
+//    seg_totals_f32.
+// 2. merge_runs (K6) replaces src/repro/kernels/bitonic_merge.py:
+//    _make_merge_kernel: adjacent ascending runs of length `run` merged into
+//    ascending rows of 2*run (one bitonic merge network, no full re-sort),
+//    then the totals. Bound: bytes; the network is n*log2(2*run)/2
+//    compare-exchanges, far below the card's integer rate. Design: the
+//    network of csrc/bitonic_net.cuh. It skips the copy the TPU kernel makes
+//    of "ascending ++ flipped": its first stage compares lane i with lane
+//    2*run-1-i of each row, which leaves two bitonic halves, and the rest is
+//    the ordinary ascending half-cleaner cascade.
 // 3. seg_total, the last grid of both: on every row, the last lane of each
 //    run of equal keys gets the run's value total and every other lane 0;
 //    the last lane of a row is a tail even when the next row starts with the
 //    same key, and KEY_INVALID lanes get 0.
-//
-// Bound: bytes. Each pass reads and writes 8 bytes a lane; the network is
-// n*log2(row)*(log2(row)+1)/4 compare-exchanges for a sort and
-// n*log2(2*run)/2 for a merge, far below the card's integer rate.
-// Design: the network of csrc/bitonic_net.cuh. A merge skips the copy the
-// TPU kernel makes of "ascending ++ flipped": its first stage compares lane i
-// with lane 2*run-1-i of each row, which leaves two bitonic halves, and the
-// rest is the ordinary ascending half-cleaner cascade.
 #include "bitonic_net.cuh"
 
-// Sort every row of `row` lanes of (kin, vin) into (kout, vsorted), then the
-// run-tail totals into tot. n and row are powers of two, row | n. *grids
-// receives the number of grids launched.
-extern "C" int sort_tiles_f32(const void* kin, const void* vin, void* kout,
-                              void* vsorted, void* tot, long long n,
-                              long long row, int* grids, void* stream) {
-  *grids = 0;
+// The run-tail totals of rows of `row` sorted lanes, the radix sort's last
+// grid.
+extern "C" int seg_totals_f32(const void* key, const void* val, void* tot,
+                              long long n, long long row, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  int32_t* k = (int32_t*)kout;
-  float* v = (float*)vsorted;
-  const int t = (int)(n < TILE ? n : TILE);
-  int err = tile_pass((const int32_t*)kin, (const float*)vin, k, v, n, t, row,
-                      0, 0, st);
-  ++*grids;
-  if (!err) err = sort_above_tile(k, v, (float*)tot, n, t, row, grids, st);
-  return err;
+  return totals((const int32_t*)key, (const float*)val, (float*)tot, n, row,
+                (cudaStream_t)stream);
 }
 
 // Merge adjacent ascending runs of `run` lanes of (kin, vin) into ascending

@@ -1,18 +1,21 @@
 // The 'search' accumulation's kernels for Hopper (sm_90a): the emission sort,
 // the alignment search and the literal bit-serial minima scan.
 //
-// 1. emit sort (emit_tile + emit_merge_global) replaces
-//    src/repro/kernels/insitu_search.py:_make_emit_sort_kernel and
-//    _make_emit_merge_kernel: an ascending key-only bitonic sort of a
-//    power-of-two packed int32 key stream.
-//    Bound: bytes (each key read and written once at the least). Design: the
-//    classic bitonic network, k = 2, 4, ..., n blocks and strides j = k/2 ..
-//    1, ascending where (i & k) == 0. Every stride below one shared-memory
-//    tile (4096 keys = 16 KB) runs inside emit_tile, so a tile is read and
-//    written once per merge level instead of once per stride; each stride
-//    at or above the tile is one coalesced compare-exchange pass over device
-//    memory (emit_merge_global). Blocks never exchange data, so no pass
-//    carries state across blocks.
+// 1. emit sort (csrc/radix_sort.cu: radix_rows, or radix_upsweep +
+//    radix_scan + radix_downsweep four times) replaces
+//    src/repro/kernels/insitu_search.py:
+//    _make_emit_sort_kernel and _make_emit_merge_kernel: an ascending
+//    key-only sort of a power-of-two packed int32 key stream.
+//    Bound: bytes (each key read and written once at the least). The TPU's
+//    bitonic network, carried over as it was, made one pass over device
+//    memory for every stride at or above a shared tile: 136 of 153 grids at
+//    2^28 keys. Design: the LSD radix sort of csrc/radix_sort.cuh, four
+//    8-bit digits, three grids a digit (reduce-then-scan: count, scan,
+//    stable scatter through a shared-memory staging tile), so about 12
+//    transfers of the stream whatever its length; a stream of at most one
+//    4,096-key tile is sorted in shared memory by one block. The caller
+//    orders the passes between its output and one scratch stream so the
+//    fourth lands in the output; the input is never written.
 // 2. align replaces src/repro/kernels/insitu_search.py:_make_align_kernel
 //    (a 512 x 512 broadcast compare per block, O(S*u) work). Here one thread
 //    per product key runs a lower-bound binary search over the sorted unique
@@ -32,59 +35,6 @@
 namespace {
 
 constexpr int32_t KEY_INVALID = 2147483647;
-
-// One compare-exchange stride over a shared-memory tile; `base` is the
-// tile's first global lane, which fixes each pair's direction.
-__device__ __forceinline__ void tile_stride(int32_t* s, int64_t base, int half,
-                                            int j, int64_t k) {
-  for (int p = threadIdx.x; p < half; p += blockDim.x) {
-    const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-    const int l = i + j;
-    const bool asc = ((base + i) & k) == 0;
-    const int32_t a = s[i];
-    const int32_t b = s[l];
-    if ((a > b) == asc) {
-      s[i] = b;
-      s[l] = a;
-    }
-  }
-  __syncthreads();
-}
-
-// k_merge == 0: sort every tile (all blocks k <= tile).
-// k_merge > tile: finish merge level k_merge (strides tile/2 .. 1).
-// `in` may equal `out`: each block reads its tile fully before it writes.
-__global__ void emit_tile_kernel(const int32_t* in, int32_t* out, int tile,
-                                 int64_t k_merge) {
-  extern __shared__ int32_t s[];
-  const int64_t base = (int64_t)blockIdx.x * tile;
-  for (int t = threadIdx.x; t < tile; t += blockDim.x) s[t] = in[base + t];
-  __syncthreads();
-  const int half = tile >> 1;
-  if (k_merge == 0) {
-    for (int64_t k = 2; k <= tile; k <<= 1)
-      for (int j = (int)(k >> 1); j > 0; j >>= 1) tile_stride(s, base, half, j, k);
-  } else {
-    for (int j = half; j > 0; j >>= 1) tile_stride(s, base, half, j, k_merge);
-  }
-  for (int t = threadIdx.x; t < tile; t += blockDim.x) out[base + t] = s[t];
-}
-
-__global__ void emit_merge_global_kernel(int32_t* __restrict__ key,
-                                         int64_t half_n, int64_t j,
-                                         int64_t k) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= half_n) return;
-  const int64_t i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-  const int64_t l = i + j;
-  const bool asc = (i & k) == 0;
-  const int32_t a = key[i];
-  const int32_t b = key[l];
-  if ((a > b) == asc) {
-    key[i] = b;
-    key[l] = a;
-  }
-}
 
 __global__ void align_keys_kernel(const int32_t* __restrict__ pk,
                                   const int32_t* __restrict__ uk,
@@ -124,29 +74,6 @@ __global__ void minima_mask_kernel(const int32_t* __restrict__ v,
 }
 
 }  // namespace
-
-extern "C" int emit_tile(const void* in, void* out, long long n, int tile,
-                         long long k_merge, void* stream) {
-  if (n > 0) {
-    const int threads = tile >= 2048 ? 1024 : (tile >= 2 ? tile / 2 : 1);
-    emit_tile_kernel<<<(unsigned)(n / tile), threads, tile * sizeof(int32_t),
-                       (cudaStream_t)stream>>>((const int32_t*)in,
-                                               (int32_t*)out, tile, k_merge);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int emit_merge_global(void* key, long long n, long long j,
-                                 long long k, void* stream) {
-  const int64_t half_n = n / 2;
-  if (half_n > 0) {
-    const int threads = 256;
-    emit_merge_global_kernel<<<(unsigned)((half_n + threads - 1) / threads),
-                               threads, 0, (cudaStream_t)stream>>>(
-        (int32_t*)key, half_n, j, k);
-  }
-  return (int)cudaGetLastError();
-}
 
 extern "C" int align_keys(const void* pk, const void* uk, void* slot,
                           void* hit, long long n, long long u, void* stream) {

@@ -3,9 +3,11 @@
   sccp_multiply — structured slab-pair multiply (paper Fig. 8)
   insitu_search — the paper's Alg. 1 / Fig. 11: emission sort, alignment
                   search, bit-serial minima scan
-  bitonic_merge — the (key, value) row sort and merge-tree level with
-                  run-tail totals ('tiled', the bucket/table sort, the
-                  streaming engine's merge)
+  bitonic_merge — the (key, value) row sort and the bitonic merge-tree
+                  level with run-tail totals ('tiled', the bucket/table
+                  sort, the streaming engine's merge)
+  radix_sort    — geometry and pass order of the LSD radix sort that the
+                  emission sort and the row sort run
   radix_bucket  — stable binning ranks and propagation blocking ('bucket')
   fused_sccp_stream — one streaming step: multiply + sort + run totals
                   fused ('stream')
@@ -22,7 +24,8 @@ counter of every kernel wrapper; a wrapper counts only real kernel launches
 (one per grid), never its plain twin.
 """
 from . import (bitonic_merge, ell_spmm, fused_sccp_stream, hash_accum,
-               insitu_search, nm_spmm, ops, radix_bucket, sccp_multiply)
+               insitu_search, nm_spmm, ops, radix_bucket, radix_sort,
+               sccp_multiply)
 
 WRAPPERS = {
     "sccp_multiply": sccp_multiply.sccp_multiply,
@@ -49,4 +52,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["WRAPPERS", "bitonic_merge", "ell_spmm", "fused_sccp_stream",
            "hash_accum", "insitu_search", "launch_counts", "nm_spmm", "ops",
-           "radix_bucket", "reset_launch_counts", "sccp_multiply"]
+           "radix_bucket", "radix_sort", "reset_launch_counts",
+           "sccp_multiply"]

@@ -1,26 +1,34 @@
-"""The bitonic (key, value) network on Hopper: row sort + run-tail totals,
-one merge-tree level, and the blocked sort of a whole stream.
+"""The (key, value) row sort and the bitonic merge on Hopper: row sort +
+run-tail totals, one merge-tree level, and the blocked sort of a whole
+stream.
 
-Mirrors ``src/repro/kernels/bitonic_merge.py``. Two CUDA kernels
-(``csrc/bitonic_merge.cu``), each with a plain torch twin here and a launch
-counter on its wrapper (one per grid):
+Mirrors ``src/repro/kernels/bitonic_merge.py``. Two kernels, each with a
+plain torch twin here and a launch counter on its wrapper (one per grid):
 
-* ``sort_tiles`` replaces ``_make_sort_kernel``: every power-of-two row of
-  ``tile`` (int32 key, float32 value) pairs sorted ascending, then each run
-  of equal keys leaves its value total on its last lane and 0 elsewhere. Row
-  tails are row-local: a row's last lane is a tail even when the next row
-  starts with the same key. Plain twin: ``torch.sort`` on the
-  ``(n/tile, tile)`` view, then the segmented total (``sort_tiles_xla``).
-* ``merge_runs`` replaces ``_make_merge_kernel``: adjacent ascending
+* ``sort_tiles`` (K5) replaces ``_make_sort_kernel``: every power-of-two row
+  of ``tile`` (int32 key, float32 value) pairs sorted ascending, then each
+  run of equal keys leaves its value total on its last lane and 0
+  elsewhere. Row tails are row-local: a row's last lane is a tail even when
+  the next row starts with the same key. Bound by bytes. The TPU's bitonic
+  network made one pass over device memory for every stride at or above a
+  shared tile (66 at a 2²² row); the port sorts every row with the LSD
+  radix sort of ``csrc/radix_sort.cuh`` (``radix_sort.sort_rows``): four
+  8-bit digit passes, the value carried beside its key, histograms and
+  offsets per (row, digit), so 13 grids for rows above one 4,096-lane tile
+  whatever the row's length, and 2 for rows of at most one tile, which a
+  block sorts in shared memory a tile of whole rows at a time. The last
+  grid is the totals, in which each run's tail walks back over its run.
+  Plain twin: ``torch.sort(stable=True)`` on the ``(n/tile, tile)`` view,
+  then the segmented total (``sort_tiles_xla``).
+* ``merge_runs`` (K6) replaces ``_make_merge_kernel``: adjacent ascending
   coalesced runs of ``run`` lanes merged into rows of ``2·run`` by one
-  bitonic merge network, then the totals. Plain twin: ``torch.sort`` on the
+  bitonic merge network, then the totals. Bound by bytes: strides below a
+  4,096-pair shared-memory tile run in one tile pass, each larger stride is
+  one coalesced pass over device memory. Plain twin: ``torch.sort`` on the
   ``(n/2run, 2run)`` view, then the segmented total. ``merge_coalesce_pair``
   is one such level over two lists, the streaming engine's merge step.
 
-Both are bound by bytes. Strides below a 4,096-pair shared-memory tile run in
-one tile pass, each larger stride is one coalesced pass over device memory,
-and the totals are one more grid in which each run's tail walks back over its
-run. Each wrapper launches its kernels for CUDA tensors and runs the plain twin
+Each wrapper launches its kernels for CUDA tensors and runs the plain twin
 only for tensors the caller put on the CPU.
 
 Keys are KEY_INVALID on dead lanes, which sort last and carry total 0. On
@@ -33,7 +41,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, radix_sort
 from .insitu_search import KEY_INVALID, next_pot
 
 _KEY_FILL = -2            # never a packed coordinate (>= 0) nor KEY_INVALID
@@ -96,35 +104,30 @@ def _rows(name: str, key: torch.Tensor, val: torch.Tensor, row: int) -> bool:
     return True
 
 
-def _launch(wrapper, entry: str, key: torch.Tensor, val: torch.Tensor,
-            size: int):
-    """Run ``entry`` (sort_tiles_f32 / merge_runs_f32) on the current stream:
-    keys into a new tensor, values sorted into scratch, totals out."""
-    lib = _build.library(_LIB)
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + \
-        [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def sort_tiles(key: torch.Tensor, val: torch.Tensor, *, tile: int):
+    """Sort every length-``tile`` row of (key, val) ascending and coalesce:
+    returns ``(key_sorted, totals)``, run tails carrying totals, rest 0.
+    On CUDA: the radix sort's grids (``tot`` is their value scratch until
+    the totals, the last grid, write it), then the totals."""
+    if not _rows("sort_tiles", key, val, tile):
+        return sort_tiles_plain(key, val, tile=tile)
     k_out = torch.empty_like(key)
     v_sorted = torch.empty_like(val)
     tot = torch.empty_like(val)
-    grids = ctypes.c_int(0)
+    radix_sort.sort_rows(sort_tiles, key, val, k_out, v_sorted, tile,
+                         v_scratch=tot)
+    lib = _build.library(_LIB)
+    fn = lib.seg_totals_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     with torch.cuda.device(key.device):
-        err = fn(key.data_ptr(), val.data_ptr(), k_out.data_ptr(),
-                 v_sorted.data_ptr(), tot.data_ptr(), key.numel(), size,
-                 ctypes.byref(grids),
+        err = fn(k_out.data_ptr(), v_sorted.data_ptr(), tot.data_ptr(),
+                 key.numel(), tile,
                  torch.cuda.current_stream(key.device).cuda_stream)
-    wrapper.launches += grids.value
     _build.check(lib, _LIB, err)
+    sort_tiles.launches += 1
     return k_out, tot
-
-
-def sort_tiles(key: torch.Tensor, val: torch.Tensor, *, tile: int):
-    """Sort every length-``tile`` row of (key, val) ascending and coalesce:
-    returns ``(key_sorted, totals)``, run tails carrying totals, rest 0."""
-    if not _rows("sort_tiles", key, val, tile):
-        return sort_tiles_plain(key, val, tile=tile)
-    return _launch(sort_tiles, "sort_tiles_f32", key, val, tile)
 
 
 sort_tiles.launches = 0
@@ -135,7 +138,23 @@ def merge_runs(key: torch.Tensor, val: torch.Tensor, *, run: int):
     lanes → sorted, coalesced runs of ``2·run``."""
     if not _rows("merge_runs", key, val, 2 * run):
         return merge_runs_plain(key, val, run=run)
-    return _launch(merge_runs, "merge_runs_f32", key, val, run)
+    lib = _build.library(_LIB)
+    fn = lib.merge_runs_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + \
+        [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    k_out = torch.empty_like(key)
+    v_sorted = torch.empty_like(val)          # scratch: the sorted values
+    tot = torch.empty_like(val)
+    grids = ctypes.c_int(0)
+    with torch.cuda.device(key.device):
+        err = fn(key.data_ptr(), val.data_ptr(), k_out.data_ptr(),
+                 v_sorted.data_ptr(), tot.data_ptr(), key.numel(), run,
+                 ctypes.byref(grids),
+                 torch.cuda.current_stream(key.device).cuda_stream)
+    merge_runs.launches += grids.value
+    _build.check(lib, _LIB, err)
+    return k_out, tot
 
 
 merge_runs.launches = 0

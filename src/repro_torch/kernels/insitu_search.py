@@ -6,9 +6,12 @@ in this module and a launch counter on its wrapper:
 
 * ``emit_sort_keys`` replaces ``src/repro/kernels/insitu_search.py:
   _make_emit_sort_kernel`` + ``_make_emit_merge_kernel``: the ascending
-  key-only bitonic sort of the packed product stream. Bound by bytes; every
-  stride below a 4096-key shared-memory tile runs in one tile pass, each
-  stride at or above it is one coalesced pass over device memory.
+  key-only sort of the packed product stream. Bound by bytes. The TPU's
+  bitonic network made one pass over device memory for every stride at or
+  above a shared tile (136 of 153 grids at 2²⁸ keys); the port is the LSD
+  radix sort of ``csrc/radix_sort.cuh`` (``radix_sort.sort_rows``): four
+  8-bit digit passes of three grids each (count, scan, stable scatter), or
+  one grid in shared memory for a stream of at most 4,096 keys.
   Plain twin: ``torch.sort`` (the reference's own ``jnp.sort`` realization).
 * ``align_keys`` replaces ``_make_align_kernel``: ``slot = #{uk < pk}``,
   ``hit = pk ∈ uk``. The TPU kernel's O(S·u) broadcast compare becomes one
@@ -31,10 +34,10 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, radix_sort
 
 KEY_INVALID = 2 ** 31 - 1          # INT32_MAX: dead lane / consumed row
-EMIT_TILE = 4096                   # keys per shared-memory tile (16 KB)
+EMIT_TILE = 4096                   # the reference's tile (unused by the sort)
 _LIB = "insitu_search"
 
 
@@ -61,7 +64,7 @@ def _cuda_operands(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
-_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_P, _L = ctypes.c_void_p, ctypes.c_longlong
 
 
 def _fn(name: str, *argtypes):
@@ -136,36 +139,20 @@ def emit_sort_keys_plain(key: torch.Tensor) -> torch.Tensor:
 
 
 def emit_sort_keys(key: torch.Tensor, *, tile: int = EMIT_TILE) -> torch.Tensor:
-    """Ascending sort of a power-of-two int32 key stream."""
+    """Ascending sort of a power-of-two int32 key stream (any int32, as
+    ``torch.sort`` orders them). ``tile`` is the reference's bitonic tile,
+    validated as a power of two for its signature; the radix design does
+    not use it. ``key`` is never written: the passes alternate between the
+    output and one scratch stream of ``n`` keys."""
     if not _cuda_operands("emit_sort_keys", key):
         return emit_sort_keys_plain(key)
     n = key.numel()
-    if n & (n - 1) or tile & (tile - 1):
+    if n & (n - 1) or tile < 1 or tile & (tile - 1):
         raise ValueError(f"emit_sort_keys: stream {n} and tile {tile} must be "
                          "powers of two")
-    t = min(tile, n)
     out = torch.empty_like(key)
-    if n == 0:
-        return out
-    lib, tile_fn = _fn("emit_tile", _P, _P, _L, _I, _L, _P)
-    _, glob_fn = _fn("emit_merge_global", _P, _L, _L, _L, _P)
-    with torch.cuda.device(key.device):
-        stream = torch.cuda.current_stream(key.device).cuda_stream
-        _build.check(lib, _LIB, tile_fn(key.data_ptr(), out.data_ptr(), n, t,
-                                        0, stream))
-        emit_sort_keys.launches += 1
-        k = 2 * t
-        while k <= n:
-            j = k // 2
-            while j >= t:
-                _build.check(lib, _LIB, glob_fn(out.data_ptr(), n, j, k,
-                                                stream))
-                emit_sort_keys.launches += 1
-                j //= 2
-            _build.check(lib, _LIB, tile_fn(out.data_ptr(), out.data_ptr(), n,
-                                            t, k, stream))
-            emit_sort_keys.launches += 1
-            k *= 2
+    if n:
+        radix_sort.sort_rows(emit_sort_keys, key, None, out, None, n)
     return out
 
 

@@ -19,6 +19,7 @@ from repro_torch.kernels import fused_sccp_stream as tfs
 from repro_torch.kernels import insitu_search as tis
 from repro_torch.kernels import nm_spmm as tnm
 from repro_torch.kernels import radix_bucket as trb
+from repro_torch.kernels import radix_sort as trs
 from repro_torch.kernels import sccp_multiply as tsm
 
 KI = tis.KEY_INVALID
@@ -58,16 +59,43 @@ def test_sccp_multiply_kernel(cuda, k_a, n, k_b):
         tsm.sccp_multiply(args[0].double(), *args[1:])
 
 
-@pytest.mark.parametrize("n,tile", [(1, 4096), (2, 4096), (4096, 4096),
-                                    (1 << 13, 4096), (1 << 20, 4096),
-                                    (1 << 12, 64), (1 << 15, 256)])
-def test_emit_sort_kernel(cuda, n, tile):
-    key = _keys(n + tile, n, KI).to(cuda)
+def _radix_grids(row):
+    """Grids of one radix sort: one in shared memory for a row of at most a
+    tile, else a count, a scan and a scatter for each digit."""
+    return 1 if row <= trs.TILE else 3 * trs.PASSES
+
+
+def _emit_keys(kind, seed, n):
+    """K2 operands: packed-range keys with dead lanes, one key everywhere,
+    or keys over the whole int32 range (negatives, INT32_MIN and
+    KEY_INVALID among them)."""
+    if kind == "random":
+        return _keys(seed, n, KI)
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        return torch.full((n,), int(rng.integers(-KI, KI)), dtype=torch.int32)
+    key = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+    key[rng.random(n) < 0.05] = KI
+    key[rng.random(n) < 0.05] = -2 ** 31
+    return torch.from_numpy(key)
+
+
+@pytest.mark.parametrize("n,tile,kind", [
+    (1, 4096, "random"), (2, 4096, "random"), (4096, 4096, "random"),
+    (1 << 13, 4096, "random"), (1 << 20, 4096, "random"),
+    (1 << 12, 64, "random"), (1 << 15, 256, "random"),
+    (1, 4096, "int32"), (2, 4096, "int32"), (4096, 4096, "int32"),
+    (1 << 22, 4096, "int32"), (1 << 24, 4096, "int32"),  # 4 tiles a block
+    (4096, 4096, "equal"), (1 << 20, 4096, "equal")])
+def test_emit_sort_kernel(cuda, n, tile, kind):
+    key = _emit_keys(kind, n + tile, n).to(cuda)
+    kept = key.clone()
     before = tis.emit_sort_keys.launches
     got = tis.emit_sort_keys(key, tile=tile)
     torch.cuda.synchronize()
-    assert tis.emit_sort_keys.launches > before
+    assert tis.emit_sort_keys.launches - before == _radix_grids(n)
     assert torch.equal(got, tis.emit_sort_keys_plain(key))
+    assert torch.equal(key, kept)                    # the input is not written
     with pytest.raises(ValueError):
         tis.emit_sort_keys(key[: n - 1] if n > 2 else key, tile=3)
 
@@ -123,19 +151,70 @@ def _same_pairs(got, want):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("n,tile,hi", [
-    (1, 1, 8), (2, 2, 8), (256, 64, 40),             # rows inside one tile
-    (1 << 14, 4096, 1 << 12),                        # 'tiled' rows
-    (1 << 15, 8192, 300),                            # rows of two tiles
-    (4 * (1 << 16), 1 << 16, 1 << 20),               # odd rows ascend too
-    (1 << 21, 1 << 20, 1 << 10),                     # 'bucket'-sized rows
+def _row_pairs(kind, seed, n, tile, hi):
+    """K5 operands. "random": keys from [0, hi) with dead lanes; "int32":
+    the whole int32 range; "padded": each row's real keys share their high
+    digits and its tail is KEY_INVALID padding, as a 'bucket' or 'hash' row
+    is; "runs": long runs of a few keys (every total exact on integer
+    values)."""
+    if kind == "random":
+        return _pairs(seed, n, hi)
+    rng = np.random.default_rng(seed)
+    val = rng.integers(-4, 5, n).astype(np.float32)
+    if kind == "int32":
+        key = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+        key = key.astype(np.int32)
+        key[rng.random(n) < 0.05] = KI
+    elif kind == "padded":
+        rows = n // tile
+        base = (np.arange(rows) + 64) << 20          # a row's high digits
+        key = (base[:, None] + rng.integers(0, 1 << hi, (rows, tile)))
+        real = rng.integers(tile // 4, tile, rows)
+        key[np.arange(tile)[None, :] >= real[:, None]] = KI
+        key = key.reshape(-1).astype(np.int32)
+    else:
+        lengths = rng.integers(1, 3 * tile // 2, n // (tile // 2) + 8)
+        key = np.resize(np.repeat(rng.integers(0, 40, lengths.size), lengths),
+                        n)
+        key = np.sort(key.reshape(-1, tile), axis=1)[:, ::-1].reshape(-1)
+        key = np.ascontiguousarray(key).astype(np.int32)
+    val[key == KI] = 0
+    return torch.from_numpy(key), torch.from_numpy(val)
+
+
+@pytest.mark.parametrize("n,tile,hi,kind", [
+    (1, 1, 8, "random"), (2, 2, 8, "random"),
+    (256, 64, 40, "random"),                         # rows inside one tile
+    (1 << 14, 4096, 1 << 12, "random"),              # 'tiled' rows
+    (1 << 15, 8192, 300, "random"),                  # rows of two tiles
+    (4 * (1 << 16), 1 << 16, 1 << 20, "random"),     # odd rows ascend too
+    (1 << 21, 1 << 20, 1 << 10, "random"),           # 'bucket'-sized rows
+    (1 << 12, 512, 0, "int32"), (1 << 14, 4096, 0, "int32"),
+    (1 << 17, 1 << 15, 0, "int32"),
+    (1 << 24, 1 << 22, 0, "int32"),                  # 4 tiles a block
+    (1 << 14, 4096, 0, "equal"), (1 << 18, 1 << 16, 0, "equal"),
+    (1 << 18, 1 << 16, 12, "padded"), (1 << 22, 1 << 21, 16, "padded"),
+    (1 << 16, 4096, 0, "runs"), (1 << 20, 1 << 18, 0, "runs"),
+    # several rows a shared tile (a partial last tile in three): one row pass
+    (3 * 4096 + 256, 256, 40, "random"), (3 * 4096, 16, 0, "int32"),
+    (6144, 2048, 0, "runs"), (1 << 16, 256, 4, "padded"),
+    (1 << 14, 64, 0, "equal"),
+    # two row passes (more than 256 rows a tile)
+    (4096 * 2 + 8 * 7, 8, 0, "int32"), (10000, 2, 8, "random"),
+    (1 << 13, 1, 8, "random"),
 ])
-def test_sort_tiles_kernel(cuda, n, tile, hi):
-    key, val = (t.to(cuda) for t in _pairs(n + tile, n, hi))
+def test_sort_tiles_kernel(cuda, n, tile, hi, kind):
+    if kind == "equal":
+        key = torch.full((n,), 7, dtype=torch.int32)
+        val = torch.from_numpy(np.random.default_rng(n).integers(
+            -4, 5, n).astype(np.float32))
+    else:
+        key, val = _row_pairs(kind, n + tile, n, tile, hi)
+    key, val = key.to(cuda), val.to(cuda)
     before = tbm.sort_tiles.launches
     got = tbm.sort_tiles(key, val, tile=tile)
     torch.cuda.synchronize()
-    assert tbm.sort_tiles.launches > before
+    assert tbm.sort_tiles.launches - before == _radix_grids(tile) + 1
     _same_pairs(got, tbm.sort_tiles_plain(key, val, tile=tile))
     rows = got[0].view(-1, tile)
     assert bool((rows[:, 1:] >= rows[:, :-1]).all())  # every row ascends

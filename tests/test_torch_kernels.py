@@ -5,7 +5,9 @@ scan) against ``repro.kernels.insitu_search``, and the bitonic row sort,
 merge-tree level and bucket rank against ``repro.kernels.bitonic_merge`` /
 ``radix_bucket`` (Pallas in interpret mode and the XLA realizations), bit
 for bit, truncation and KEY_INVALID lanes included. The CUDA kernels themselves are
-held against these plain versions by ``test_torch_cuda.py`` on a GPU."""
+held against these plain versions by ``test_torch_cuda.py`` on a GPU; the
+host arithmetic of their radix sort (geometry, digit shifts, pass order, and
+the offsets its grids compute, emulated in torch) is tested here."""
 import numpy as np
 import pytest
 
@@ -24,6 +26,7 @@ from repro.kernels.sccp_multiply import sccp_multiply_pallas
 from repro_torch.kernels import bitonic_merge as tbm
 from repro_torch.kernels import insitu_search as tis
 from repro_torch.kernels import radix_bucket as trb
+from repro_torch.kernels import radix_sort as trs
 from repro_torch.kernels import sccp_multiply as tsm
 
 KI = tis.KEY_INVALID
@@ -239,3 +242,164 @@ def test_bin_ranks_out_of_range_ids_rank_like_the_pallas_kernel():
     _eq(got, ref_rb.bin_ranks_pallas(jnp.asarray(bid), n_buckets=3,
                                      interpret=True))
     assert (got.numpy()[bid >= 3] == -1).all()
+
+
+# ---------------------------------------------------------------------------
+# The radix sort's host arithmetic (kernels/radix_sort.py)
+# ---------------------------------------------------------------------------
+
+def test_radix_digits_and_pass_order():
+    assert (trs.BITS, trs.BINS, trs.PASSES) == (8, 256, 4)
+    assert trs.SHIFTS == (0, 8, 16, 24)
+    order = trs.pass_buffers()
+    assert order == [("in", "scratch"), ("scratch", "out"),
+                     ("out", "scratch"), ("scratch", "out")]
+    for passes in (2, 4, 6):
+        order = trs.pass_buffers(passes)
+        assert order[0][0] == "in" and order[-1][1] == "out"
+        assert all(src != dst and dst != "in" for src, dst in order)
+        assert all(a[1] == b[0] for a, b in zip(order, order[1:]))
+    for passes in (1, 3):
+        with pytest.raises(ValueError, match="even"):
+            trs.pass_buffers(passes)
+
+
+@pytest.mark.parametrize("n,row,tpb,bpr", [
+    (1 << 28, 1 << 28, 64, 1024),     # K2 at bcsstk32's stream
+    (1 << 28, 1 << 22, 64, 16),       # 'hash': 64 tables of 2^22
+    (1 << 27, 1 << 21, 32, 16),       # 'bucket': 64 buckets of 2^21
+    (1 << 15, 8192, 1, 2),            # rows of two tiles
+    (1 << 18, 1 << 16, 1, 16),
+    (3 << 24, 1 << 23, 16, 128),      # tiles a block rounded up to a power
+])
+def test_radix_geometry(n, row, tpb, bpr):
+    g = trs.geometry(n, row)
+    assert (g.tiles_per_block, g.blocks_per_row) == (tpb, bpr)
+    assert g.blocks_per_row * g.tiles_per_block * trs.TILE == row
+    assert g.rows == n // row
+    assert g.rows * bpr <= max(trs.TARGET_BLOCKS, g.rows)
+    assert g.counts == g.rows * trs.BINS * bpr      # int32 scratch entries
+
+
+@pytest.mark.parametrize("n,row", [(1 << 12, 1 << 12), (1 << 14, 3 << 12),
+                                   (1 << 14, 1 << 15), (1 << 12, 2048)])
+def test_radix_geometry_rejects(n, row):
+    with pytest.raises(ValueError, match="radix geometry"):
+        trs.geometry(n, row)
+
+
+def _digit(key: torch.Tensor, shift: int) -> torch.Tensor:
+    """The kernels' digit: bit 31 flipped, so signed keys order as int32."""
+    return ((key.long() + 2 ** 31) >> shift) & (trs.BINS - 1)
+
+
+def _emulate_radix(key: torch.Tensor, val: torch.Tensor, row: int):
+    """The segmented design's index arithmetic: per pass the upsweep's count
+    of each (row, block, bin), stored block-major as the kernels store it,
+    the scan's exclusive offsets (bin-major, restarting at each row) and the
+    downsweep's stable scatter through the pass order of ``pass_buffers``.
+    It checks the design, not the kernels, whose grids run only on the card
+    (``tests/test_torch_cuda.py``)."""
+    n = key.numel()
+    g = trs.geometry(n, row)
+    lane = torch.arange(n)
+    r = lane // row
+    j = lane % row // (g.tiles_per_block * trs.TILE)
+    bufs = {"in": (key, val)}
+    for shift, (src, dst) in zip(trs.SHIFTS, trs.pass_buffers()):
+        k, v = bufs[src]
+        cell = (r * g.blocks_per_row + j) * trs.BINS + _digit(k, shift)
+        counts = torch.bincount(cell, minlength=g.counts)
+        bin_major = counts.view(g.rows, g.blocks_per_row, trs.BINS) \
+            .transpose(1, 2).reshape(g.rows, -1)
+        offs = (bin_major.cumsum(1) - bin_major).view(
+            g.rows, trs.BINS, g.blocks_per_row).transpose(1, 2).reshape(-1)
+        order = torch.sort(cell, stable=True).indices
+        first = counts.cumsum(0) - counts
+        rank = torch.empty(n, dtype=torch.long)
+        rank[order] = torch.arange(n) - first[cell[order]]
+        dest = r * row + offs[cell] + rank
+        assert torch.equal(torch.sort(dest).values, lane)   # a permutation
+        kd, vd = torch.empty_like(k), torch.empty_like(v)
+        kd[dest], vd[dest] = k, v
+        bufs[dst] = (kd, vd)
+    return bufs["out"]
+
+
+@pytest.mark.parametrize("n,row,hi", [(1 << 14, 8192, 300),
+                                      (1 << 16, 1 << 15, 1 << 31),
+                                      (1 << 15, 1 << 15, 8)])
+def test_radix_design_sorts_rows_like_the_reference(n, row, hi):
+    """Emulated on the CPU, the four passes' offsets and scatters leave
+    every row sorted with ties in lane order: the reference's sort, values
+    included. Keys span the whole int32 range at hi = 2^31."""
+    rng = np.random.default_rng(n + row)
+    key = rng.integers(-hi, hi, n, dtype=np.int64).astype(np.int32)
+    key[rng.random(n) < 0.1] = KI
+    val = np.arange(n, dtype=np.float32)            # tags each lane's order
+    k, v = _emulate_radix(torch.from_numpy(key), torch.from_numpy(val), row)
+    want = torch.sort(torch.from_numpy(key).view(-1, row), dim=1, stable=True)
+    _eq(k, want.values.reshape(-1))
+    _eq(v, (want.indices + torch.arange(0, n, row)[:, None]).reshape(-1)
+        .to(torch.float32))
+    if hi < 2 ** 31:                                 # packed-key range
+        ks, _ = ref_bm.sort_tiles_xla(jnp.asarray(key), jnp.asarray(val),
+                                      tile=row)
+        _eq(k, ks)
+
+
+@pytest.mark.parametrize("n,row,passes", [
+    (1, 1, 4), (1024, 1024, 4),          # one row, its tile padded
+    (4096, 4096, 4), (1 << 20, 4096, 4),  # one row a tile
+    (1 << 14, 2048, 5), (3 * 256, 256, 5), (1 << 14, 16, 5),
+    (1 << 14, 8, 6), (10, 2, 6), (1 << 13, 1, 6),
+])
+def test_radix_tile_passes(n, row, passes):
+    assert trs.tile_passes(n, row) == passes
+
+
+@pytest.mark.parametrize("n,row", [(1 << 13, 8192), (96, 3), (100, 8),
+                                   (0, 0)])
+def test_radix_tile_passes_rejects(n, row):
+    with pytest.raises(ValueError, match="radix tile"):
+        trs.tile_passes(n, row)
+
+
+def _emulate_radix_tiles(key: torch.Tensor, val: torch.Tensor, row: int):
+    """The one-grid design's passes, emulated: every tile of TILE lanes
+    (the last padded with INT32_MAX) sorted stably by the four key digits,
+    then by the tile-local row index over ``tile_passes`` passes, the lanes
+    past the stream's end dropped. It checks the design, not the kernel,
+    whose grid runs only on the card (``tests/test_torch_cuda.py``)."""
+    n = key.numel()
+    tiles = -(-n // trs.TILE)
+    k = torch.full((tiles * trs.TILE,), 2 ** 31 - 1, dtype=torch.int32)
+    k[:n] = key
+    idx = torch.arange(trs.TILE).repeat(tiles)
+    k, idx = k.view(tiles, -1), idx.view(tiles, -1)
+    log_row = row.bit_length() - 1
+    for p in range(trs.tile_passes(n, row)):
+        d = (_digit(k, trs.SHIFTS[p]) if p < trs.PASSES else
+             (idx >> (log_row + trs.BITS * (p - trs.PASSES))) & (trs.BINS - 1))
+        order = torch.sort(d, dim=1, stable=True).indices
+        k, idx = torch.gather(k, 1, order), torch.gather(idx, 1, order)
+    lane = (idx + torch.arange(tiles)[:, None] * trs.TILE).reshape(-1)[:n]
+    return k.reshape(-1)[:n], val[lane]
+
+
+@pytest.mark.parametrize("n,row", [(1, 1), (300 * 4, 4), (3 * 128, 128),
+                                   (1 << 14, 4096), (3 * 4096 + 256, 256),
+                                   (5000, 8), (1 << 13, 1), (2048, 2048)])
+def test_radix_tile_design_sorts_packed_rows(n, row):
+    """Emulated on the CPU, the tile passes leave every row sorted on its
+    own with ties in lane order, real KEY_INVALID lanes before the
+    padding."""
+    rng = np.random.default_rng(n + row)
+    key = rng.integers(-8, 8, n).astype(np.int32)
+    key[rng.random(n) < 0.3] = KI
+    val = torch.arange(n, dtype=torch.float32)      # tags each lane's order
+    k, v = _emulate_radix_tiles(torch.from_numpy(key), val, row)
+    want = torch.sort(torch.from_numpy(key).view(-1, row), dim=1, stable=True)
+    _eq(k, want.values.reshape(-1))
+    _eq(v, (want.indices + torch.arange(0, n, row)[:, None]).reshape(-1)
+        .to(torch.float32))
