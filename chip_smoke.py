@@ -25,6 +25,12 @@ Phases (any failure exits non-zero before the last line):
    the grids one call launches, with each radix grid's time at the first
    and last digit (K2's stream, K5's 'hash' tables); K5 also at the rows of
    a 'tiled' call with ``tile=256``, where one shared tile holds 16 rows.
+   K8 with its grids a call at each of its three shapes (13 above a tile,
+   1 within) and, at one slab × B, each grid's time: the first digit's
+   count and scatter, which form the products from the operands, against
+   the radix library's grids of digits 1-3, the scans and the totals. K8's
+   operation count is a sort's n·log2(n) comparisons of its real lanes;
+   bytes set its bound.
    The planner's sizes
    for the 'bucket' and 'hash' paths are printed first (``[plan]``). Then
    ``make_structure`` for a 'sort' and a 'stream' plan, timed, and K1 and
@@ -45,9 +51,14 @@ Phases (any failure exits non-zero before the last line):
    factor 1.25, dense FFN 10944) on a prefill batch of 4 x 1,024 tokens:
    K9 at the MoE dispatch and combine shapes and K10 at the 2:4
    ``SparseMLP``'s fc_in and fc_out shapes, each bit for bit against its
-   plain version on integer-valued operands, with the same times and bound;
-   beside K10, the time of its probe build with no gather (every lane reads
-   its window's first column: ``_build.VARIANTS["nm_spmm_broadcast"]``).
+   plain version on integer-valued operands, with the same times and bound
+   (K10's operation bound the smaller of the split-TF32 tensor-core floor
+   and the condensed product at the CUDA-core rate; its floor at the FP64
+   tensor cores it runs on beside it); beside K10, the time of its probe
+   build with one TF32 product in place of the FP64 one
+   (``_build.VARIANTS["nm_spmm_one_tf32"]``), and K10's max abs error
+   against the float64 product on normal operands of each shape, required
+   to be at most 4x that of its plain fp32 twin.
 6. The SpMM paths, counters zeroed around each, with per-call peak memory:
    ``moe_apply`` (two K9 launches; routing equal to, and y within 1e-4 of
    max|y| of, the same call on CPU tensors), ``SparseMLP(w_in, w_out, 0.5,
@@ -85,6 +96,8 @@ ACCUMULATORS = ("sort", "search", "tiled", "bucket", "hash", "stream")
 # rate, the table's nearest entry for the int32 compares these kernels do.
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12  # dense TF32 tensor-core rate
+FP64_TC_OPS_PER_S = 67e12  # dense FP64 tensor-core rate
 RADIX_TILE = 4096        # kernels/radix_sort.py TILE: longer rows are segmented
 SHORT_ROW = 256          # a 'tiled' call's tile=, 16 rows a radix tile
 
@@ -508,11 +521,79 @@ def check_accumulator_kernels(a, b, plan) -> list:
     ]
 
 
+def k8_grid_ms(args, n_cols: int) -> dict:
+    """Device ms of each grid of one K8 step above a tile, as
+    ``fused_slab_sort`` launches them: the first digit's count and scatter,
+    which form the lanes from the operands, then each of digits 1-3's count
+    and scatter through the radix library, each digit's scan (timed on
+    restored copies of the counts, the copy's time taken off), and the
+    totals."""
+    import torch
+    from repro_torch.kernels import bitonic_merge as bm
+    from repro_torch.kernels import fused_sccp_stream as k8
+    from repro_torch.kernels import radix_sort as rs
+    from repro_torch.kernels.insitu_search import next_pot
+    group, n, k_b = k8._shapes(*args)
+    lanes = group * n * k_b
+    pot, m = next_pot(lanes), k8.sorted_lanes(lanes)
+    g = rs.span_geometry(m)
+    dev = args[0].device
+    key = torch.empty(pot, dtype=torch.int32, device=dev)
+    tot = torch.empty(pot, dtype=torch.float32, device=dev)
+    bufs = [(torch.empty(m, dtype=torch.int32, device=dev),
+             torch.empty(m, dtype=torch.float32, device=dev)),
+            (key[:m], tot[:m])]
+    v_out = torch.empty(m, dtype=torch.float32, device=dev)
+    counts = torch.empty(g.counts, dtype=torch.int32, device=dev)
+    slab = tuple(t.data_ptr() for t in args) + (group, n, k_b, n_cols)
+    first = k8.FirstDigit(slab, key, m)
+    _, fns = rs._entries()
+    stream = torch.cuda.current_stream().cuda_stream
+    geo = (m, m, g.blocks_per_row, g.tiles_per_block)
+    raw = counts.clone()
+
+    def scan_ms():
+        """The scan's time; leaves the scanned offsets in ``counts``."""
+        restore = (lambda: counts.copy_(raw))
+        scan = (lambda: (restore(), fns["radix_scan"](
+            counts.data_ptr(), 1, g.blocks_per_row, stream)))
+        ms = cuda_ms(scan, 5) - cuda_ms(restore, 5)
+        scan()
+        return ms
+
+    out = {"count_0": cuda_ms(lambda: first.upsweep(counts, g, 0, stream), 5)}
+    raw.copy_(counts)
+    out["scan_0"] = scan_ms()
+    src = bufs[0]
+    out["scatter_0"] = cuda_ms(lambda: first.downsweep(
+        counts, src[0], src[1], g, 0, stream), 5)
+    for p, shift in enumerate(rs.SHIFTS[1:], 1):
+        dst = bufs[p % 2] if p < 3 else (key[:m], v_out)
+        out[f"count_{shift}"] = cuda_ms(lambda: fns["radix_upsweep"](
+            src[0].data_ptr(), counts.data_ptr(), *geo, shift, stream), 5)
+        raw.copy_(counts)
+        out[f"scan_{shift}"] = scan_ms()
+        out[f"scatter_{shift}"] = cuda_ms(lambda: fns["radix_downsweep"](
+            src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
+            dst[1].data_ptr(), counts.data_ptr(), *geo, shift, stream), 5)
+        src = dst
+    out["totals"] = cuda_ms(lambda: bm.seg_totals(
+        k8.fused_slab_sort, key, v_out, tot, pot), 5)
+    torch.cuda.synchronize()
+    print(f"[probe] fused_slab_sort grids, {lanes} lanes sorted as {m} of "
+          f"{pot}: {json.dumps(out)}", flush=True)
+    return out
+
+
 def check_stream_kernel(a, b) -> dict:
-    """K8 (fused slab multiply + sort) against its plain version at the
-    shapes the 'stream' path gives it or can: one A slab times all of B (the
-    planner's group of 1 on this operand), a slab of at most 4,096 lanes
-    (one shared-memory residency) and a block of two slabs (group > 1)."""
+    """K8 (fused slab multiply + radix sort) against its plain version at
+    the shapes the 'stream' path gives it or can: one A slab times all of B
+    (the planner's group of 1 on this operand), a slab of at most 4,096
+    lanes (one shared-memory residency, one grid) and a block of two slabs
+    (group > 1). Each entry holds the grids one call launches; the one-slab
+    entry also each grid's time (``k8_grid_ms``). The bound: the operands
+    read once and 8 B a padded lane written; the operations, a sort's
+    n·log2(n) comparisons of the real lanes, stay below it."""
     import torch
     from repro_torch.kernels import fused_sccp_stream as k8
     k_b = b.val.shape[1]
@@ -532,7 +613,7 @@ def check_stream_kernel(a, b) -> dict:
         pot = key.numel()
         del key
         packed, _ = k8._pack_tile(*args, b.n_cols, pot)
-        log = pot.bit_length() - 1
+        lanes = args[0].numel() * k_b
         shapes.append(held_pair(
             "fused_slab_sort",
             lambda: k8.fused_slab_sort(*args, n_cols=b.n_cols),
@@ -541,8 +622,15 @@ def check_stream_kernel(a, b) -> dict:
             f"{what}: a {tuple(args[0].shape)} x b {tuple(args[2].shape)} "
             f"-> {pot} lanes",
             8 * (args[0].numel() + args[2].numel()) + 8 * pot,
-            pot // 2 * log * (log + 1) // 2))
+            lanes * math.log2(max(lanes, 2))))
+        shapes[-1]["grids"] = grids_of(k8.fused_slab_sort, lambda: (
+            k8.fused_slab_sort(*args, n_cols=b.n_cols)))
+        if what == "one A slab x B":
+            shapes[-1]["grid_ms"] = k8_grid_ms(args, b.n_cols)
         del packed
+    require([s["grids"] for s in shapes] == [13, 1, 13],
+            f"fused_slab_sort grids {[s['grids'] for s in shapes]}, "
+            "expected 13 above a tile and 1 within")
     torch.cuda.empty_cache()
     return kernel_row("fused_slab_sort",
                       "src/repro_torch/csrc/fused_sccp_stream.cu",
@@ -853,6 +941,40 @@ def sparse_rows(val, idx, n_rows: int):
         return a.coalesce().to_sparse_csr()
 
 
+def nm_normal_error(what: str, x_shape, wn, seed: int) -> dict:
+    """K10 and its plain fp32 twin (TF32 off) on normal operands of one
+    layer's shape: X and a dense weight drawn normal, pruned to the layer's
+    N:M; each one's max abs error against the float64 product. Requires the
+    kernel's to be at most 4x the twin's."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import nm_spmm as k10
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    x = torch.randn(x_shape, generator=g, device=dev)
+    w = torch.randn((wn.d_in, wn.d_out), generator=g, device=dev)
+    wp = repro_torch.magnitude_prune_nm(w, wn.n, wn.m)
+    w_nm = repro_torch.nm_from_dense(wp, wn.n, wn.m)
+    want = x.double() @ wp.double()
+    del w
+    errs = {}
+    for key, fn in (("normal_err", k10.nm_spmm),
+                    ("plain_normal_err", k10.nm_spmm_plain)):
+        errs[key] = float((fn(x, w_nm.val, w_nm.off, n=wn.n, m=wn.m).double()
+                           - want).abs().max())
+    print(f"[check] nm_spmm {what} on normal operands: max|err| vs float64 "
+          f"{errs['normal_err']:.4e}, plain fp32 twin "
+          f"{errs['plain_normal_err']:.4e} "
+          f"({errs['normal_err'] / errs['plain_normal_err']:.2f}x), max|y| "
+          f"{float(want.abs().max()):.2f}", flush=True)
+    require(errs["normal_err"] <= 4 * errs["plain_normal_err"],
+            f"nm_spmm {what}: error {errs['normal_err']} on normal operands "
+            f"over 4x the plain twin's {errs['plain_normal_err']}")
+    del x, wp, w_nm, want
+    torch.cuda.empty_cache()
+    return errs
+
+
 def check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed: int) -> list:
     """K9 at the MoE path's dispatch and combine shapes and K10 at
     SparseMLP's fc_in and fc_out shapes, each held bit for bit against its
@@ -862,10 +984,21 @@ def check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed: int) -> list:
     combine: the slot → token index with integer values in place of the
     routing weights); its library call is ``torch.sparse.mm`` of A as a CSR
     tensor, and its bound reads X only at the columns of A with a valid
-    lane. K10's is ``x @ wp``, the dense product of the pruned weight,
-    TF32 off; each K10 entry also holds ``broadcast_ms``, the probe build
-    of its source with the gather taken out (a wrong result, not checked),
-    which times the loop with no bank conflicts."""
+    lane. K10's library call is ``x @ wp``, the dense product of the pruned
+    weight, TF32 off. Its operation bound is the least time any float32-
+    faithful route could take, the smaller of two floors: the
+    dense-expanded product's 2·t·d_in·d_out operations three times over
+    (split TF32) at the TF32 tensor cores' 495 TFLOP/s, and the condensed
+    2·t·R·d_out at the CUDA cores' 67 TFLOP/s; it is passed as the
+    operations that take the same time at the CUDA-core rate, so the first
+    floor counts 3·2·t·d_in·d_out·67/495. Each K10 entry also holds
+    ``fp64_floor_ms``, the dense-expanded product at the FP64 tensor cores'
+    67 TFLOP/s (the rate the kernel runs at), ``one_tf32_ms``, the probe
+    build that takes one TF32 product in place of the FP64 one (inexact on
+    general floats, not checked here), and the max abs errors against the
+    float64 product on normal operands of the layer's shape
+    (``normal_err``, and ``plain_normal_err`` of the plain fp32 twin), the
+    kernel's required to be at most 4x the twin's."""
     import torch
     from repro_torch.kernels import ell_spmm as k9
     from repro_torch.kernels import nm_spmm as k10
@@ -904,6 +1037,7 @@ def check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed: int) -> list:
                             ("fc_out", mlp.fc_out, h_int)):
         wn = layer.w_nm
         wp = wn.to_dense()
+        dense_ops = 2 * t * wn.d_in * wn.d_out
         nm.append(held_pair(
             "nm_spmm", lambda: k10.nm_spmm(xx, wn.val, wn.off, n=wn.n,
                                            m=wn.m),
@@ -911,13 +1045,17 @@ def check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed: int) -> list:
             lambda: xx @ wp,
             f"{what}: ({t},{wn.d_in}) x {wn.n}:{wn.m} ({wn.r},{wn.d_out})",
             4 * t * wn.d_in + 5 * wn.r * wn.d_out + 4 * t * wn.d_out,
-            2 * t * wn.r * wn.d_out))
-        nm[-1]["broadcast_ms"] = cuda_ms(lambda: k10.launch(
-            "nm_spmm_broadcast", xx, wn.val, wn.off, n=wn.n, m=wn.m), 3)
-        print(f"[probe] nm_spmm {what} with no gather (broadcast reads): "
-              f"{nm[-1]['broadcast_ms']:.4f} ms, as built "
-              f"{nm[-1]['ms']:.4f} ms", flush=True)
+            min(3 * dense_ops * CORE_OPS_PER_S / TF32_OPS_PER_S,
+                2 * t * wn.r * wn.d_out)))
+        nm[-1]["fp64_floor_ms"] = dense_ops / FP64_TC_OPS_PER_S * 1e3
+        nm[-1]["one_tf32_ms"] = cuda_ms(lambda: k10.launch(
+            "nm_spmm_one_tf32", xx, wn.val, wn.off, n=wn.n, m=wn.m), 3)
+        print(f"[probe] nm_spmm {what} with one TF32 product in place of "
+              f"FP64: {nm[-1]['one_tf32_ms']:.4f} ms, as built (FP64) "
+              f"{nm[-1]['ms']:.4f} ms, FP64 floor "
+              f"{nm[-1]['fp64_floor_ms']:.4f} ms", flush=True)
         del wp
+        nm[-1].update(nm_normal_error(what, xx.shape, wn, seed))
     torch.cuda.empty_cache()
     return [kernel_row("ell_spmm", "src/repro_torch/csrc/ell_spmm.cu",
                        "src/repro/kernels/ell_spmm.py:33", ell),
@@ -1188,9 +1326,13 @@ def main(argv=None) -> int:
     build_s = _build.build_all()
     print(f"[build] kernels built in {build_s:.2f} s", flush=True)
     for src in sorted(_build.SRC_DIR.glob("*.cu")):
+        entry = ""                        # the (mangled) kernel reported on
         for line in _build.build_log(src.stem).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas] {src.stem}: {line.strip()}", flush=True)
+            if "Function properties for" in line:
+                entry = line.split()[-1]
+            elif "registers" in line or "spill" in line:
+                print(f"[ptxas] {src.stem} {entry}: {line.strip()}",
+                      flush=True)
 
     # -- the operand: bcsstk32, C = A·Aᵀ ----------------------------------------
     t0 = time.perf_counter()

@@ -33,17 +33,22 @@ from .core.formats import (Coo, EllCols, EllRows, coo_from_dense,
 from .core.nm import NmWeights, detect_nm, nm_from_dense
 from .core.sccp import count_products
 from .core.spgemm import spgemm_dense
-from .models import SparseLinear, SparseMLP, moe_apply
-from .plan import (SpgemmStructure, StructureCache, make_structure,
-                   make_structure_batched, plan_spmm_format)
+from .kernels.nm_spmm import nm_spmm
+from .models import (SparseLinear, SparseMLP, magnitude_prune,
+                     magnitude_prune_nm, moe_apply)
+from .plan import (Plan, SpgemmStructure, StructureCache, fingerprint,
+                   make_plan, make_structure, make_structure_batched,
+                   plan_spmm_format)
 
 __all__ = [
-    "AccumulatorOverflow", "Coo", "EllCols", "EllRows", "NmWeights",
+    "AccumulatorOverflow", "Coo", "EllCols", "EllRows", "NmWeights", "Plan",
     "SparseLinear", "SparseMLP", "SpgemmStructure", "StructureCache",
     "check_no_overflow", "coo_from_dense", "count_products",
     "default_device", "detect_nm", "ell_cols_from_dense",
-    "ell_rows_from_dense", "from_numpy", "make_structure",
+    "ell_rows_from_dense", "fingerprint", "from_numpy", "magnitude_prune",
+    "magnitude_prune_nm", "make_plan", "make_structure",
     "make_structure_batched", "moe_apply", "nm_from_dense", "nm_from_numpy",
-    "np_ell_cols_from_scipy", "np_ell_rows_from_scipy", "params_from_numpy",
-    "plan_spmm_format", "spgemm", "spgemm_dense", "to_numpy",
+    "nm_spmm", "np_ell_cols_from_scipy", "np_ell_rows_from_scipy",
+    "params_from_numpy", "plan_spmm_format", "spgemm", "spgemm_dense",
+    "to_numpy",
 ]

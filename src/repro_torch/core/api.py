@@ -16,7 +16,9 @@ It dispatches on what it is handed (first match wins):
 ``'tiled'``, ``'bucket'``, ``'hash'``, ``'stream'`` or ``'search'``),
 ``tile`` (the ``'tiled'`` merge tree's tile), ``plan`` (``plan.make_plan``,
 of either package) and ``check`` mean what they mean there.
-``accumulator='auto'`` without a plan and the sharded paths
+``schedule``, ``dist_plan`` and ``overlap`` steer only the sharded paths;
+without a mesh they are ignored, whatever their values, as the reference
+ignores them. ``accumulator='auto'`` without a plan and the sharded paths
 (``mesh=``/``axis=``) raise ``NotImplementedError`` until their slices are
 ported.
 """
@@ -29,14 +31,16 @@ from .formats import Coo, EllCols, EllRows
 
 def spgemm(a: EllRows, b: EllCols, *, structure=None, mesh=None,
            axis: Optional[str] = None, batched="auto", out_cap="auto",
-           accumulator: Optional[str] = None, tile: Optional[int] = None,
-           plan=None,
-           stream_cap: Optional[int] = None, group: Optional[int] = None,
-           check: bool = False, validate: bool = True) -> Coo:
+           accumulator: Optional[str] = None, schedule: str = "auto",
+           tile: Optional[int] = None, plan=None, dist_plan=None,
+           overlap: bool = True, stream_cap: Optional[int] = None,
+           group: Optional[int] = None, check: bool = False,
+           validate: bool = True) -> Coo:
     """C = A·B as sorted COO — dispatches to the right SpGEMM variant."""
     from . import spgemm as sp
     if mesh is not None or axis is not None:
         sp._not_ported("mesh=/axis=", "mesh")
+    del schedule, dist_plan, overlap          # read by the sharded paths only
     if batched == "auto":
         is_batched = a.val.ndim == 3
     else:

@@ -24,14 +24,15 @@
 //    of "ascending ++ flipped": its first stage compares lane i with lane
 //    2*run-1-i of each row, which leaves two bitonic halves, and the rest is
 //    the ordinary ascending half-cleaner cascade.
-// 3. seg_total, the last grid of both: on every row, the last lane of each
+// 3. seg_total, the last grid of both and of K8's step
+//    (csrc/fused_sccp_stream.cu): on every row, the last lane of each
 //    run of equal keys gets the run's value total and every other lane 0;
 //    the last lane of a row is a tail even when the next row starts with the
 //    same key, and KEY_INVALID lanes get 0.
 #include "bitonic_net.cuh"
 
-// The run-tail totals of rows of `row` sorted lanes, the radix sort's last
-// grid.
+// The run-tail totals of rows of `row` sorted lanes, the last grid of the
+// radix row sort (K5) and of K8's step.
 extern "C" int seg_totals_f32(const void* key, const void* val, void* tot,
                               long long n, long long row, void* stream) {
   if (n <= 0) return 0;

@@ -1,21 +1,21 @@
-// The bitonic (key, value) network shared by csrc/bitonic_merge.cu (K5 row
-// sort, K6 merge level) and csrc/fused_sccp_stream.cu (K8 fused slab sort):
-// the shared-memory tile network, the one-stride global passes, the flip
-// stage of a merge, and the row-local run-tail totals. Each including source
-// compiles it into its own library (everything here has internal linkage).
+// The bitonic (key, value) network of K6's merge-tree level
+// (csrc/bitonic_merge.cu merge_runs_f32): the shared-memory tile network,
+// the one-stride global passes, the flip stage of a merge, and the row-local
+// run-tail totals, which are also the last grid of the radix row sort (K5)
+// and of K8's step (seg_totals_f32). Everything here has internal linkage.
 //
-// Design: the classic bitonic network (stage k, stride j). Every stride below
-// one shared-memory tile (4,096 pairs = 32 KB) runs inside one tile pass, so
-// a tile is read and written once per merge level instead of once per stride;
-// each stride at or above the tile is one coalesced global pass. Blocks never
-// exchange data, so no pass carries state across blocks. A pair's direction
-// comes from the lane's position WITHIN ITS ROW (bit k of lane & (row-1)):
-// taken from the global lane, every odd row would sort descending once k
-// reaches the row length. A pair swaps only when strictly out of order, so
-// ascending ties keep the lower lane first. The totals are not a difference
-// of global prefix sums (that loses float precision): each tail lane walks
-// back over its own run, which never crosses a row. Every lane belongs to
-// exactly one run, so the walks together read each lane once.
+// Design: the classic bitonic merge network (stage k, stride j). Every
+// stride below one shared-memory tile (4,096 pairs = 32 KB) runs inside one
+// tile pass, so a tile is read and written once per merge level instead of
+// once per stride; each stride at or above the tile is one coalesced global
+// pass. Blocks never exchange data, so no pass carries state across blocks.
+// A pair's direction comes from the lane's position WITHIN ITS ROW (bit k of
+// lane & (row-1)): taken from the global lane, every odd row would sort
+// descending once k reaches the row length. A pair swaps only when strictly
+// out of order. The totals are not a difference of global prefix sums (that
+// loses float precision): each tail lane walks back over its own run, which
+// never crosses a row. Every lane belongs to exactly one run, so the walks
+// together read each lane once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,7 +57,6 @@ __device__ __forceinline__ void tile_stride(int32_t* k, float* v, int64_t base,
 // already loaded and synchronised:
 //   flip_run > 0  : merge rows of 2*flip_run <= t: the flip stage, then the
 //                   ascending strides flip_run/2 .. 1.
-//   k_merge == 0  : sort every row, stages k = 2 .. min(t, row).
 //   otherwise     : finish stage k_merge > t: strides t/2 .. 1.
 __device__ __forceinline__ void tile_network(int32_t* sk, float* sv, int t,
                                              int64_t base, int64_t row,
@@ -73,11 +72,6 @@ __device__ __forceinline__ void tile_network(int32_t* sk, float* sv, int t,
     __syncthreads();
     for (int j = flip_run >> 1; j > 0; j >>= 1)
       tile_stride(sk, sv, base, row, half, j, row);
-  } else if (k_merge == 0) {
-    const int64_t top = row < t ? row : t;
-    for (int64_t kk = 2; kk <= top; kk <<= 1)
-      for (int j = (int)(kk >> 1); j > 0; j >>= 1)
-        tile_stride(sk, sv, base, row, half, j, kk);
   } else {
     for (int j = half; j > 0; j >>= 1)
       tile_stride(sk, sv, base, row, half, j, k_merge);
@@ -181,31 +175,6 @@ int totals(const int32_t* key, const float* val, float* tot, int64_t n,
   seg_total_kernel<<<blocks(n, THREADS), THREADS, 0, st>>>(key, val, tot, n,
                                                           row);
   return (int)cudaGetLastError();
-}
-
-// Finish a row sort whose stages up to t (the tile) are done in (k, v): every
-// stage 2t .. row as global strides down to t and one tile pass, then the
-// run-tail totals into tot. Adds the grids launched to *grids.
-int sort_above_tile(int32_t* k, float* v, float* tot, int64_t n, int t,
-                    int64_t row, int* grids, cudaStream_t st) {
-  int err = 0;
-  for (int64_t kk = 2 * (int64_t)t; kk <= row && !err; kk <<= 1) {
-    for (int64_t j = kk >> 1; j >= t && !err; j >>= 1) {
-      stride_kernel<<<blocks(n / 2, THREADS), THREADS, 0, st>>>(k, v, n / 2,
-                                                               j, kk, row);
-      err = (int)cudaGetLastError();
-      ++*grids;
-    }
-    if (!err) {
-      err = tile_pass(k, v, k, v, n, t, row, kk, 0, st);
-      ++*grids;
-    }
-  }
-  if (!err) {
-    err = totals(k, v, tot, n, row, st);
-    ++*grids;
-  }
-  return err;
 }
 
 }  // namespace

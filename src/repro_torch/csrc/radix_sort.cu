@@ -1,8 +1,8 @@
 // The LSD radix sort's grids (csrc/radix_sort.cuh) as one library with a
-// plain C interface: K2's emission sort (keys alone, vin == nullptr) and
-// K5's row sort ((key, value) pairs) both launch these four entries, each
-// one grid, through kernels/radix_sort.py, which orders them and the
-// buffers. Each entry returns cudaGetLastError() after its launch, or
+// plain C interface: K2's emission sort (keys alone, vin == nullptr), K5's
+// row sort ((key, value) pairs) and K8's digits 1-3 launch these four
+// entries, each one grid, through kernels/radix_sort.py, which orders them
+// and the buffers. Each entry returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a geometry the grid does not cover.
 #include "radix_sort.cuh"
 

@@ -1,9 +1,12 @@
 // LSD radix sort of int32 keys, alone or carrying float32 values, for Hopper
 // (sm_90a): the design of K2 (kernels/insitu_search.py emit_sort_keys, keys
-// only, one row the whole stream) and of K5's rows (kernels/bitonic_merge.py
-// sort_tiles, (key, value) pairs, every power-of-two row sorted on its own).
-// csrc/radix_sort.cu builds it into one library whose four entries both
-// wrappers call through kernels/radix_sort.py.
+// only, one row the whole stream), of K5's rows (kernels/bitonic_merge.py
+// sort_tiles, (key, value) pairs, every power-of-two row sorted on its own)
+// and of K8's step (kernels/fused_sccp_stream.py fused_slab_sort, one row of
+// the products it forms). csrc/radix_sort.cu builds it into one library
+// whose four entries the three wrappers call through kernels/radix_sort.py;
+// K8's library (csrc/fused_sccp_stream.cu) adds the first digit's count and
+// scatter and the one-grid sort over its own lane source.
 //
 // Bound: bytes. A sort must read each key (and value) once and write it once;
 // the bitonic networks these replace made one pass over device memory for
@@ -34,7 +37,19 @@
 //      bin's stores are one contiguous run at the block's running offset
 //      for that bin.
 // Passes alternate between two buffers, and the caller orders them so the
-// fourth lands in its output.
+// fourth lands in its output. A row's last block may own fewer tiles than
+// the others, so a row need only be a multiple of TILE (K8 sorts its real
+// lanes rounded up to a tile, not to a power of two).
+//
+// The grids read their lanes through a lane source: MemLanes reads a key
+// (and value) stream from device memory, as K2 and K5 sort it; K8
+// (csrc/fused_sccp_stream.cu) passes its own, which forms each lane from
+// the slab operands, to the first digit's count and scatter and to the
+// one-grid sort, so its unsorted products never reach device memory. A
+// source gives run(l, k), the 16 keys from lane l on (the count's unit);
+// begin(first) and tile(at, next, sk, sv, k, v), the scatter's tiles in
+// warp order; lane(l, k, v), one lane (below the stream's end) of the
+// one-grid sort.
 //
 // Rows of at most one tile take one grid: one block a tile of TILE lanes,
 // which holds TILE / row whole rows, sorts it in shared memory with the same
@@ -78,7 +93,7 @@ struct TileRegs {
       const int4* s = reinterpret_cast<const int4*>(src);
 #pragma unroll
       for (int q = 0; q < ITEMS / 4; ++q) {
-        const int4 v = s[q * THREADS + threadIdx.x];
+        const int4 v = __ldg(s + q * THREADS + threadIdx.x);
         x[4 * q] = v.x;
         x[4 * q + 1] = v.y;
         x[4 * q + 2] = v.z;
@@ -87,7 +102,8 @@ struct TileRegs {
     } else {
       const int32_t* s = reinterpret_cast<const int32_t*>(src);
 #pragma unroll
-      for (int i = 0; i < ITEMS; ++i) x[i] = s[i * THREADS + threadIdx.x];
+      for (int i = 0; i < ITEMS; ++i)
+        x[i] = __ldg(s + i * THREADS + threadIdx.x);
     }
   }
   __device__ __forceinline__ void put(void* dst, bool vec) const {
@@ -107,6 +123,82 @@ struct TileRegs {
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Lanes read from a key stream kin, and a value stream vin beside it where
+// kVals, through the read-only path (no grid writes its input).
+template <bool kVals>
+struct MemLanes {
+  const int32_t* kin;
+  const float* vin;
+  TileRegs nk, nv;
+  bool kvec, vvec;
+
+  __device__ MemLanes(const int32_t* k, const float* v)
+      : kin(k), vin(v), kvec(false), vvec(false) {}
+
+  __device__ __forceinline__ void run(int64_t l, int32_t (&k)[16]) const {
+    const int32_t* src = kin + l;
+    if (aligned16(src)) {
+      const int4* s4 = reinterpret_cast<const int4*>(src);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int4 v = __ldg(s4 + q);
+        k[4 * q] = v.x;
+        k[4 * q + 1] = v.y;
+        k[4 * q + 2] = v.z;
+        k[4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 16; ++q) k[q] = __ldg(src + q);
+    }
+  }
+
+  // Start the loads of the tile at lane `first` (every later tile of the
+  // block lies a multiple of TILE on, so it shares the alignment).
+  __device__ __forceinline__ void begin(int64_t first) {
+    kvec = aligned16(kin + first);
+    vvec = kVals && aligned16(vin + first);
+    nk.fetch(kin + first, kvec);
+    if (kVals) nv.fetch(vin + first, vvec);
+  }
+
+  // The tile whose loads are in flight, through shared memory into warp
+  // order; the loads of the tile at `next` (-1: none) fly meanwhile.
+  __device__ __forceinline__ void tile(int64_t, int64_t next, int32_t* sk,
+                                       float* sv, int32_t (&k)[ITEMS],
+                                       float (&v)[ITEMS]) {
+    nk.put(sk, kvec);
+    if (kVals) nv.put(sv, vvec);
+    __syncthreads();
+    if (next >= 0) {
+      nk.fetch(kin + next, kvec);
+      if (kVals) nv.fetch(vin + next, vvec);
+    }
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const int x = warp * WARP_KEYS + i * 32 + lane;
+      k[i] = sk[x];
+      if (kVals) v[i] = sv[x];
+    }
+  }
+
+  // Lane l, inside the stream.
+  __device__ __forceinline__ void lane(int64_t l, int32_t& k,
+                                       float& v) const {
+    k = __ldg(kin + l);
+    if (kVals) v = __ldg(vin + l);
+  }
+};
+
+// The lanes block j of a row owns: tpb tiles, or the row's rest.
+__device__ __forceinline__ int64_t block_lanes(int64_t row, int j, int tpb) {
+  const int64_t span = (int64_t)tpb * TILE;
+  const int64_t rest = row - (int64_t)j * span;
+  return rest < span ? rest : span;
 }
 
 // Exclusive prefix sum of one int a thread over the block; `wt` is WARPS ints
@@ -207,35 +299,23 @@ __device__ __forceinline__ void count_keys(int* h, const int32_t (&k)[N],
 // r * bpr + j owns tiles j * tpb .. of row r). Each thread counts 16
 // consecutive keys at a time and adds each run of one digit once, so the
 // runs of equal high digits in a packed stream cost one shared atomic a run.
-__global__ void __launch_bounds__(THREADS)
-upsweep_kernel(const int32_t* __restrict__ kin, int32_t* __restrict__ counts,
-               int64_t row, int bpr, int tpb, int shift) {
+template <class Src>
+__device__ __forceinline__ void upsweep(const Src& src,
+                                        int32_t* __restrict__ counts,
+                                        int64_t row, int bpr, int tpb,
+                                        int shift) {
   constexpr int RUN = 16;
   __shared__ int wh[WARPS * BINS];
   for (int x = threadIdx.x; x < WARPS * BINS; x += THREADS) wh[x] = 0;
   __syncthreads();
   const int64_t r = blockIdx.x / bpr;
   const int j = blockIdx.x - (int)(r * bpr);
-  const int64_t lanes = (int64_t)tpb * TILE;
-  const int32_t* src = kin + r * row + j * lanes;
+  const int64_t lanes = block_lanes(row, j, tpb);
+  const int64_t first = r * row + (int64_t)j * tpb * TILE;
   int* h = wh + (threadIdx.x >> 5) * BINS;
-  const bool vec = aligned16(src);
   int32_t k[RUN];
   for (int64_t x = (int64_t)threadIdx.x * RUN; x < lanes; x += THREADS * RUN) {
-    if (vec) {
-      const int4* s4 = reinterpret_cast<const int4*>(src + x);
-#pragma unroll
-      for (int q = 0; q < RUN / 4; ++q) {
-        const int4 v = s4[q];
-        k[4 * q] = v.x;
-        k[4 * q + 1] = v.y;
-        k[4 * q + 2] = v.z;
-        k[4 * q + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < RUN; ++q) k[q] = src[x + q];
-    }
+    src.run(first + x, k);
     count_keys(h, k, shift);
   }
   __syncthreads();
@@ -243,6 +323,12 @@ upsweep_kernel(const int32_t* __restrict__ kin, int32_t* __restrict__ counts,
   int s = 0;
   for (int w = 0; w < WARPS; ++w) s += wh[w * BINS + b];
   counts[(int64_t)blockIdx.x * BINS + b] = s;
+}
+
+__global__ void __launch_bounds__(THREADS)
+upsweep_kernel(const int32_t* __restrict__ kin, int32_t* __restrict__ counts,
+               int64_t row, int bpr, int tpb, int shift) {
+  upsweep(MemLanes<false>(kin, nullptr), counts, row, bpr, tpb, shift);
 }
 
 // Counts are stored block-major, counts[(r * bpr + j) * BINS + bin], so the
@@ -296,12 +382,12 @@ scan_kernel(int32_t* __restrict__ counts, int bpr) {
 
 // One digit's stable scatter (grid: rows * bpr blocks, as the upsweep).
 // `offs` holds the scanned counts. kVals: values travel with their keys.
-template <bool kVals>
-__global__ void __launch_bounds__(THREADS)
-downsweep_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
-                 int32_t* __restrict__ kout, float* __restrict__ vout,
-                 const int32_t* __restrict__ offs, int64_t row, int bpr,
-                 int tpb, int shift) {
+template <bool kVals, class Src>
+__device__ __forceinline__ void downsweep(Src src, int32_t* __restrict__ kout,
+                                          float* __restrict__ vout,
+                                          const int32_t* __restrict__ offs,
+                                          int64_t row, int bpr, int tpb,
+                                          int shift) {
   __shared__ __align__(16) int32_t sk[TILE];
   __shared__ __align__(16) float sv[kVals ? TILE : 4];
   __shared__ int wh[WARPS * BINS];
@@ -309,38 +395,22 @@ downsweep_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
   __shared__ int count[BINS];
   __shared__ int wt[WARPS];
   __shared__ long long run[BINS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int b = threadIdx.x;
   const int64_t r = blockIdx.x / bpr;
   const int j = blockIdx.x - (int)(r * bpr);
   run[b] = r * row + offs[(int64_t)blockIdx.x * BINS + b];
   const int64_t first = r * row + (int64_t)j * tpb * TILE;
+  const int tiles = (int)(block_lanes(row, j, tpb) / TILE);
   int32_t k[ITEMS];
   float v[ITEMS];
   unsigned d[ITEMS];
   int pos[ITEMS];
-  const bool kvec = aligned16(kin + first);
-  const bool vvec = kVals && aligned16(vin + first);
-  TileRegs nk, nv;
-  nk.fetch(kin + first, kvec);
-  if (kVals) nv.fetch(vin + first, vvec);
-  for (int t = 0; t < tpb; ++t) {
-    nk.put(sk, kvec);
-    if (kVals) nv.put(sv, vvec);
-    __syncthreads();
-    if (t + 1 < tpb) {                 // the next tile's loads fly meanwhile
-      const int64_t next = first + (int64_t)(t + 1) * TILE;
-      nk.fetch(kin + next, kvec);
-      if (kVals) nv.fetch(vin + next, vvec);
-    }
+  src.begin(first);
+  for (int t = 0; t < tiles; ++t) {
+    const int64_t at = first + (int64_t)t * TILE;
+    src.tile(at, t + 1 < tiles ? at + TILE : -1, sk, sv, k, v);
 #pragma unroll
-    for (int i = 0; i < ITEMS; ++i) {
-      const int x = warp * WARP_KEYS + i * 32 + lane;
-      k[i] = sk[x];
-      if (kVals) v[i] = sv[x];
-      d[i] = digit(k[i], shift);
-    }
+    for (int i = 0; i < ITEMS; ++i) d[i] = digit(k[i], shift);
     rank_tile(d, pos, wh, start, count, wt);
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
@@ -350,14 +420,24 @@ downsweep_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
     __syncthreads();
     for (int x = threadIdx.x; x < TILE; x += THREADS) {
       const int32_t key = sk[x];
-      const unsigned d = digit(key, shift);
-      const int64_t g = run[d] + (x - start[d]);
+      const unsigned dd = digit(key, shift);
+      const int64_t g = run[dd] + (x - start[dd]);
       kout[g] = key;
       if (kVals) vout[g] = sv[x];
     }
     __syncthreads();
     run[b] += count[b];
   }
+}
+
+template <bool kVals>
+__global__ void __launch_bounds__(THREADS)
+downsweep_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
+                 int32_t* __restrict__ kout, float* __restrict__ vout,
+                 const int32_t* __restrict__ offs, int64_t row, int bpr,
+                 int tpb, int shift) {
+  downsweep<kVals>(MemLanes<kVals>(kin, vin), kout, vout, offs, row, bpr,
+                   tpb, shift);
 }
 
 // Every row of `row` <= TILE lanes sorted in shared memory (grid: one block
@@ -368,13 +448,16 @@ downsweep_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
 // key, a real INT32_MAX included (the sort is stable); otherwise they lie in
 // rows of their own after the real ones. Each lane carries its 16-bit tile
 // index through the passes, which gives its row, and a value comes from the
-// tile's unsorted copy by that index at the end. Dynamic shared memory:
-// rows_smem<kVals>() bytes.
-template <bool kVals>
-__global__ void __launch_bounds__(THREADS)
-rows_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
-            int32_t* __restrict__ kout, float* __restrict__ vout, int64_t n,
-            int log_row, int passes) {
+// tile's unsorted copy by that index at the end. kTotals (K8's one-grid
+// step; the stream is then one row of at most one tile): vout receives each
+// run's value total on its last lane, 0 elsewhere and on PAD lanes, summed
+// from the tail back as seg_total_kernel (csrc/bitonic_net.cuh) sums it.
+// Dynamic shared memory: rows_smem<kVals>() bytes.
+template <bool kVals, bool kTotals, class Src>
+__device__ __forceinline__ void rows_sort(const Src& src,
+                                          int32_t* __restrict__ kout,
+                                          float* __restrict__ vout, int64_t n,
+                                          int log_row, int passes) {
   extern __shared__ int4 smem4[];
   int32_t* ka = reinterpret_cast<int32_t*>(smem4);
   int32_t* kb = ka + TILE;
@@ -391,9 +474,12 @@ rows_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
   const int m = n - base < TILE ? (int)(n - base) : TILE;
   const bool carry = kVals || passes > PASSES;   // the tile index is needed
   for (int x = threadIdx.x; x < TILE; x += THREADS) {
-    ka[x] = x < m ? kin[base + x] : PAD;
+    int32_t key = PAD;
+    float val = 0.0f;
+    if (x < m) src.lane(base + x, key, val);
+    ka[x] = key;
     ia[x] = (uint16_t)x;
-    if (kVals) vt[x] = x < m ? vin[base + x] : 0.0f;
+    if (kVals) vt[x] = val;
   }
   __syncthreads();
   int32_t k[ITEMS];
@@ -425,9 +511,28 @@ rows_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
   const int32_t* kf = passes & 1 ? kb : ka;
   const uint16_t* idf = passes & 1 ? ib : ia;
   for (int x = threadIdx.x; x < m; x += THREADS) {
-    kout[base + x] = kf[x];
-    if (kVals) vout[base + x] = vt[idf[x]];
+    const int32_t key = kf[x];
+    kout[base + x] = key;
+    if (kTotals) {
+      float s = 0.0f;
+      if (key != PAD && (x + 1 == m || kf[x + 1] != key)) {
+        s = vt[idf[x]];
+        for (int y = x - 1; y >= 0 && kf[y] == key; --y) s += vt[idf[y]];
+      }
+      vout[base + x] = s;
+    } else if (kVals) {
+      vout[base + x] = vt[idf[x]];
+    }
   }
+}
+
+template <bool kVals>
+__global__ void __launch_bounds__(THREADS)
+rows_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
+            int32_t* __restrict__ kout, float* __restrict__ vout, int64_t n,
+            int log_row, int passes) {
+  rows_sort<kVals, false>(MemLanes<kVals>(kin, vin), kout, vout, n,
+                          log_row, passes);
 }
 
 template <bool kVals>
@@ -475,12 +580,14 @@ int rows_launch(const int32_t* kin, const float* vin, int32_t* kout,
                                     passes, st);
 }
 
-// A segmented pass covers n lanes exactly: rows of `row` lanes, each cut
-// into bpr blocks of tpb tiles, and the digit at a multiple of BITS.
+// A segmented pass covers n lanes exactly: rows of `row` lanes (a multiple
+// of TILE), each cut into bpr blocks of tpb tiles, the last one owning the
+// rest of the row, and the digit at a multiple of BITS.
 bool geometry_ok(int64_t n, int64_t row, int bpr, int tpb, int shift) {
-  return row > 0 && n % row == 0 && bpr > 0 && tpb > 0 &&
-         (int64_t)bpr * tpb * TILE == row && shift >= 0 && shift < 32 &&
-         shift % BITS == 0;
+  const int64_t span = (int64_t)tpb * TILE;
+  return row > 0 && row % TILE == 0 && n % row == 0 && bpr > 0 && tpb > 0 &&
+         (int64_t)bpr * span >= row && (int64_t)(bpr - 1) * span < row &&
+         shift >= 0 && shift < 32 && shift % BITS == 0;
 }
 
 int upsweep_launch(const int32_t* kin, int32_t* counts, int64_t n,

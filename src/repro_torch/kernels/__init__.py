@@ -14,8 +14,9 @@
   hash_accum    — open-addressing tables, probed in torch ('hash')
   ell_spmm      — ELLPACK-rows × dense SpMM by vector atomics (MoE
                   'spmm' dispatch and combine)
-  nm_spmm       — N:M-condensed SpMM, nmSPARSE's conflict-free shared
-                  tiles (SparseLinear's N:M route)
+  nm_spmm       — N:M-condensed SpMM, expanded to dense tiles in shared
+                  memory and multiplied on the FP64 tensor cores
+                  (SparseLinear's N:M route)
   ops           — stream packing and the packed-key accumulations
   _build        — nvcc build of ``csrc/*.cu`` into ctypes libraries
 

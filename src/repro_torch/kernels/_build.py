@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> (source stem, extra nvcc flags)
-VARIANTS = {"nm_spmm_broadcast": ("nm_spmm", ("-DNM_SPMM_BROADCAST",))}
+VARIANTS = {"nm_spmm_one_tf32": ("nm_spmm", ("-DNM_SPMM_ONE_TF32",))}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -111,6 +111,26 @@ def library(name: str) -> ctypes.CDLL:
             build_all()
         lib = _libs[name] = ctypes.CDLL(str(path))
     return lib
+
+
+_bound: dict = {}
+
+
+def bind(name: str, entries: dict) -> tuple[ctypes.CDLL, dict]:
+    """The library ``name`` and its C entries, ``entries`` mapping each
+    entry's name to its argument types; each returns an int (a CUDA error
+    code). Bound once, on first use."""
+    key = (name, tuple(entries))
+    if key not in _bound:
+        lib = library(name)
+        fns = {}
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+        _bound[key] = (lib, fns)
+    return _bound[key]
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

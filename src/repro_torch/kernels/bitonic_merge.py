@@ -116,21 +116,27 @@ def sort_tiles(key: torch.Tensor, val: torch.Tensor, *, tile: int):
     tot = torch.empty_like(val)
     radix_sort.sort_rows(sort_tiles, key, val, k_out, v_sorted, tile,
                          v_scratch=tot)
-    lib = _build.library(_LIB)
-    fn = lib.seg_totals_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(key.device):
-        err = fn(k_out.data_ptr(), v_sorted.data_ptr(), tot.data_ptr(),
-                 key.numel(), tile,
-                 torch.cuda.current_stream(key.device).cuda_stream)
-    _build.check(lib, _LIB, err)
-    sort_tiles.launches += 1
+    seg_totals(sort_tiles, k_out, v_sorted, tot, tile)
     return k_out, tot
 
 
 sort_tiles.launches = 0
+
+
+def seg_totals(wrapper, key: torch.Tensor, val: torch.Tensor,
+               tot: torch.Tensor, row: int) -> None:
+    """The run-tail totals of ``key``'s sorted rows of ``row`` lanes into
+    ``tot`` (one grid, ``seg_totals_f32``, added to ``wrapper.launches``):
+    the last grid of K5 and of K8's step. ``val`` is read only on lanes
+    whose key is not KEY_INVALID."""
+    lib, fns = _build.bind(_LIB, {"seg_totals_f32": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])})
+    fn = fns["seg_totals_f32"]
+    with torch.cuda.device(key.device):
+        err = fn(key.data_ptr(), val.data_ptr(), tot.data_ptr(), key.numel(),
+                 row, torch.cuda.current_stream(key.device).cuda_stream)
+    _build.check(lib, _LIB, err)
+    wrapper.launches += 1
 
 
 def merge_runs(key: torch.Tensor, val: torch.Tensor, *, run: int):
@@ -138,11 +144,10 @@ def merge_runs(key: torch.Tensor, val: torch.Tensor, *, run: int):
     lanes → sorted, coalesced runs of ``2·run``."""
     if not _rows("merge_runs", key, val, 2 * run):
         return merge_runs_plain(key, val, run=run)
-    lib = _build.library(_LIB)
-    fn = lib.merge_runs_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + \
-        [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, fns = _build.bind(_LIB, {"merge_runs_f32": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])})
+    fn = fns["merge_runs_f32"]
     k_out = torch.empty_like(key)
     v_sorted = torch.empty_like(val)          # scratch: the sorted values
     tot = torch.empty_like(val)

@@ -66,11 +66,9 @@ def ell_spmm(a_val: torch.Tensor, a_idx: torch.Tensor, x: torch.Tensor,
         raise ValueError("ell_spmm kernel takes contiguous planes and x")
     d = x.shape[1]
     out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
-    lib = _build.library(_LIB)
-    fn = lib.ell_spmm_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, fns = _build.bind(_LIB, {"ell_spmm_f32": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])})
+    fn = fns["ell_spmm_f32"]
     with torch.cuda.device(dev):
         err = fn(a_val.data_ptr(), a_idx.data_ptr(), x.data_ptr(),
                  out.data_ptr(), k, n, d, n_rows,

@@ -12,11 +12,21 @@ is KEY_INVALID with value 0. At group 1 this is the reference's
 ``_pack_tile`` + sort; above it, the lanes its ``streaming._sort_tile``
 sorts.
 
-The CUDA kernel is ``csrc/fused_sccp_stream.cu``: its first grid forms each
-4,096-pair shared-memory tile's products in place and sorts every stage below
-the tile there, so unsorted products never reach device memory; the larger
-strides and the totals are K5's grids (``csrc/bitonic_net.cuh``). It is
-bound by bytes: the operands in, 8 B a padded lane out.
+The CUDA kernel is ``csrc/fused_sccp_stream.cu``, a stable LSD radix sort
+(``csrc/radix_sort.cuh``, four 8-bit digits) whose first digit forms the
+lanes from the operands: above one 4,096-lane tile, the first digit's count
+and scatter grids compute each lane's key and product where a sort would
+read a stream, so unsorted products never reach device memory; digits 1–3
+are the radix library's grids (``radix_sort.sort_rows(first_digit=)``) and
+the totals ``bitonic_merge.seg_totals``, 13 grids a step. Only the real
+lanes, rounded up to a tile, are sorted; the pad lanes up to ``pot`` are
+KEY_INVALID and go straight to the tail. A step of at most one tile is one
+grid that forms, sorts and totals it in shared memory. It is bound by
+bytes: the operands in, 8 B a padded lane out. The sort is stable, so a
+run's values keep their lane order; the totals sum each run from its tail
+back, which agrees bit for bit with the plain twin's log-step scan on
+integer-valued operands and on runs of at most three lanes (on longer float
+runs the two orders round differently).
 
 ``fused_slab_sort`` launches the kernel for CUDA tensors (float32 values,
 int32 indices) and raises on anything else the kernel does not take; it runs
@@ -31,11 +41,16 @@ import ctypes
 
 import torch
 
-from . import _build
-from .bitonic_merge import _sort_rows_plain
+from . import _build, radix_sort
+from .bitonic_merge import _sort_rows_plain, seg_totals
 from .insitu_search import KEY_INVALID, next_pot
 
 _LIB = "fused_sccp_stream"
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SLAB = (_P, _P, _P, _P, _L, _L, _L, _L)     # the operands and their shape
+_ARGS = {"fused_slab_rows": (_P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _L, _P),
+         "fused_slab_upsweep": _SLAB + (_P, _L, _I, _I, _I, _P, _L, _P),
+         "fused_slab_downsweep": _SLAB + (_P, _P, _P, _L, _I, _I, _I, _P)}
 
 
 def _pack_tile(a_val, a_idx, b_val, b_idx, n_cols: int, pot_len: int):
@@ -98,24 +113,68 @@ def fused_slab_sort(a_val, a_idx, b_val, b_idx, *, n_cols: int):
                         f"{a_idx.dtype}/{b_idx.dtype}")
     if not all(t.is_contiguous() for t in (a_val, a_idx, b_val, b_idx)):
         raise ValueError("fused_slab_sort kernel takes contiguous operands")
-    pot = next_pot(group * n * k_b)
+    lanes = group * n * k_b
+    pot = next_pot(lanes)
+    if lanes > (1 << 31) - radix_sort.TILE:
+        raise ValueError(f"fused_slab_sort kernel counts lanes in 32 bits, "
+                         f"got {lanes}")
     key = torch.empty(pot, dtype=torch.int32, device=dev)
-    v_sorted = torch.empty(pot, dtype=torch.float32, device=dev)
     tot = torch.empty(pot, dtype=torch.float32, device=dev)
-    lib = _build.library(_LIB)
-    fn = lib.fused_slab_sort_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 5 \
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    grids = ctypes.c_int(0)
+    slab = (a_val.data_ptr(), a_idx.data_ptr(), b_val.data_ptr(),
+            b_idx.data_ptr(), group, n, k_b, n_cols)
     with torch.cuda.device(dev):
-        err = fn(a_val.data_ptr(), a_idx.data_ptr(), b_val.data_ptr(),
-                 b_idx.data_ptr(), key.data_ptr(), v_sorted.data_ptr(),
-                 tot.data_ptr(), group, n, k_b, n_cols, pot,
-                 ctypes.byref(grids), torch.cuda.current_stream(dev).cuda_stream)
-    fused_slab_sort.launches += grids.value
-    _build.check(lib, _LIB, err)
+        if pot <= radix_sort.TILE:
+            lib, fns = _entries()
+            err = fns["fused_slab_rows"](
+                *slab[:4], key.data_ptr(), tot.data_ptr(), *slab[4:], pot,
+                torch.cuda.current_stream(dev).cuda_stream)
+            _build.check(lib, _LIB, err)
+            fused_slab_sort.launches += 1
+            return key, tot
+        m = sorted_lanes(lanes)
+        v_sorted = torch.empty(m, dtype=torch.float32, device=dev)
+        radix_sort.sort_rows(fused_slab_sort, None, None, key[:m], v_sorted,
+                             m, v_scratch=tot[:m],
+                             first_digit=FirstDigit(slab, key, m))
+        seg_totals(fused_slab_sort, key, v_sorted, tot, pot)
     return key, tot
+
+
+def sorted_lanes(lanes: int) -> int:
+    """The lanes K8 sorts above one tile: the real ones rounded up to a
+    tile (the rest up to pot are KEY_INVALID, written straight to the
+    tail)."""
+    return -(-lanes // radix_sort.TILE) * radix_sort.TILE
+
+
+def _entries() -> tuple[ctypes.CDLL, dict]:
+    return _build.bind(_LIB, _ARGS)
+
+
+class FirstDigit:
+    """The first digit pass of K8's sort (``radix_sort.sort_rows``'s
+    ``first_digit``): its count and scatter grids form the lanes from the
+    operands ``slab`` (the four pointers, group, n, k_b, n_cols); the count
+    grid also writes KEY_INVALID to ``key``'s lanes from ``m`` (the sorted
+    ones) to its end."""
+
+    def __init__(self, slab, key: torch.Tensor, m: int):
+        self.lib, self.fns = _entries()
+        self.slab = slab
+        self.tail = key[m:]
+
+    def upsweep(self, counts, g, shift, stream) -> None:
+        err = self.fns["fused_slab_upsweep"](
+            *self.slab, counts.data_ptr(), g.row, g.blocks_per_row,
+            g.tiles_per_block, shift, self.tail.data_ptr(),
+            self.tail.numel(), stream)
+        _build.check(self.lib, _LIB, err)
+
+    def downsweep(self, counts, kd, vd, g, shift, stream) -> None:
+        err = self.fns["fused_slab_downsweep"](
+            *self.slab, kd.data_ptr(), vd.data_ptr(), counts.data_ptr(),
+            g.row, g.blocks_per_row, g.tiles_per_block, shift, stream)
+        _build.check(self.lib, _LIB, err)
 
 
 fused_slab_sort.launches = 0

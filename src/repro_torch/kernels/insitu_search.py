@@ -68,13 +68,10 @@ _P, _L = ctypes.c_void_p, ctypes.c_longlong
 
 
 def _fn(name: str, *argtypes):
-    """The C entry ``name`` with its argument types bound (pointers and the
-    stream as ``c_void_p``)."""
-    lib = _build.library(_LIB)
-    fn = getattr(lib, name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return lib, fn
+    """The library and its C entry ``name``, bound once by ``_build.bind``
+    (pointers and the stream as ``c_void_p``)."""
+    lib, fns = _build.bind(_LIB, {name: argtypes})
+    return lib, fns[name]
 
 
 # ---------------------------------------------------------------------------

@@ -5,13 +5,17 @@ planes of an N:M weight (``core.nm.NmWeights``: V (R, d_out) float32, O
 (R, d_out) int8, R = d_in·N/M).
 
 Replaces ``src/repro/kernels/nm_spmm.py:_nm_spmm_kernel``, which runs M
-masked one-hot matmuls a tile because the TPU's matrix unit cannot gather.
-The CUDA kernel is ``csrc/nm_spmm.cu``: nmSPARSE's conflict-free form, a
-(128 tokens × 128 columns) tile a block, the chunk's X columns and V/O rows
-staged in shared memory, a 16 × 4 register tile a thread, fp32 FMA on the
-CUDA cores. It does only the condensed products and is bound by them
-(2·t·R·d_out operations). It masks the ragged token, column and window
-edges itself, so the front pads nothing.
+masked one-hot matmuls a tile on the TPU's matrix unit. The CUDA kernel is
+``csrc/nm_spmm.cu``, on the card's matrix unit, the tensor cores: a
+(128 tokens × 128 columns) tile a block walks the reduction in K-chunks of
+whole windows (``k_chunk``), stages the dense X tile and expands the
+chunk's V/O rows into a dense weight tile in shared memory (rows of one
+window that share an offset add, offsets outside [0, M) add nothing), and
+multiplies them on the FP64 tensor cores (``mma.sync`` m16n8k8 .f64): the
+fp32 operands widen exactly, products are exact and the sums run in
+double, so each result is rounded once, to fp32. It is bound by the
+dense-expanded operations (2·t·d_in·d_out). It masks the ragged token,
+column and window edges itself, so the front pads nothing.
 
 ``nm_spmm`` checks the shapes and launches the kernel for CUDA tensors; it
 runs ``nm_spmm_plain`` (the reference's ``nm_spmm_xla``: M masked products,
@@ -27,6 +31,19 @@ import torch
 from . import _build
 
 _LIB = "nm_spmm"
+X_COLS = 32        # input columns a K-chunk, at most, but whole windows
+MMA_K = 8          # the depth of one mma.sync m16n8k8
+
+
+def k_chunk(m: int) -> tuple[int, int]:
+    """``(windows, columns)`` of one K-chunk of the kernel at window width
+    ``m``: as many whole windows as fit ``X_COLS`` columns (at least one),
+    their ``windows·m`` columns padded with zeros to a multiple of
+    ``MMA_K``."""
+    if m < 1:
+        raise ValueError(f"nm_spmm: window width {m} must be positive")
+    windows = max(1, X_COLS // m)
+    return windows, -(-windows * m // MMA_K) * MMA_K
 
 
 def nm_spmm_plain(x: torch.Tensor, val: torch.Tensor, off: torch.Tensor, *,
@@ -88,14 +105,13 @@ def launch(lib_name: str, x: torch.Tensor, val: torch.Tensor,
     d_out = val.shape[1]
     dev = x.device
     y = torch.empty((t, d_out), dtype=torch.float32, device=dev)
-    lib = _build.library(lib_name)
-    fn = lib.nm_spmm_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, fns = _build.bind(lib_name, {"nm_spmm_f32": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p])})
+    fn = fns["nm_spmm_f32"]
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), val.data_ptr(), off.data_ptr(), y.data_ptr(),
-                 t, d_in, d_out, n, m,
+                 t, d_in, d_out, n, m, *k_chunk(m),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, _LIB, err)
     return y

@@ -62,12 +62,11 @@ def bin_ranks(bid: torch.Tensor, *, n_buckets: int) -> torch.Tensor:
     rank = torch.empty_like(bid)
     counts = torch.empty(n_buckets * -(-n // _CHUNK), dtype=torch.int32,
                          device=bid.device)
-    lib = _build.library(_LIB)
-    fn = lib.bin_ranks
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.POINTER(ctypes.c_int),
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, fns = _build.bind(_LIB, {"bin_ranks": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_int),
+                                 ctypes.c_void_p])})
+    fn = fns["bin_ranks"]
     grids = ctypes.c_int(0)
     with torch.cuda.device(bid.device):
         err = fn(bid.data_ptr(), rank.data_ptr(), counts.data_ptr(), n,

@@ -1,7 +1,9 @@
 """Launch geometry and pass order of the LSD radix sort in
 ``csrc/radix_sort.cuh`` (built as the library ``radix_sort``), shared by K2
-(``insitu_search.emit_sort_keys``, keys alone) and K5
-(``bitonic_merge.sort_tiles``, (key, value) pairs).
+(``insitu_search.emit_sort_keys``, keys alone), K5
+(``bitonic_merge.sort_tiles``, (key, value) pairs) and K8
+(``fused_sccp_stream.fused_slab_sort``, whose first digit forms its lanes
+from its operands: ``sort_rows(first_digit=)``).
 
 A sort of every power-of-two row of ``row`` lanes is four passes of one
 8-bit digit each (``SHIFTS``), low digit first; each pass is stable, so the
@@ -40,8 +42,8 @@ _LIB = "radix_sort"
 class Geometry:
     """How a segmented pass cuts ``n`` lanes in rows of ``row`` (> TILE):
     every row into ``blocks_per_row`` blocks of ``tiles_per_block``
-    consecutive tiles; ``counts`` int32 entries hold one count (then one
-    offset) per (row, bin, block)."""
+    consecutive tiles, the last block owning the rest of the row; ``counts``
+    int32 entries hold one count (then one offset) per (row, bin, block)."""
     n: int
     row: int
     tiles_per_block: int
@@ -68,6 +70,21 @@ def geometry(n: int, row: int) -> Geometry:
     tpb = min(tiles_per_row, 1 << (want - 1).bit_length())
     return Geometry(n=n, row=row, tiles_per_block=tpb,
                     blocks_per_row=tiles_per_row // tpb)
+
+
+def span_geometry(n: int) -> Geometry:
+    """The segmented geometry of one row of ``n`` lanes, a multiple of TILE
+    above it that need not be a power of two (K8's real lanes rounded up to
+    a tile): about TARGET_BLOCKS / 2 blocks of the same number of tiles, the
+    last one owning what is left. Half the target: the row's scan is one
+    block that walks every block's counts, and K8's rows are short."""
+    if n <= TILE or n % TILE:
+        raise ValueError(f"radix span: {n} lanes must be a multiple of "
+                         f"{TILE} above it")
+    tiles = n // TILE
+    tpb = -(-tiles // (TARGET_BLOCKS // 2))
+    return Geometry(n=n, row=n, tiles_per_block=tpb,
+                    blocks_per_row=-(-tiles // tpb))
 
 
 def tile_passes(n: int, row: int) -> int:
@@ -109,30 +126,31 @@ _ARGS = {"radix_rows": (_P, _P, _P, _P, _L, _L, _I, _P),
 
 
 def _entries() -> tuple[ctypes.CDLL, dict]:
-    lib = _build.library(_LIB)
-    fns = {}
-    for name, argtypes in _ARGS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return lib, fns
+    return _build.bind(_LIB, _ARGS)
 
 
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def sort_rows(wrapper, kin: torch.Tensor, vin, kout, vout, row: int, *,
-              v_scratch=None) -> None:
+def sort_rows(wrapper, kin, vin, kout: torch.Tensor, vout, row: int, *,
+              v_scratch=None, first_digit=None) -> None:
     """Sort every ``row``-lane row of ``kin`` (with ``vin`` beside it, or
     keys alone when ``vin`` is None) into ``kout`` (``vout``) on the current
-    stream, adding each grid to ``wrapper.launches``. A row above one tile needs a key scratch
-    stream and the counts, allocated here, and a value scratch stream, the
-    caller's ``v_scratch`` where given (any buffer it writes only later)."""
-    n = kin.numel()
+    stream, adding each grid to ``wrapper.launches``. A row above one tile
+    needs a key scratch stream and the counts, allocated here, and a value
+    scratch stream, the caller's ``v_scratch`` where given (any buffer it
+    writes only later).
+
+    ``first_digit`` forms the lanes of the first digit pass in place of
+    reading ``kin``/``vin`` (both None then): its ``upsweep(counts, g,
+    shift, stream)`` and ``downsweep(counts, kd, vd, g, shift, stream)``
+    each launch that pass's grid over geometry ``g`` and raise on an error.
+    The sort is then one row of ``kout``'s length, a multiple of TILE above
+    it (``span_geometry``)."""
+    n = kout.numel()
     lib, fns = _entries()
-    dev = kin.device
+    dev = kout.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -140,21 +158,30 @@ def sort_rows(wrapper, kin: torch.Tensor, vin, kout, vout, row: int, *,
             _build.check(lib, _LIB, fns[name](*args, stream))
             wrapper.launches += 1
 
-        if row <= TILE:
+        if first_digit is None and row <= TILE:
             launch("radix_rows", kin.data_ptr(), _ptr(vin), kout.data_ptr(),
                    _ptr(vout), n, row, tile_passes(n, row))
             return
-        g = geometry(n, row)
+        g = geometry(n, row) if first_digit is None else span_geometry(n)
         bufs = {"in": (kin, vin), "out": (kout, vout),
-                "scratch": (torch.empty_like(kin),
-                            v_scratch if v_scratch is not None or vin is None
-                            else torch.empty_like(vin))}
+                "scratch": (torch.empty_like(kout),
+                            v_scratch if v_scratch is not None or vout is None
+                            else torch.empty_like(vout))}
         counts = torch.empty(g.counts, dtype=torch.int32, device=dev)
-        for shift, (src, dst) in zip(SHIFTS, pass_buffers()):
+        for p, (shift, (src, dst)) in enumerate(zip(SHIFTS, pass_buffers())):
             (ks, vs), (kd, vd) = bufs[src], bufs[dst]
-            launch("radix_upsweep", ks.data_ptr(), counts.data_ptr(), n, row,
-                   g.blocks_per_row, g.tiles_per_block, shift)
+            formed = p == 0 and first_digit is not None
+            if formed:
+                first_digit.upsweep(counts, g, shift, stream)
+                wrapper.launches += 1
+            else:
+                launch("radix_upsweep", ks.data_ptr(), counts.data_ptr(), n,
+                       g.row, g.blocks_per_row, g.tiles_per_block, shift)
             launch("radix_scan", counts.data_ptr(), g.rows, g.blocks_per_row)
-            launch("radix_downsweep", ks.data_ptr(), _ptr(vs), kd.data_ptr(),
-                   _ptr(vd), counts.data_ptr(), n, row, g.blocks_per_row,
-                   g.tiles_per_block, shift)
+            if formed:
+                first_digit.downsweep(counts, kd, vd, g, shift, stream)
+                wrapper.launches += 1
+            else:
+                launch("radix_downsweep", ks.data_ptr(), _ptr(vs),
+                       kd.data_ptr(), _ptr(vd), counts.data_ptr(), n, g.row,
+                       g.blocks_per_row, g.tiles_per_block, shift)

@@ -66,11 +66,9 @@ def sccp_multiply(a_val: torch.Tensor, a_idx: torch.Tensor,
     val = torch.empty((k_a, n, k_b), dtype=torch.float32, device=dev)
     row = torch.empty((k_a, n, k_b), dtype=torch.int32, device=dev)
     col = torch.empty((k_a, n, k_b), dtype=torch.int32, device=dev)
-    lib = _build.library(_LIB)
-    fn = lib.sccp_multiply_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, fns = _build.bind(_LIB, {"sccp_multiply_f32": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])})
+    fn = fns["sccp_multiply_f32"]
     with torch.cuda.device(dev):
         err = fn(a_val.data_ptr(), a_idx.data_ptr(), b_val.data_ptr(),
                  b_idx.data_ptr(), val.data_ptr(), row.data_ptr(),

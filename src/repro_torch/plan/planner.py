@@ -38,6 +38,10 @@ BACKENDS = ("sort", "tiled", "bucket", "hash", "stream", "search")
 STREAM_TILE_TARGET = 32768
 STREAM_INTERM_MARGIN = 4.0
 
+# The intermediate bytes above which the reference's backend selection
+# overrides its choice with 'stream'; with a pinned backend it is unread.
+DEFAULT_MEM_BUDGET = 1 << 30
+
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
@@ -72,14 +76,16 @@ def _stream_interm_bytes(tile_lanes: int, stream_cap: int) -> float:
 
 def make_plan(a: EllRows, b: EllCols, *, out_cap: Optional[int] = None,
               backend: Optional[str] = None, exact: bool = True,
-              tile: int = 4096, slack: float = 1.0) -> Plan:
+              tile: int = 4096, slack: float = 1.0,
+              mem_budget: int = DEFAULT_MEM_BUDGET) -> Plan:
     """Symbolic phase and blocking sizes for a pinned ``backend``.
 
     ``out_cap`` pins the output capacity; otherwise it is the exact unique
     count times ``slack``, rounded up to a multiple of ``symbolic.LANE``.
     ``exact=False`` (or a pinned ``out_cap`` with a backend other than
     ``'hash'``) replaces the unique counts by the clipped row-flop bound,
-    which keeps every size safe.
+    which keeps every size safe. ``mem_budget`` feeds only the backend
+    selection, so with a pinned backend it is ignored, as in the reference.
     """
     if backend is None:
         raise NotImplementedError(

@@ -302,6 +302,10 @@ def _slab(seed, group, n, k_b, n_cols, dead=0.3):
     (1, 1000, 3, 0.3),           # 3,000 lanes padded to 4,096
     (3, 700, 9, 0.2),            # a group block, 18,900 lanes → 2^15
     (1, 500, 8, 1.0),            # an all-invalid slab
+    (1, 16385, 4, 0.3),          # 65,540 lanes → 2^17: pad and dead lanes
+                                 # are more than half of pot
+    (3, 2000, 24, 0.2),          # a group of 3, 144,000 lanes → 2^18
+    (1, 26368, 80, 0.3),         # 515 tiles: blocks of 2, the last of 1
 ])
 def test_fused_slab_sort_kernel(cuda, group, n, k_b, dead):
     ops_in = [t.to(cuda) for t in _slab(n + group, group, n, k_b, 97, dead)]
@@ -326,6 +330,64 @@ def test_fused_slab_sort_kernel_extreme_key(cuda):
               torch.tensor([[big - 1], [big - 1]], dtype=torch.int32)]
     key, tot = tfs.fused_slab_sort(*[t.to(cuda) for t in ops_in], n_cols=big)
     assert key.tolist() == [big - 1, 2 ** 31 - 3] and tot.tolist() == [8, 3]
+
+
+@pytest.mark.parametrize("group,n,k_b", [(1, 4096, 16), (2, 1000, 9),
+                                         (1, 60, 64)])
+def test_fused_slab_sort_kernel_float_values(cuda, group, n, k_b):
+    """Normal float operands, long runs: the keys are bit-identical to the
+    plain twin's; the sort is stable, so each total is bit for bit the sum
+    of its run's products in lane order from the tail back (how the totals
+    grid walks a run). The plain twin sums a run by a log-step scan, so on
+    runs of four lanes or more the two round differently: they agree within
+    2·len·2^-24 of the run's sum of magnitudes."""
+    ops_in = _slab(group + n + k_b, group, n, k_b, 13, 0.2)
+    rng = np.random.default_rng(k_b)
+    for i in (0, 2):
+        ops_in[i] = torch.from_numpy(
+            rng.standard_normal(tuple(ops_in[i].shape)).astype(np.float32))
+    if group == 1:
+        ops_in[:2] = [t[0].contiguous() for t in ops_in[:2]]
+    dev_in = [t.to(cuda) for t in ops_in]
+    key, tot = tfs.fused_slab_sort(*dev_in, n_cols=13)
+    want_key, want_tot = tfs.fused_slab_sort_plain(*ops_in, n_cols=13)
+    assert torch.equal(key.cpu(), want_key)
+    pot = key.numel()
+    pk, pv = tfs._pack_tile(*ops_in, 13, pot)
+    order = torch.sort(pk, stable=True).indices.numpy()
+    k, v = pk.numpy()[order], pv.numpy()[order]
+    seq = np.zeros(pot, np.float32)
+    mag = np.zeros(pot, np.float64)
+    length = np.zeros(pot, np.int64)
+    for i in range(pot):
+        if k[i] == KI or (i + 1 < pot and k[i + 1] == k[i]):
+            continue
+        s, j = v[i], i - 1
+        while j >= 0 and k[j] == k[i]:
+            s = np.float32(s + v[j])
+            j -= 1
+        seq[i], length[i] = s, i - j
+        mag[i] = np.abs(v[j + 1:i + 1].astype(np.float64)).sum()
+    assert length.max() >= 8                     # long runs were formed
+    np.testing.assert_array_equal(tot.cpu().numpy(), seq)
+    gap = np.abs(tot.cpu().numpy().astype(np.float64)
+                 - want_tot.numpy().astype(np.float64))
+    assert (gap <= 2 * length * 2.0 ** -24 * mag).all()
+
+
+def test_fused_slab_sort_grids(cuda):
+    """Above one tile a step is the radix sort's 12 grids (three a digit,
+    the first digit's two forming the lanes) and the totals; a step of at
+    most one tile is one grid."""
+    for group, n, k_b, grids in ((1, 4096, 16, 13), (2, 1000, 9, 13),
+                                 (1, 1024, 4, 1), (1, 5, 3, 1)):
+        ops_in = [t.to(cuda) for t in _slab(n, group, n, k_b, 97)]
+        if group == 1:
+            ops_in[:2] = [t[0].contiguous() for t in ops_in[:2]]
+        before = tfs.fused_slab_sort.launches
+        tfs.fused_slab_sort(*ops_in, n_cols=97)
+        torch.cuda.synchronize()
+        assert tfs.fused_slab_sort.launches - before == grids
 
 
 @pytest.mark.parametrize("length", [128, 1 << 14])
@@ -466,7 +528,7 @@ def test_ell_spmm_kernel_float_and_checks(cuda):
 @pytest.mark.parametrize("t,d_in,d_out,nm", [
     (1, 4, 1, (1, 4)), (130, 64, 131, (2, 4)), (257, 96, 300, (1, 4)),
     (129, 128, 129, (2, 8)), (200, 256, 257, (4, 8)), (64, 1032, 96, (2, 4)),
-    (128, 66, 128, (3, 6))])
+    (128, 66, 128, (3, 6)), (200, 222, 200, (3, 6))])
 def test_nm_spmm_kernel(cuda, t, d_in, d_out, nm):
     """Every NM_CANDIDATES window (and a 3:6 one), ragged t, d_out and
     window chunks, integer-valued operands: bit-identical to the plain twin
@@ -507,18 +569,64 @@ def test_nm_spmm_kernel_checks(cuda):
 
 
 
-def test_nm_spmm_broadcast_probe(cuda):
-    """The probe build (every lane reads its window's first column) counts
-    no launch, and equals K10 where every offset is 0."""
+@pytest.mark.parametrize("t,d_in,d_out,nm", [
+    (512, 2048, 640, (2, 4)), (300, 1032, 257, (4, 8)),
+    (256, 600, 128, (3, 6))])
+def test_nm_spmm_kernel_normal_operands(cuda, t, d_in, d_out, nm):
+    """Normal operands: against the float64 product, the kernel's
+    max abs error is at most 4x that of the plain fp32 twin (TF32 off)."""
+    n, m = nm
+    rng = np.random.default_rng(t + d_in)
+    w = rng.standard_normal((d_in, d_out)).astype(np.float32)
+    x = rng.standard_normal((t, d_in)).astype(np.float32)
+    wp = rt.models.magnitude_prune_nm(torch.from_numpy(w), n, m)
+    w_nm = rt.nm_from_dense(wp.to(cuda), n, m)
+    xd = torch.from_numpy(x).to(cuda)
+    want = torch.from_numpy(x).double() @ wp.double()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        plain = tnm.nm_spmm_plain(xd, w_nm.val, w_nm.off, n=n, m=m)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    got = tnm.nm_spmm(xd, w_nm.val, w_nm.off, n=n, m=m)
+    err = float((got.cpu().double() - want).abs().max())
+    err_plain = float((plain.cpu().double() - want).abs().max())
+    assert 0 < err <= 4 * err_plain
+
+
+def test_nm_spmm_kernel_duplicate_offsets(cuda):
+    """Condensed rows of one window that share an offset add, as the masked
+    products add them (integer values: exact in any order); offsets out of
+    range add nothing."""
+    rng = np.random.default_rng(7)
+    n, m, d_in, d_out, t = 2, 4, 136, 150, 70
+    r = d_in * n // m
+    x = torch.from_numpy(_ints(rng, (t, d_in))).to(cuda)
+    val = torch.from_numpy(_ints(rng, (r, d_out))).to(cuda)
+    off = rng.integers(0, m, (r, d_out)).astype(np.int8)
+    off[1::2] = off[0::2]                       # every window doubles up
+    off[0, :5] = [-1, 4, 7, -128, 127]
+    off = torch.from_numpy(off).to(cuda)
+    got = tnm.nm_spmm(x, val, off, n=n, m=m)
+    assert torch.equal(got, tnm.nm_spmm_plain(x, val, off, n=n, m=m))
+
+
+def test_nm_spmm_one_tf32_probe(cuda):
+    """The probe build (one TF32 product in place of the FP64 one) counts
+    no launch, and equals K10 on integer operands, which TF32 holds
+    exactly."""
     rng = np.random.default_rng(6)
     x = torch.from_numpy(_ints(rng, (130, 64))).to(cuda)
     val = torch.from_numpy(_ints(rng, (32, 131))).to(cuda)
-    off = torch.zeros((32, 131), dtype=torch.int8, device=cuda)
+    off = torch.from_numpy(rng.integers(0, 4, (32, 131))
+                           .astype(np.int8)).to(cuda)
     before = tnm.nm_spmm.launches
-    got = tnm.launch("nm_spmm_broadcast", x, val, off, n=2, m=4)
+    got = tnm.launch("nm_spmm_one_tf32", x, val, off, n=2, m=4)
     torch.cuda.synchronize()
     assert tnm.nm_spmm.launches == before
     assert torch.equal(got, tnm.nm_spmm(x, val, off, n=2, m=4))
+
 
 def test_sparse_layers_on_card(cuda):
     """SparseMLP's N:M route launches K10 once a layer and equals the dense

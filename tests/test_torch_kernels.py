@@ -288,6 +288,31 @@ def test_radix_geometry_rejects(n, row):
         trs.geometry(n, row)
 
 
+@pytest.mark.parametrize("n,tpb,bpr,last", [
+    (792 * 4096, 2, 396, 2),          # K8: one bcsstk32 slab x B, 3,240,000
+    (1583 * 4096, 4, 396, 3),         # a group of 2 slabs, 6,480,000 lanes
+    (2 * 4096, 1, 2, 1),
+    (3001 * 4096, 6, 501, 1),
+    (1 << 22, 2, 512, 2),
+])
+def test_radix_span_geometry(n, tpb, bpr, last):
+    """One row of n lanes, a multiple of the tile: blocks of tpb tiles, the
+    last owning the rest, and about TARGET_BLOCKS / 2 of them."""
+    g = trs.span_geometry(n)
+    assert (g.n, g.row, g.rows) == (n, n, 1)
+    assert (g.tiles_per_block, g.blocks_per_row) == (tpb, bpr)
+    tiles = n // trs.TILE
+    assert tiles - (bpr - 1) * tpb == last
+    assert 0 < last <= tpb and bpr <= trs.TARGET_BLOCKS // 2
+    assert g.counts == trs.BINS * bpr
+
+
+@pytest.mark.parametrize("n", [4096, 4096 * 3 + 1, 100, 0])
+def test_radix_span_geometry_rejects(n):
+    with pytest.raises(ValueError, match="radix span"):
+        trs.span_geometry(n)
+
+
 def _digit(key: torch.Tensor, shift: int) -> torch.Tensor:
     """The kernels' digit: bit 31 flipped, so signed keys order as int32."""
     return ((key.long() + 2 ** 31) >> shift) & (trs.BINS - 1)

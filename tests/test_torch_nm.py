@@ -337,16 +337,31 @@ def test_matmul_sparse_sort_matches_reference_and_hits_cache():
 
 def test_build_variant_is_its_own_library():
     """A variant of a source builds with its defines under its own name, and
-    its library name hashes them, so it never shadows the kernel's."""
+    its library name hashes them, so it never shadows the kernel's: K10's
+    one-TF32-product probe."""
     from repro_torch.kernels import _build
-    src, flags = _build._spec("nm_spmm_broadcast")
+    src, flags = _build._spec("nm_spmm_one_tf32")
     assert src == _build.SRC_DIR / "nm_spmm.cu"
-    assert flags == _build.NVCC_FLAGS + ("-DNM_SPMM_BROADCAST",)
-    assert "NM_SPMM_BROADCAST" in src.read_text()
+    assert flags == _build.NVCC_FLAGS + ("-DNM_SPMM_ONE_TF32",)
+    assert "NM_SPMM_ONE_TF32" in src.read_text()
     assert _build._spec("nm_spmm") == (src, _build.NVCC_FLAGS)
     names = {_build._target(n).name.rsplit("-", 1)[0]
-             for n in ("nm_spmm", "nm_spmm_broadcast")}
-    assert names == {"nm_spmm", "nm_spmm_broadcast"}
+             for n in ("nm_spmm", "nm_spmm_one_tf32")}
+    assert names == {"nm_spmm", "nm_spmm_one_tf32"}
+
+
+@pytest.mark.parametrize("m,windows,cols", [
+    (4, 8, 32), (8, 4, 32), (2, 16, 32), (1, 32, 32), (6, 5, 32),
+    (3, 10, 32), (11, 2, 24), (64, 1, 64), (100, 1, 104), (128, 1, 128)])
+def test_nm_k_chunk(m, windows, cols):
+    """K10's K-chunk: whole windows up to 32 input columns (at least one),
+    padded to the MMA depth of 8."""
+    from repro_torch.kernels import nm_spmm as tnm
+    assert tnm.k_chunk(m) == (windows, cols)
+    assert cols % tnm.MMA_K == 0 and 0 <= cols - windows * m < tnm.MMA_K
+    with pytest.raises(ValueError):
+        tnm.k_chunk(0)
+
 
 def test_sparse_linear_default_device_is_cuda():
     if torch.cuda.is_available():

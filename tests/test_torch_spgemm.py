@@ -8,6 +8,7 @@ in any order) the sorted COO is bit-identical for ``'sort'`` and
 and the ≥ 2³¹−1 reroute; on float operands only the summation order
 differs (``rtol=atol=1e-5``).
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -272,6 +273,40 @@ def test_unported_routes_raise(kwargs):
             rt.StructureCache(**kwargs)
         else:
             getattr(rt, call)(ta, tb, **kwargs)
+
+
+@pytest.mark.parametrize("accumulator", ["sort", "search"])
+def test_sharded_keywords_are_ignored_without_a_mesh(accumulator):
+    """``schedule``/``dist_plan``/``overlap`` steer only the sharded paths:
+    without a mesh the port ignores them, whatever their values, and gives
+    the call without them, as the reference does."""
+    from repro.core.api import spgemm as ref_spgemm
+    a, b, k = ZOO["skewed"]
+    (ea, eb), (ta, tb) = _pair(a, b, k)
+    plain = rt.spgemm(ta, tb, accumulator=accumulator)
+    same = rt.spgemm(ta, tb, accumulator=accumulator, schedule="auto",
+                     dist_plan=None, overlap=True)
+    for f in ("row", "col", "val", "ngroups"):
+        assert torch.equal(getattr(same, f), getattr(plain, f))
+    ring = rt.spgemm(ta, tb, accumulator=accumulator, schedule="ring",
+                     overlap=False)
+    _same_coo(ring, ref_spgemm(ea, eb, accumulator=accumulator,
+                               schedule="ring", overlap=False))
+
+
+@pytest.mark.parametrize("backend", ["sort", "stream"])
+def test_make_plan_mem_budget_is_ignored_with_a_pinned_backend(backend):
+    """``mem_budget`` feeds only the backend selection: with a pinned
+    backend even a one-byte budget leaves the plan as it was, as in the
+    reference, whose plan it still equals."""
+    from repro_torch.plan import planner as tpl
+    (ea, eb), (ta, tb) = _pair(*ZOO["skewed"][:2])
+    plan = rt.make_plan(ta, tb, backend=backend)
+    assert rt.make_plan(ta, tb, backend=backend, mem_budget=1) == plan
+    ref = make_plan(ea, eb, backend=backend, mem_budget=1)
+    for f in dataclasses.fields(plan):
+        assert getattr(plan, f.name) == getattr(ref, f.name), f.name
+    assert tpl.DEFAULT_MEM_BUDGET == 1 << 30
 
 
 def test_unknown_accumulator_raises():
