@@ -43,16 +43,28 @@ Phases (any failure exits non-zero before the last line):
    both structures. The eight full outputs must be bit-identical, hold
    exactly nnz(C) groups, and equal scipy's A @ Aᵀ; a stale structure with
    ``validate=False`` must poison ``ngroups``; the 'stream' call's stages,
-   replayed one by one, must give its result.
+   replayed one by one, must give its result, and before its last merge
+   that step's ``merge_compact_pair`` (K6's device code, merging and
+   compacting in one pass) is held bit for bit against its plain twin,
+   ``count`` and ``dropped`` included, timed beside the unfused K6 level
+   and compaction on the same inputs; the warm 'stream' call's stages,
+   replayed one by one, must give its result too.
 4. The end-to-end times with each path's per-call peak memory and the
-   stage split.
+   stage split; one cold 'stream' call under ``torch.profiler``: the
+   device's busy share of its host-clock time and its kernels by device
+   time. K6's levels, the stream's merge-and-compact step and K9's shapes
+   also print each grid's device time from the profiler
+   (``[probe] ... grids``).
 5. The SpMM slice at deepseek-v2-lite's published widths (d_model 2048, 64
    routed experts top-6 with d_ff_expert 1408, 2 shared experts, capacity
    factor 1.25, dense FFN 10944) on a prefill batch of 4 x 1,024 tokens:
    K9 at the MoE dispatch and combine shapes and K10 at the 2:4
    ``SparseMLP``'s fc_in and fc_out shapes, each bit for bit against its
    plain version on integer-valued operands, with the same times and bound
-   (K10's operation bound the smaller of the split-TF32 tensor-core floor
+   (K9 also with its grids a call, and on normal float operands: the same
+   bits on two calls, within float32 summation order of its plain version
+   on the card, and whether it equals that version's bits on the CPU;
+   K10's operation bound the smaller of the split-TF32 tensor-core floor
    and the condensed product at the CUDA-core rate; its floor at the FP64
    tensor cores it runs on beside it); beside K10, the time of its probe
    build with one TF32 product in place of the FP64 one
@@ -60,8 +72,9 @@ Phases (any failure exits non-zero before the last line):
    against the float64 product on normal operands of each shape, required
    to be at most 4x that of its plain fp32 twin.
 6. The SpMM paths, counters zeroed around each, with per-call peak memory:
-   ``moe_apply`` (two K9 launches; routing equal to, and y within 1e-4 of
-   max|y| of, the same call on CPU tensors), ``SparseMLP(w_in, w_out, 0.5,
+   ``moe_apply`` (two K9 calls, eight grids each; routing equal to, and y
+   within 1e-4 of max|y| of, the same call on CPU tensors),
+   ``SparseMLP(w_in, w_out, 0.5,
    nm=(2, 4))`` (two K10 launches; each layer bit-identical to ``x @ wp``
    with TF32 off), the ELLPACK twin on 8 tokens (bit-identical to the N:M
    route), ``SparseLinear(nm="auto")`` at a 90% global prune (routes to
@@ -76,6 +89,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -226,6 +240,42 @@ def held_pair(name: str, kernel, plain, library, shape: str, n_bytes: float,
     print(f"[kernel] {name} {shape}: bit-identical, {json.dumps(r)}",
           flush=True)
     return r
+
+
+def profile_ms(fn, reps: int = 3):
+    """Device ms a call of each kernel that ``fn`` launches, by kernel name,
+    from ``torch.profiler`` (CUDA activity) over ``reps`` calls after one
+    warm-up, and the host-clock ms a call of the profiled window (the
+    profiler's own cost included); ({}, ms) where it records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if t > 0:            # the kernel's own name, no scope or arguments
+            name = e.key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "")
+            name = re.split(r"[<(]", name)[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + t / reps / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])), wall
+
+
+def grid_ms(name: str, shape: str, fn) -> dict:
+    """Each grid's device ms in one call of ``fn`` (``profile_ms``),
+    printed as a ``[probe]`` line."""
+    ms, _ = profile_ms(fn)
+    print(f"[probe] {name} grids, {shape}: {json.dumps(ms)}", flush=True)
+    return ms
 
 
 def grids_of(wrapper, fn) -> int:
@@ -481,10 +531,14 @@ def check_accumulator_kernels(a, b, plan) -> list:
     k1, t1 = bm.sort_tiles(key, v, tile=plan.tile)
     levels = [merge_level(k1, t1, plan.tile)]
     run = plan.tile
+    levels[0]["grid_ms"] = grid_ms("merge_runs", f"run={run}", lambda: (
+        bm.merge_runs(k1, t1, run=plan.tile)))
     while run < n // 2:
         k1, t1 = bm.merge_runs(k1, t1, run=run)
         run *= 2
     levels.append(merge_level(k1, t1, run))
+    levels[-1]["grid_ms"] = grid_ms("merge_runs", f"run={run}", lambda: (
+        bm.merge_runs(k1, t1, run=run)))
     del k1, t1
     torch.cuda.empty_cache()
     tree_ms = cuda_ms(lambda: bm.sort_merge_tree(key, v, tile=plan.tile), 2)
@@ -756,12 +810,56 @@ def stage_ms(a, b) -> dict:
     return st
 
 
-def stream_stage_ms(a, b, want) -> dict:
+def compact_shape(state, tile, steps: int) -> dict:
+    """The stream's merge-and-compact step (``merge_compact_pair``, K6's
+    device code) held bit for bit against its plain twin on one real step's
+    inputs, the buffer ``state`` and the compacted ``tile``, with its
+    counts; beside it the same step unfused, as the parent ran it
+    (``merge_coalesce_pair``, one K6 level over the full 2·buf_cap lanes,
+    then ``coalesce_compact``). Bound: bytes, each valid lane of both lists
+    read once (8 B) and every output lane written once (8 B); the kernel
+    reads the valid counts on the device and no lane past them.
+    ``full_width_bound_ms`` counts both lists in full."""
+    import torch
+    from repro_torch.kernels import bitonic_merge as bm
+    key, tot, count, _ = tile
+    cap = state.key.numel()
+    live = int(state.count) + int(count)
+    r = held_pair(
+        "merge_compact_pair",
+        lambda: bm.merge_compact_pair(state.key, state.tot, key, tot,
+                                      cap=cap, n_a=state.count, n_b=count),
+        lambda: bm.merge_compact_pair_plain(state.key, state.tot, key, tot,
+                                            cap=cap),
+        None, f"stream step {steps}: {cap} + {cap} lanes ({int(state.count)}"
+        f" + {int(count)} valid) -> {cap}", 8 * live + 8 * cap, live)
+    r["grids"] = grids_of(bm.merge_runs, lambda: bm.merge_compact_pair(
+        state.key, state.tot, key, tot, cap=cap, n_a=state.count, n_b=count))
+
+    def unfused():
+        mk, mt = bm.merge_coalesce_pair(state.key, state.tot, key, tot)
+        return bm.coalesce_compact(mk, mt, cap)
+
+    r["unfused_ms"] = cuda_ms(unfused, 2)
+    r["grid_ms"] = grid_ms("merge_compact_pair", f"step {steps}", lambda: (
+        bm.merge_compact_pair(state.key, state.tot, key, tot, cap=cap,
+                              n_a=state.count, n_b=count)))
+    r["full_width_bound_ms"] = bound(16 * cap + 8 * cap, 0)[0]
+    torch.cuda.empty_cache()
+    print(f"[kernel] merge_compact_pair unfused (K6 level + compaction): "
+          f"{r['unfused_ms']:.3f} ms, fused {r['ms']:.3f} ms, "
+          f"{r['grids']} grids", flush=True)
+    return r
+
+
+def stream_stage_ms(a, b, want):
     """Host-clock ms of one cold 'stream' call's stages, each synchronised:
     the planner, then K8 and the two halves of ``streaming.absorb_sorted``
-    summed over the steps (the tile's compaction; the K6 merge with the
-    compaction back to the buffer width), and the final unpack. The staged
-    call's result must equal ``want`` bit for bit."""
+    summed over the steps (the tile's compaction; the buffer's merge and
+    compaction, one ``merge_compact_pair``), and the final unpack. The staged
+    call's result must equal ``want`` bit for bit. Before the last step's
+    merge, that step is held as ``merge_compact_pair``'s shape
+    (``compact_shape``). Returns (stage ms, the shape)."""
     from repro_torch.core import streaming as st
     from repro_torch.kernels import ops
     from repro_torch.plan.planner import make_plan
@@ -773,6 +871,7 @@ def stream_stage_ms(a, b, want) -> dict:
     buf_cap = state.key.numel()
     ms = dict(stream_make_plan=t_plan, stream_fused_slab_sort=0.0,
               stream_compact_tile=0.0, stream_merge_tile=0.0)
+    shape = None
     for g in range(n_groups):
         sl = slice(g * plan.stream_group, (g + 1) * plan.stream_group)
         (key, tot), t = timed_ms(lambda: ops.fused_slab_sort(
@@ -782,6 +881,8 @@ def stream_stage_ms(a, b, want) -> dict:
             key, tot, stream_cap=plan.stream_cap, buf_cap=buf_cap))
         ms["stream_compact_tile"] += t
         del key, tot
+        if g == n_groups - 1:
+            shape = compact_shape(state, tile, n_groups)
         state, t = timed_ms(lambda: st._merge_tile(state, *tile))
         ms["stream_merge_tile"] += t
         del tile
@@ -793,6 +894,70 @@ def stream_stage_ms(a, b, want) -> dict:
                  stream_cap=plan.stream_cap, buf_cap=buf_cap,
                  out_cap=plan.out_cap, merge_lanes=2 * buf_cap)
     print(f"[stream] {json.dumps(sizes)}", flush=True)
+    return ms, shape
+
+
+def numeric_stream_stage_ms(a, b, st, want) -> dict:
+    """Host-clock ms of the warm phase's stages on a 'stream' structure
+    (``structure.validate``, the sparsity fingerprint the warm call checks
+    first, then ``spgemm._numeric_stream`` step by step), each synchronised
+    and summed over the slab-group steps: K1 on the group, the packed
+    product keys, K3, the slot sum (``index_add_``) with the miss count,
+    then the COO dressing; beside them the same loop with one
+    synchronisation at its end (``numeric_stream_loop_unsynced``), which
+    shows what the per-stage synchronisations and the host's launches cost.
+    The staged result must equal ``want`` bit for bit."""
+    import torch
+    from repro_torch.core import spgemm as sp
+    from repro_torch.core.formats import EllRows
+    from repro_torch.core.sccp import sccp_multiply
+    from repro_torch.core.streaming import _slab_groups
+    from repro_torch.kernels.insitu_search import align_keys
+
+    grp = max(1, min(st.plan.stream_group, a.k))
+    _, t_validate = timed_ms(lambda: st.validate(a, b))
+    a_val, a_idx, n_groups = _slab_groups(a, grp)
+    ms = dict.fromkeys(("numeric_stream_sccp_multiply",
+                        "numeric_stream_pack_keys",
+                        "numeric_stream_align_keys",
+                        "numeric_stream_slot_sum"), 0.0)
+    ms["numeric_stream_validate"] = t_validate
+    sums, ms["numeric_stream_init"] = timed_ms(lambda: sp._slot_sums_init(
+        st.out_cap, a.val.dtype, a.val.device))
+    n_miss = torch.zeros((), dtype=torch.int32, device=a.val.device)
+    for g in range(n_groups):
+        sl = slice(g * grp, (g + 1) * grp)
+        (val, row, col), t = timed_ms(lambda: sccp_multiply(
+            EllRows(val=a_val[sl], idx=a_idx[sl], n_rows=a.n_rows), b))
+        ms["numeric_stream_sccp_multiply"] += t
+        (valid, pk), t = timed_ms(lambda: sp._product_keys(row, col,
+                                                           st.n_cols))
+        ms["numeric_stream_pack_keys"] += t
+        (slot, hit), t = timed_ms(lambda: align_keys(pk, st.key))
+        ms["numeric_stream_align_keys"] += t
+
+        def slot_sum():
+            h = hit & valid
+            sums.index_add_(0, sp._slot_index(slot, h, st.out_cap),
+                            torch.where(valid, val.reshape(-1), 0))
+            return (valid & ~h).sum(dtype=torch.int32)
+
+        miss, t = timed_ms(slot_sum)
+        n_miss += miss
+        ms["numeric_stream_slot_sum"] += t
+    coo, ms["numeric_stream_dress"] = timed_ms(lambda: sp._poison_overflow(
+        sp._coo_from_slots(st.key, sums[:st.out_cap], st.nnz,
+                           out_cap=st.out_cap, n_rows=st.n_rows,
+                           n_cols=st.n_cols), n_miss))
+    for f in ("row", "col", "val", "ngroups"):
+        same(f"staged numeric stream vs path .{f}", getattr(coo, f),
+             getattr(want, f))
+    _, ms["numeric_stream_loop_unsynced"] = timed_ms(
+        lambda: sp._numeric_stream(a, b, st.key, st.nnz, out_cap=st.out_cap,
+                                   n_rows=st.n_rows, n_cols=st.n_cols,
+                                   group=grp))
+    print(f"[numeric] 'stream' structure: {n_groups} steps of {grp} slab(s)",
+          flush=True)
     return ms
 
 
@@ -975,6 +1140,53 @@ def nm_normal_error(what: str, x_shape, wn, seed: int) -> dict:
     return errs
 
 
+def ell_float_check(what: str, val, idx, n_rows: int, d: int, rng) -> dict:
+    """K9 on normal float operands on the routing's own planes: two calls
+    must give the same bits, and agree with the plain twin on the card
+    (``index_add_``'s atomics, another order) within float32 summation
+    order: a row of m terms sums with an error of at most
+    (m - 1)·2⁻²⁴·Σ|v·x|, so the two differ by at most twice that; whether
+    they equal the twin's bits on the CPU, which sums each row in lane
+    order as the kernel does, is reported."""
+    import torch
+    from repro_torch.kernels import ell_spmm as k9
+    k, n = val.shape
+    dev = val.device
+    fv = torch.where(idx >= 0, torch.from_numpy(rng.standard_normal(
+        (k, n), dtype=np.float32)).to(dev), 0.0)
+    fx = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)
+                          ).to(dev)
+    first = k9.ell_spmm(fv, idx, fx, n_rows)
+    second = k9.ell_spmm(fv, idx, fx, n_rows)
+    require(torch.equal(first.view(torch.int32), second.view(torch.int32)),
+            f"ell_spmm {what}: two calls on float operands differ")
+    diff = (first - k9.ell_spmm_plain(fv, idx, fx, n_rows)).abs()
+    mag = k9.ell_spmm_plain(fv.abs(), idx, fx.abs(), n_rows)
+    ok = (idx >= 0) & (idx < n_rows)
+    terms = torch.bincount(idx[ok].long(), minlength=n_rows)
+    tol = 2 * (terms - 1).clamp(min=0)[:, None] * 2.0 ** -24 * mag
+    err = float(diff.max())
+    require(bool((diff <= tol).all()), f"ell_spmm {what}: float operands "
+            f"off the card twin by {err}, over float32 summation order")
+    cpu = k9.ell_spmm_plain(fv.cpu(), idx.cpu(), fx.cpu(), n_rows)
+    res = dict(float_same_bits_twice=True, float_err_vs_card_twin=err,
+               float_bits_equal_cpu_twin=bool(torch.equal(first.cpu(), cpu)))
+    print(f"[check] ell_spmm {what} float operands: {json.dumps(res)}",
+          flush=True)
+    return res
+
+
+def k9_grids(cfg, t: int) -> int:
+    """K9's grids in one ``moe_apply`` call on ``t`` tokens: the dispatch
+    ((top_k, t) planes into the capacity slots) and the combine ((1,
+    slots) planes back into the tokens)."""
+    from repro_torch.kernels import ell_spmm as k9
+    from repro_torch.models import ffn
+    slots = cfg.moe.n_experts * ffn.moe_capacity(t, cfg)
+    return (k9.grids(cfg.moe.top_k, t, slots, cfg.d_model)
+            + k9.grids(1, slots, t, cfg.d_model))
+
+
 def check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed: int) -> list:
     """K9 at the MoE path's dispatch and combine shapes and K10 at
     SparseMLP's fc_in and fc_out shapes, each held bit for bit against its
@@ -1031,6 +1243,11 @@ def check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed: int) -> list:
             f"{int(valid.sum())} valid lanes in {n_used} columns",
             8 * k * n + 4 * n_used * d + 4 * n_rows * d,
             2 * int(valid.sum()) * d))
+        ell[-1]["grids"] = grids_of(k9.ell_spmm, lambda: k9.ell_spmm(
+            val, idx, xx, n_rows))
+        ell[-1]["grid_ms"] = grid_ms("ell_spmm", what, lambda: k9.ell_spmm(
+            val, idx, xx, n_rows))
+        ell[-1].update(ell_float_check(what, val, idx, n_rows, d, rng))
         del a_csr, xx
     nm = []
     for what, layer, xx in (("fc_in", mlp.fc_in, x_int),
@@ -1192,8 +1409,9 @@ def spmm_slice(seed: int):
             a_act, backend="sort"),
     }
     counts, out, cost = drive_spmm_paths(paths)
-    require(counts["moe_spmm"]["ell_spmm"] == 2,
-            f"moe path launched K9 {counts['moe_spmm']['ell_spmm']} times")
+    require(counts["moe_spmm"]["ell_spmm"] == k9_grids(cfg, t),
+            f"moe path launched {counts['moe_spmm']['ell_spmm']} K9 grids, "
+            f"not {k9_grids(cfg, t)}")
     require(counts["sparse_mlp"]["nm_spmm"] == 2,
             f"SparseMLP launched K10 {counts['sparse_mlp']['nm_spmm']} times")
     for name in ("matmul_sparse_miss", "matmul_sparse_hit"):
@@ -1273,9 +1491,10 @@ def spmm_slice(seed: int):
           f"{int(out['matmul_sparse_hit'].ngroups)} groups", flush=True)
     del out
 
-    # -- e2e: three timed calls each, K9 / K10 twice a call --------------------
+    # -- e2e: three timed calls each, K9's grids twice, K10 twice a call -------
     e2e = {}
-    for name, kname in (("moe_spmm", "ell_spmm"), ("sparse_mlp", "nm_spmm")):
+    for name, kname, want in (("moe_spmm", "ell_spmm", k9_grids(cfg, t)),
+                              ("sparse_mlp", "nm_spmm", 2)):
         times = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1285,7 +1504,7 @@ def spmm_slice(seed: int):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t1) * 1e3)
             n = kernels.launch_counts()[kname]
-            require(n == 2, f"{name} launched {kname} {n} times")
+            require(n == want, f"{name} launched {kname} {n} times")
         e2e[name] = times
     summary = {"spmm_e2e_ms": e2e,
                "spmm_stage_ms": spmm_stage_ms(cfg, p, x, mlp, x_int),
@@ -1412,7 +1631,11 @@ def main(argv=None) -> int:
           "ngroups)", flush=True)
     require(counts["stream"]["sccp_multiply"] == 0,
             "stream path materialized the product stream through K1")
-    stream_ms = stream_stage_ms(a, b, out["stream"][0])
+    stream_ms, compact = stream_stage_ms(a, b, out["stream"][0])
+    next(r for r in rows if r["name"] == "merge_runs")["shapes"].append(
+        compact)
+    stream_ms.update(numeric_stream_stage_ms(a, b, structures["stream"],
+                                             out["numeric_stream"][0]))
     # a stale structure (one product moved to a row its column lacks) with
     # validate=False must poison ngroups
     st = structures["sort"]
@@ -1467,9 +1690,19 @@ def main(argv=None) -> int:
     for acc, p in plans.items():
         planned_peak[acc] = peak_of(
             lambda: repro_torch.spgemm(a, b, plan=p))[1]
+    # one cold 'stream' call under the profiler: the device's busy share of
+    # the call's host-clock time, and its kernels by device time
+    kern_ms, wall = profile_ms(calls["stream"], reps=1)
+    busy = sum(kern_ms.values())
+    stream_profile = dict(wall_ms=wall, device_ms=busy,
+                          busy_share=busy / wall,
+                          kernels_ms=dict(list(kern_ms.items())[:12]))
+    print(f"[profile] cold 'stream' call: {json.dumps(stream_profile)}",
+          flush=True)
     print(json.dumps({"e2e_ms": e2e, "peak_mem_per_call": peak,
                       "peak_mem_per_planned_call": planned_peak,
                       "make_structure_ms": build_ms,
+                      "stream_profile": stream_profile,
                       "stage_ms": {**stage_ms(a, b), **stream_ms,
                                    **numeric_stage_ms(a, b,
                                                       structures["sort"])},

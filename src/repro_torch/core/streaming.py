@@ -21,10 +21,11 @@ the loop waits for the host:
      totals) go to the front of a ``stream_cap``-lane tile: cumsum +
      ``searchsorted`` + two gathers, no scatter. Padding lanes die here.
   3. **merge** — the compacted tile, padded to the buffer width, is merged
-     into the running sorted, coalesced buffer by one K6 merge level
-     (``bitonic_merge.merge_coalesce_pair``) and compacted back to the
-     buffer width. Both lists are duplicate-free, so a merged run has at most
-     two lanes.
+     into the running sorted, coalesced buffer and compacted back to the
+     buffer width in one pass (``bitonic_merge.merge_compact_pair``: K6's
+     merge-path grids, which also place each unique at its compacted lane
+     and read both lists' valid counts on the device). Both lists are
+     duplicate-free, so a key has at most two lanes, one in each.
 
 ``StreamState.dropped`` counts every unique coordinate lost to an undersized
 ``stream_cap`` or buffer; any drop poisons ``Coo.ngroups`` past the cap, so
@@ -42,7 +43,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels import ops
-from ..kernels.bitonic_merge import bitonic_merge, merge_coalesce_pair
+from ..kernels.bitonic_merge import bitonic_merge, merge_compact_pair
+from ..kernels.bitonic_merge import coalesce_compact as _coalesce_compact
 from ..kernels.insitu_search import KEY_INVALID, next_pot
 from .formats import INVALID, Coo, EllCols, EllRows
 
@@ -74,48 +76,30 @@ def stream_init(buf_cap: int, dtype=torch.float32, device=None) -> StreamState:
         count=zero, dropped=zero)
 
 
-def _coalesce_compact(key: torch.Tensor, tot: torch.Tensor, cap: int):
-    """Pack a sorted run-tail-total stream's unique coordinates into ``cap``
-    lanes (ascending, KEY_INVALID padding). The tails are in ascending key
-    order, so ``searchsorted`` over the tail prefix sum maps output slot →
-    source lane (two gathers, no scatter). Tails beyond ``cap`` are counted.
-    Returns ``(key, tot, count, dropped)``."""
-    nxt = torch.cat([key[1:], key.new_full((1,), KEY_INVALID - 1)])
-    tail = (key != nxt) & (key != KEY_INVALID)
-    csum = torch.cumsum(tail, 0, dtype=torch.int32)
-    n_tail = csum[-1]
-    want = torch.arange(1, cap + 1, dtype=torch.int32, device=key.device)
-    src = torch.searchsorted(csum, want, out_int32=True)
-    src = torch.clamp(src, max=key.numel() - 1)
-    kept = torch.clamp(n_tail, max=cap)
-    ok = torch.arange(cap, device=key.device) < kept
-    return (torch.where(ok, key[src], KEY_INVALID),
-            torch.where(ok, tot[src], 0), kept,
-            torch.clamp(n_tail - cap, min=0))
-
-
 def _compact_tile(key: torch.Tensor, tot: torch.Tensor, *, stream_cap: int,
                   buf_cap: int):
     """The first half of a step: one sorted run-tail-total tile compacted to
     its uniques at width ``min(stream_cap, buf_cap)`` (a tile never keeps
     more uniques than the buffer holds), padded to ``buf_cap`` lanes.
-    Returns ``(key, tot, dropped)``."""
+    Returns ``(key, tot, count, dropped)``, ``count`` its valid lanes."""
     cap = min(int(stream_cap), buf_cap)
-    k_t, v_t, _, drop_t = _coalesce_compact(key, tot, cap)
+    k_t, v_t, count, drop_t = _coalesce_compact(key, tot, cap)
     if cap < buf_cap:                      # the pad keeps the list ascending
         k_t = torch.cat([k_t, k_t.new_full((buf_cap - cap,), KEY_INVALID)])
         v_t = torch.cat([v_t, v_t.new_zeros(buf_cap - cap)])
-    return k_t, v_t, drop_t
+    return k_t, v_t, count, drop_t
 
 
 def _merge_tile(state: StreamState, key: torch.Tensor, tot: torch.Tensor,
-                dropped: torch.Tensor) -> StreamState:
-    """The second half of a step: a compacted tile (``_compact_tile``)
-    merged into the buffer by one K6 level and compacted back to the buffer
-    width; ``dropped`` is the tile's own count of lost uniques."""
-    mk, mt = merge_coalesce_pair(state.key, state.tot, key, tot)
-    k_b, v_b, count, drop_m = _coalesce_compact(mk, mt, state.key.numel())
-    return StreamState(key=k_b, tot=v_b, count=count,
+                count: torch.Tensor, dropped: torch.Tensor) -> StreamState:
+    """The second half of a step: a compacted tile (``_compact_tile``, its
+    ``count`` valid lanes) merged into the buffer and compacted back to the
+    buffer width in one ``merge_compact_pair``; ``dropped`` is the tile's
+    own count of lost uniques."""
+    k_b, v_b, n_b, drop_m = merge_compact_pair(
+        state.key, state.tot, key, tot, cap=state.key.numel(),
+        n_a=state.count, n_b=count)
+    return StreamState(key=k_b, tot=v_b, count=n_b,
                        dropped=state.dropped + dropped + drop_m)
 
 

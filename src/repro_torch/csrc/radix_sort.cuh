@@ -451,7 +451,7 @@ downsweep_kernel(const int32_t* __restrict__ kin, const float* __restrict__ vin,
 // tile's unsorted copy by that index at the end. kTotals (K8's one-grid
 // step; the stream is then one row of at most one tile): vout receives each
 // run's value total on its last lane, 0 elsewhere and on PAD lanes, summed
-// from the tail back as seg_total_kernel (csrc/bitonic_net.cuh) sums it.
+// from the tail back as seg_total_kernel (csrc/bitonic_merge.cu) sums it.
 // Dynamic shared memory: rows_smem<kVals>() bytes.
 template <bool kVals, bool kTotals, class Src>
 __device__ __forceinline__ void rows_sort(const Src& src,

@@ -3,17 +3,17 @@
   sccp_multiply — structured slab-pair multiply (paper Fig. 8)
   insitu_search — the paper's Alg. 1 / Fig. 11: emission sort, alignment
                   search, bit-serial minima scan
-  bitonic_merge — the (key, value) row sort and the bitonic merge-tree
+  bitonic_merge — the (key, value) row sort, the merge-path merge-tree
                   level with run-tail totals ('tiled', the bucket/table
-                  sort, the streaming engine's merge)
+                  sort) and the streaming engine's merge-and-compact step
   radix_sort    — geometry and pass order of the LSD radix sort that the
                   emission sort and the row sort run
   radix_bucket  — stable binning ranks and propagation blocking ('bucket')
   fused_sccp_stream — one streaming step: multiply + sort + run totals
                   fused ('stream')
   hash_accum    — open-addressing tables, probed in torch ('hash')
-  ell_spmm      — ELLPACK-rows × dense SpMM by vector atomics (MoE
-                  'spmm' dispatch and combine)
+  ell_spmm      — ELLPACK-rows × dense SpMM as a CSR transpose and a
+                  deterministic gather (MoE 'spmm' dispatch and combine)
   nm_spmm       — N:M-condensed SpMM, expanded to dense tiles in shared
                   memory and multiplied on the FP64 tensor cores
                   (SparseLinear's N:M route)

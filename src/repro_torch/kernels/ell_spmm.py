@@ -6,17 +6,22 @@ product behind MoE's ``'spmm'`` dispatch and combine.
 
 Replaces ``src/repro/kernels/ell_spmm.py:_ell_spmm_kernel`` (one-hot tiles on
 the TPU's matrix unit, which has no scatter). The CUDA kernel is
-``csrc/ell_spmm.cu``: one warp per column of A reads X's row once with
-16-byte loads and scatter-adds it into each slot's output row with vector
-atomics. It is bound by bytes: the planes (8 a lane), X read once and C
-written once. The atomics make float sums order-dependent (bit-identical to
-the plain twin on integer-valued operands only); the source says why atomics
-and not a CSR transpose.
+``csrc/ell_spmm.cu``, a CSR transpose and a gather: the k·n lane ids are
+sorted stably by their row (the LSD radix sort of ``csrc/radix_sort.cuh``
+over the digits ``n_rows`` needs, ``transpose_passes``), each row's first
+sorted lane found, and one warp a row of C sums its sources in lane order
+in registers and writes the row once: no memset of C, no atomics on it.
+It is bound by bytes: the planes (8 a lane), X read at the columns with a
+valid lane and C written once. Each term is one rounded product and one rounded
+add in lane order, the order of the plain twin's ``index_add_`` on the CPU,
+so results are deterministic; on the card the twin sums with atomics in
+another order, so float operands agree within float32 summation order
+(integer-valued ones bit for bit).
 
 ``ell_spmm`` launches the kernel for CUDA tensors and runs ``ell_spmm_plain``
 (the reference oracle ``kernels/ref.py:ell_spmm_ref``, i.e.
 ``core.spgemm.spmm_ell_dense``) only for tensors the caller put on the CPU.
-``ell_spmm.launches`` counts kernel launches. Indices must lie in
+``ell_spmm.launches`` counts its grids (``grids``). Indices must lie in
 [−1, n_rows).
 """
 from __future__ import annotations
@@ -28,6 +33,42 @@ import torch
 from . import _build
 
 _LIB = "ell_spmm"
+TILE = 4096                    # lanes one block of the transpose sorts
+BITS = 8                       # a radix digit
+
+
+def transpose_passes(n_rows: int) -> int:
+    """8-bit digits the transpose sorts: enough that every row index
+    ``< n_rows`` orders before the all-ones digits of an invalid lane."""
+    p = 1
+    while p < 32 // BITS and n_rows >= 1 << (BITS * p):
+        p += 1
+    return p
+
+
+def sorted_lanes(lanes: int) -> int:
+    """Lanes of the transpose's sorted buffers: ``lanes`` up to one tile,
+    else rounded up to a tile."""
+    return lanes if lanes <= TILE else -(-lanes // TILE) * TILE
+
+
+def grids(k: int, n: int, n_rows: int, d: int) -> int:
+    """Grids one ``ell_spmm`` call launches: the transpose (one grid up to
+    a tile, else count, scan and scatter a digit; none without lanes), the
+    row bounds and the gather; none for an empty C."""
+    if not (d and n_rows):
+        return 0
+    lanes = k * n
+    sort = 0 if lanes == 0 else 1 if lanes <= TILE \
+        else 3 * transpose_passes(n_rows)
+    return sort + 2
+
+
+def scratch_ints(k: int, n: int, n_rows: int) -> int:
+    """int32 scratch of one call: two key and two lane-id buffers, the
+    radix counts and the row bounds."""
+    s = sorted_lanes(k * n)
+    return 4 * s + (s // TILE + 1) * (1 << BITS) + n_rows + 1
 
 
 def ell_spmm_plain(a_val: torch.Tensor, a_idx: torch.Tensor, x: torch.Tensor,
@@ -64,18 +105,24 @@ def ell_spmm(a_val: torch.Tensor, a_idx: torch.Tensor, x: torch.Tensor,
                         f"{a_idx.dtype}")
     if not all(t.is_contiguous() for t in (a_val, a_idx, x)):
         raise ValueError("ell_spmm kernel takes contiguous planes and x")
+    if k * n >= 1 << 31:
+        raise ValueError(f"ell_spmm kernel: {k}x{n} lanes exceed int32 ids")
     d = x.shape[1]
     out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_ints(k, n, n_rows), dtype=torch.int32,
+                          device=dev)
     lib, fns = _build.bind(_LIB, {"ell_spmm_f32": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])})
-    fn = fns["ell_spmm_f32"]
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 5
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])})
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = fn(a_val.data_ptr(), a_idx.data_ptr(), x.data_ptr(),
-                 out.data_ptr(), k, n, d, n_rows,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        err = fns["ell_spmm_f32"](
+            a_val.data_ptr(), a_idx.data_ptr(), x.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), k, n, d, n_rows,
+            ctypes.byref(launched),
+            torch.cuda.current_stream(dev).cuda_stream)
+    ell_spmm.launches += launched.value
     _build.check(lib, _LIB, err)
-    if k and n and d and n_rows:
-        ell_spmm.launches += 1
     return out
 
 

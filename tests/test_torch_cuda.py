@@ -151,6 +151,13 @@ def _same_pairs(got, want):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _same_compact(got, want):
+    """A merge-and-compact result: buffer, totals, count and dropped."""
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w.to(g.device))
+
+
 def _row_pairs(kind, seed, n, tile, hi):
     """K5 operands. "random": keys from [0, hi) with dead lanes; "int32":
     the whole int32 range; "padded": each row's real keys share their high
@@ -229,8 +236,29 @@ def test_merge_runs_kernel(cuda, n, run):
     before = tbm.merge_runs.launches
     got = tbm.merge_runs(key, val, run=run)
     torch.cuda.synchronize()
-    assert tbm.merge_runs.launches > before
+    # rows of at most a window: the merge grid; longer: partition + merge
+    assert tbm.merge_runs.launches - before == (1 if 2 * run <= 4096 else 2)
     _same_pairs(got, tbm.merge_runs_plain(key, val, run=run))
+
+
+@pytest.mark.parametrize("n,run", [(2, 1), (1024, 64), (1 << 13, 2048),
+                                   (1 << 14, 4096), (1 << 15, 8192),
+                                   (1 << 18, 1 << 16)])
+def test_merge_runs_kernel_shared_keys(cuda, n, run):
+    """Both runs of a row hold the same keys, with repeats and float
+    totals: every group straddles the runs (and the windows' edges), and
+    its total is the two tails' sum, bit for bit as the plain twin's."""
+    rng = np.random.default_rng(n + 7)
+    rows = n // (2 * run)
+    key = np.sort(rng.integers(0, max(2, run // 3), (rows, run)), axis=1)
+    key = np.concatenate([key, key], axis=1).reshape(-1).astype(np.int32)
+    key[-3:] = KI                          # a KEY_INVALID tail in the last run
+    val = rng.standard_normal(n).astype(np.float32)
+    k, v = tbm.sort_tiles_plain(torch.from_numpy(key), torch.from_numpy(val),
+                                tile=run)
+    k, v = k.to(cuda), v.to(cuda)
+    _same_pairs(tbm.merge_runs(k, v, run=run),
+                tbm.merge_runs_plain(k, v, run=run))
 
 
 @pytest.mark.parametrize("n,tile", [(1 << 16, 4096), (1 << 12, 1 << 12)])
@@ -410,6 +438,66 @@ def test_merge_coalesce_pair_kernel(cuda, length):
     _same_pairs(got, want)
 
 
+def _unique_list(rng, length, n_valid, keys):
+    """An ascending duplicate-free list of ``n_valid`` of ``keys`` with
+    float totals, then KEY_INVALID/0."""
+    key = np.full(length, KI, np.int32)
+    key[:n_valid] = np.sort(rng.choice(keys, n_valid, replace=False))
+    val = np.zeros(length, np.float32)
+    val[:n_valid] = rng.standard_normal(n_valid)
+    return key, val
+
+
+@pytest.mark.parametrize("length,na,nb,cap,hi", [
+    (128, 100, 60, 128, 400),               # the 128-lane minimum buffer
+    (128, 0, 0, 128, 10),                   # an all-KEY_INVALID step
+    (1 << 14, 0, 5000, 1 << 14, 1 << 20),   # an empty buffer
+    (1 << 14, 9000, 1200, 1 << 14, 20000),  # many keys in both lists
+    (1 << 16, 50000, 40000, 1 << 16, 120000),   # drops: uniques > cap
+    (1 << 18, 200000, 3000, 1 << 18, 1 << 22),
+    (1 << 20, 700000, 500000, 1 << 20, 1 << 21),
+])
+def test_merge_compact_pair_kernel(cuda, length, na, nb, cap, hi):
+    """The stream's merge-and-compact step against its plain twin, bit for
+    bit on float totals (each is one two-term sum), ``count`` and
+    ``dropped`` included, with the valid counts given on the device and
+    without them; four grids a call."""
+    rng = np.random.default_rng(length + na + nb)
+    lists = [torch.from_numpy(t).to(cuda) for t in
+             _unique_list(rng, length, na, hi) + _unique_list(rng, length,
+                                                              nb, hi)]
+    want = tbm.merge_compact_pair_plain(*lists, cap=cap)
+    counts = [torch.tensor(c, dtype=torch.int32, device=cuda)
+              for c in (na, nb)]
+    before = tbm.merge_runs.launches
+    got = tbm.merge_compact_pair(*lists, cap=cap, n_a=counts[0],
+                                 n_b=counts[1])
+    torch.cuda.synchronize()
+    assert tbm.merge_runs.launches - before == 4
+    _same_compact(got, want)
+    _same_compact(tbm.merge_compact_pair(*lists, cap=cap), want)
+
+
+def test_merge_compact_pair_kernel_window_edges(cuda):
+    """A holds every key, B every odd one, so the merged order repeats
+    (A), (A, B): a pair straddles every third 4,096-lane window edge. B's
+    valid lanes are half of it. Then a cap below the uniques."""
+    n = 1 << 15
+    a = np.arange(n, dtype=np.int32)
+    b = np.full(n, KI, np.int32)
+    b[:n // 2] = a[1::2]
+    rng = np.random.default_rng(3)
+    va = rng.standard_normal(n).astype(np.float32)
+    vb = np.where(b != KI, rng.standard_normal(n), 0).astype(np.float32)
+    lists = [torch.from_numpy(t).to(cuda) for t in (a, va, b, vb)]
+    counts = [torch.tensor(c, dtype=torch.int32, device=cuda)
+              for c in (n, n // 2)]
+    for cap in (n, n - 100):
+        _same_compact(tbm.merge_compact_pair(*lists, cap=cap, n_a=counts[0],
+                                           n_b=counts[1]),
+                    tbm.merge_compact_pair_plain(*lists, cap=cap))
+
+
 def _square(cuda, m=300, density=0.05, seed=21):
     rng = np.random.default_rng(seed)
     a = ((rng.random((m, m)) < density) * rng.integers(-4, 5, (m, m)))
@@ -487,10 +575,11 @@ def _ints(rng, shape):
     (1, 1, 1, 1, 0.0), (3, 300, 150, 70, 0.0), (6, 4096, 480, 128, 0.0),
     (1, 2000, 7, 2048, 0.0), (4, 513, 129, 36, 0.9), (2, 1000, 64, 3, 0.5)])
 def test_ell_spmm_kernel(cuda, k, n, n_rows, d, hot):
-    """Integer-valued operands: bit-identical to the plain twin whatever
-    order the atomics land in. Ragged n, n_rows and d (d % 4 != 0 takes the
-    scalar atomics), idx −1 lanes, and ``hot`` of the lanes on row 0 (many
-    atomics on one output row)."""
+    """Integer-valued operands: bit-identical to the plain twin, whose
+    atomics on the card sum in any order. Ragged n, n_rows and d (d % 4 !=
+    0 takes the scalar gather), one-tile and multi-tile transposes, idx −1
+    lanes, and ``hot`` of the lanes on row 0 (many sources on one output
+    row); the grids one call launches."""
     rng = np.random.default_rng(n + d)
     a_val = _ints(rng, (k, n))
     a_idx = rng.integers(-1, n_rows, (k, n)).astype(np.int32)
@@ -500,7 +589,7 @@ def test_ell_spmm_kernel(cuda, k, n, n_rows, d, hot):
     before = tes.ell_spmm.launches
     got = tes.ell_spmm(*args, n_rows)
     torch.cuda.synchronize()
-    assert tes.ell_spmm.launches == before + 1
+    assert tes.ell_spmm.launches == before + tes.grids(k, n, n_rows, d)
     assert torch.equal(got, tes.ell_spmm_plain(*args, n_rows))
 
 
@@ -523,6 +612,37 @@ def test_ell_spmm_kernel_float_and_checks(cuda):
         tes.ell_spmm(a_val, a_idx.long(), x, 100)
     with pytest.raises(ValueError):
         tes.ell_spmm(a_val.T.contiguous().T, a_idx, x, 100)
+
+
+@pytest.mark.parametrize("k,n,n_rows,d,hot", [
+    (6, 777, 100, 256, 0.0), (6, 4096, 30720, 128, 0.0),
+    (1, 30720, 4096, 64, 0.0), (4, 513, 129, 36, 0.9),
+    (3, 5000, 70000, 8, 0.0)])
+def test_ell_spmm_kernel_float_deterministic(cuda, k, n, n_rows, d, hot):
+    """Float operands: two calls give the same bits; each row's terms are
+    summed in lane order by rounded products and adds, the plain twin's
+    order on the CPU, so the kernel equals the twin on CPU tensors bit for
+    bit; the twin on the card sums with atomics in another order, so they
+    agree within float32 summation order: for a row of m terms, each sum's
+    error is at most (m - 1)·2⁻²⁴·Σ|v·x| (m = 1: exact), so the two differ
+    by at most twice that (the hot row sums ~1,850 terms)."""
+    rng = np.random.default_rng(k + n + d)
+    a_val = rng.standard_normal((k, n)).astype(np.float32)
+    a_idx = rng.integers(-1, n_rows, (k, n)).astype(np.int32)
+    a_idx[rng.random((k, n)) < hot] = 0
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    cpu = [torch.from_numpy(t) for t in (a_val, a_idx, x)]
+    args = [t.to(cuda) for t in cpu]
+    first = tes.ell_spmm(*args, n_rows)
+    second = tes.ell_spmm(*args, n_rows)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    assert torch.equal(first.cpu(), tes.ell_spmm_plain(*cpu, n_rows))
+    mag = tes.ell_spmm_plain(args[0].abs(), args[1], args[2].abs(), n_rows)
+    ok = (args[1] >= 0) & (args[1] < n_rows)
+    terms = torch.bincount(args[1][ok].long(), minlength=n_rows)
+    tol = 2 * (terms - 1).clamp(min=0)[:, None] * 2.0 ** -24 * mag
+    assert bool(((first - tes.ell_spmm_plain(*args, n_rows)).abs()
+                 <= tol).all())
 
 
 @pytest.mark.parametrize("t,d_in,d_out,nm", [
@@ -646,7 +766,8 @@ def test_sparse_layers_on_card(cuda):
 
 
 def test_moe_apply_on_card(cuda):
-    """dispatch='spmm' launches K9 twice a call and agrees with the same
+    """dispatch='spmm' calls K9 twice a call (dispatch and combine, each
+    its transpose, row bounds and gather grids) and agrees with the same
     call on CPU tensors (the plain twins) within float32 summation order."""
     import dataclasses
     from repro_torch.configs import deepseek_v2_lite
@@ -669,7 +790,10 @@ def test_moe_apply_on_card(cuda):
                                             dtype=torch.float32),
                           torch.from_numpy(x).to(cuda), cfg, torch.float32)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["ell_spmm"] == 2
+    t = x.shape[0] * x.shape[1]            # one group of every token
+    slots = cfg.moe.n_experts * rt.models.ffn.moe_capacity(t, cfg)
+    assert kernels.launch_counts()["ell_spmm"] == (      # dispatch, combine
+        tes.grids(cfg.moe.top_k, t, slots, d) + tes.grids(1, slots, t, d))
     y_c, aux_c = rt.moe_apply(params_from_numpy(p, device="cpu",
                                                 dtype=torch.float32),
                               torch.from_numpy(x), cfg, torch.float32)

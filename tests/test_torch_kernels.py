@@ -224,6 +224,185 @@ def test_sort_merge_tree_matches_reference():
         tbm.sort_tiles(torch.from_numpy(key), torch.from_numpy(val), tile=96)
 
 
+# The merge-path design of K6 and of the stream's merge-and-compact step
+# (csrc/bitonic_merge.cu), emulated on the CPU lane by lane: co-ranks found
+# by binary search, each window's spans read only within their one-lane
+# halo, a thread's lanes merged from its own co-rank, the totals fused. It
+# checks the design at small windows (every edge case in a few hundred
+# lanes), not the kernels, whose grids run only on the card
+# (tests/test_torch_cuda.py).
+
+class _Span:
+    """A list's lanes [lo, hi] staged for one window; reading any other
+    lane is a fault of the design."""
+
+    def __init__(self, key, val, lo, hi):
+        self.key, self.val = key, val
+        self.lo, self.hi = max(lo, 0), min(hi, len(key) - 1)
+
+    def k(self, g):
+        assert self.lo <= g <= self.hi, (g, self.lo, self.hi)
+        return int(self.key[g])
+
+    def v(self, g):
+        assert self.lo <= g <= self.hi, (g, self.lo, self.hi)
+        return self.val[g]
+
+
+def _co_rank(ka, la, kb, lb, d):
+    lo, hi = max(0, d - lb), min(d, la)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if ka(mid) <= kb(d - mid - 1):
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _merge_lanes(a, na, a0, a1, b, nb, b0, b1, d, cnt):
+    """merge_lanes of csrc/bitonic_merge.cu over the window's spans: A's
+    lanes [a0, a1) of a list of na, B's [b0, b1) of nb; (key, total, tail)
+    of the window's merged lanes [d, d + cnt)."""
+    la, lb = a1 - a0, b1 - b0
+    i = _co_rank(lambda t: a.k(a0 + t), la, lambda t: b.k(b0 + t), lb, d)
+    j = d - i
+    out = []
+    zero = np.float32(0)
+    for _ in range(cnt):
+        if j >= lb or (i < la and a.k(a0 + i) <= b.k(b0 + j)):
+            k = a.k(a0 + i)
+            tail = (k != KI and (a0 + i + 1 >= na or a.k(a0 + i + 1) != k)
+                    and not (b0 + j < nb and b.k(b0 + j) == k))
+            v = a.v(a0 + i) + zero if tail else zero
+            i += 1
+        else:
+            k = b.k(b0 + j)
+            tail = k != KI and (b0 + j + 1 >= nb or b.k(b0 + j + 1) != k)
+            v = zero
+            if tail:
+                in_a = a0 + i > 0 and a.k(a0 + i - 1) == k
+                v = (b.v(b0 + j) + (a.v(a0 + i - 1) if in_a else zero)) + zero
+            j += 1
+        out.append((k, v, tail))
+    return out
+
+
+def _window(ka, va, na, kb, vb, nb, d0, d1, a0, a1, items):
+    """One block: both spans staged with their halo, each thread's ``items``
+    lanes merged from its own co-rank."""
+    a = _Span(ka, va, a0 - 1, a1)
+    b = _Span(kb, vb, d0 - a0 - 1, d1 - a1)
+    lanes = []
+    for first in range(0, d1 - d0, items):
+        lanes += _merge_lanes(a, na, a0, a1, b, nb, d0 - a0, d1 - a1, first,
+                              min(items, d1 - d0 - first))
+    return lanes
+
+
+def _emulate_merge_runs(key, val, run, window, items):
+    """K6's level: rows of at most a window merged whole (no halo bound:
+    the row is staged), longer rows cut into windows by their co-ranks."""
+    row = 2 * run
+    out_k, out_v = [], []
+    for r0 in range(0, len(key), row):
+        ka, va = key[r0:r0 + run], val[r0:r0 + run]
+        kb, vb = key[r0 + run:r0 + row], val[r0 + run:r0 + row]
+        win = row if row <= window else window
+        part = [_co_rank(lambda t: int(ka[t]), run, lambda t: int(kb[t]),
+                         run, d) for d in range(0, row + 1, win)]
+        for w in range(row // win):
+            lanes = _window(ka, va, run, kb, vb, run, w * win, (w + 1) * win,
+                            part[w], part[w + 1], items)
+            out_k += [k for k, _, _ in lanes]
+            out_v += [v for _, v, _ in lanes]
+    return np.asarray(out_k, np.int32), np.asarray(out_v, np.float32)
+
+
+def _emulate_merge_compact(ka, va, na, kb, vb, nb, cap, window, items):
+    """The stream's step: windows over the na + nb valid merged lanes, each
+    window's uniques counted, the counts scanned into offsets, each unique
+    written at its offset below cap, then the fill."""
+    live = na + nb
+    n_win = -(-live // window)
+    part = [_co_rank(lambda t: int(ka[t]), na, lambda t: int(kb[t]), nb,
+                     min(w * window, live)) for w in range(n_win + 1)]
+    key = np.full(cap, KI, np.int32)
+    tot = np.zeros(cap, np.float32)
+    off = 0
+    for w in range(n_win):
+        d0, d1 = w * window, min((w + 1) * window, live)
+        for k, v, tail in _window(ka[:na], va[:na], na, kb[:nb], vb[:nb],
+                                  nb, d0, d1, part[w], part[w + 1], items):
+            if tail:
+                if off < cap:
+                    key[off], tot[off] = k, v
+                off += 1
+    return key, tot, min(off, cap), max(off - cap, 0)
+
+
+@pytest.mark.parametrize("n,run,window,items", [
+    (512, 1, 64, 4), (512, 4, 64, 16), (1024, 32, 64, 4),
+    (1024, 64, 32, 4), (2048, 256, 64, 8), (1024, 512, 1024, 16)])
+def test_merge_path_design_merges_like_the_reference(n, run, window, items):
+    """Emulated, the merge-path level equals the plain twin and the
+    reference's interpret-mode Pallas level bit for bit on coalesced runs
+    (duplicates inside a run and across the pair, KEY_INVALID tails), at
+    rows inside a window and rows cut into many windows."""
+    key, val = _pairs(n + run, n, max(4, n // 8))
+    k, v = (np.array(x) for x in ref_bm.sort_tiles_xla(
+        jnp.asarray(key), jnp.asarray(val), tile=run))
+    got = _emulate_merge_runs(k, v, run, window, items)
+    want = tbm.merge_runs_plain(torch.from_numpy(k), torch.from_numpy(v),
+                                run=run)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    ref = ref_bm.merge_runs_pallas(jnp.asarray(k), jnp.asarray(v), run=run,
+                                   interpret=True)
+    _eq(got[1], ref[1])
+
+
+def _unique_list(rng, length, n_valid, hi):
+    key = np.full(length, KI, np.int32)
+    key[:n_valid] = np.sort(rng.choice(hi, n_valid, replace=False))
+    val = np.zeros(length, np.float32)
+    val[:n_valid] = rng.integers(-4, 5, n_valid)
+    return key, val
+
+
+@pytest.mark.parametrize("length,na,nb,cap,hi,window", [
+    (128, 64, 40, 128, 300, 16),      # unequal valid lengths, shared keys
+    (128, 0, 0, 128, 10, 16),         # both lists empty: all fill
+    (128, 0, 77, 128, 400, 32),       # an empty buffer
+    (256, 200, 180, 128, 260, 16),    # uniques beyond cap: drops
+    (256, 256, 256, 256, 256, 64),    # every key in both lists
+    (512, 300, 301, 512, 4000, 8),    # windows much smaller than the lists
+])
+def test_merge_compact_design_matches_plain(length, na, nb, cap, hi,
+                                            window):
+    """Emulated, the stream's merge-and-compact grids give the plain twin's
+    buffer, count and dropped, reading no lane past either valid count."""
+    rng = np.random.default_rng(length + na + nb + cap)
+    ka, va = _unique_list(rng, length, na, hi)
+    kb, vb = _unique_list(rng, length, nb, hi)
+    got = _emulate_merge_compact(ka, va, na, kb, vb, nb, cap, window, 4)
+    want = tbm.merge_compact_pair_plain(*map(torch.from_numpy,
+                                             (ka, va, kb, vb)), cap=cap)
+    for g, w in zip(got, want):
+        _eq(np.asarray(g), w)
+
+
+def test_merge_scratch_sizes():
+    """The partition's int64 entries: none for rows of at most a window,
+    a co-rank for every window's first lane and each row's end above."""
+    assert tbm.WINDOW == 4096
+    assert tbm.merge_scratch(1 << 13, 2048) == 0
+    assert tbm.merge_scratch(1 << 14, 4096) == 2 * 3
+    assert tbm.merge_scratch(1 << 28, 1 << 27) == (1 << 16) + 1
+    assert tbm.compact_scratch(128) == 3 * 2 + 1
+    assert tbm.compact_scratch(1 << 27) == 3 * ((1 << 16) + 1) + 1
+
+
 @pytest.mark.parametrize("n,n_buckets", [(2048, 8), (1024, 64), (4096, 1)])
 def test_bin_ranks_plain_matches_reference(n, n_buckets):
     rng = np.random.default_rng(n + n_buckets)

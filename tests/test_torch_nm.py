@@ -228,6 +228,68 @@ def test_ell_spmm_plain_matches_reference(k, n, n_rows, d, integer):
     assert kernels.ell_spmm.ell_spmm.launches == 0
 
 
+def _emulate_ell_spmm(a_val, a_idx, x, n_rows):
+    """K9's design (csrc/ell_spmm.cu), emulated: the lane ids sorted stably
+    by row over ``transpose_passes`` 8-bit digits of the flipped key
+    (invalid lanes INT32_MAX, last), each row's first sorted lane found as
+    the row-bounds grid finds it, and every row summed from 0 in lane order
+    by one rounded product and one rounded add a term."""
+    from repro_torch.kernels import ell_spmm as tes
+    k, n = a_idx.shape
+    lanes = a_idx.reshape(-1).astype(np.int64)
+    key = np.where((lanes >= 0) & (lanes < n_rows), lanes, 2 ** 31 - 1)
+    order = np.arange(k * n)
+    for p in range(tes.transpose_passes(n_rows)):
+        digit = ((key[order] + 2 ** 31) >> (8 * p)) & 255
+        order = order[np.argsort(digit, kind="stable")]
+    cur = np.minimum(key[order], n_rows)
+    rowptr = np.empty(n_rows + 1, np.int64)
+    for i in range(k * n + 1):              # the rows key[i-1] < r <= key[i]
+        lo = -1 if i == 0 else cur[i - 1]
+        hi = n_rows if i == k * n else cur[i]
+        rowptr[lo + 1:hi + 1] = i
+    out = np.zeros((n_rows, x.shape[1]), np.float32)
+    val = a_val.reshape(-1)
+    for r in range(n_rows):
+        for lane in order[rowptr[r]:rowptr[r + 1]]:
+            out[r] = out[r] + val[lane] * x[lane % n]   # float32 ops
+    return out
+
+
+@pytest.mark.parametrize("k,n,n_rows,d,hot", [
+    (1, 40, 7, 5, 0.0), (3, 100, 300, 8, 0.0), (6, 64, 256, 4, 0.0),
+    (2, 50, 255, 3, 0.5), (1, 300, 70000, 2, 0.0), (4, 30, 20, 6, 0.9)])
+def test_ell_spmm_design_sums_like_the_plain_twin(k, n, n_rows, d, hot):
+    """Emulated on float operands, K9's transpose and gather give the plain
+    twin's bits on the CPU: the twin's ``index_add_`` sums every row in
+    lane order from 0, as the gather does. Row counts across the one-,
+    two- and three-digit transposes, negative indices, a hot row."""
+    rng = np.random.default_rng(k * n + n_rows)
+    a_val = rng.standard_normal((k, n)).astype(np.float32)
+    a_idx = rng.integers(-1, n_rows, (k, n)).astype(np.int32)
+    a_idx[rng.random((k, n)) < hot] = 0
+    a_idx[0, :2] = [-5, -1]                 # negative: adds nothing
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    got = _emulate_ell_spmm(a_val, a_idx, x, n_rows)
+    want = ops.ell_spmm(_t(a_val), _t(a_idx), _t(x), n_rows)
+    _eq(got, want)
+
+
+def test_ell_spmm_transpose_geometry():
+    """The transpose's digits, buffers and the grids one call launches
+    (counted on ``ell_spmm.launches``)."""
+    from repro_torch.kernels import ell_spmm as tes
+    assert [tes.transpose_passes(r) for r in
+            (1, 255, 256, 4096, 30720, 65535, 65536, 2 ** 24, 2 ** 31 - 1)] \
+        == [1, 1, 2, 2, 2, 2, 3, 4, 4]
+    assert tes.sorted_lanes(4096) == 4096 and tes.sorted_lanes(4097) == 8192
+    assert tes.grids(6, 4096, 30720, 2048) == 3 * 2 + 2    # MoE dispatch
+    assert tes.grids(1, 30720, 4096, 2048) == 3 * 2 + 2    # MoE combine
+    assert tes.grids(4, 513, 129, 36) == 1 + 2             # one tile
+    assert tes.grids(0, 10, 5, 3) == 2 and tes.grids(2, 3, 0, 3) == 0
+    assert tes.scratch_ints(6, 4096, 30720) == 4 * 24576 + 7 * 256 + 30721
+
+
 @pytest.mark.parametrize("integer", [True, False])
 def test_ell_spmm_plain_ragged_matches_reference(integer):
     rng = np.random.default_rng(300)

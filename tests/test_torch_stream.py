@@ -305,6 +305,51 @@ def test_merge_coalesce_pair_matches_reference(length):
         *map(jnp.asarray, (ka, va, kb, vb))))
 
 
+def _unique_list(rng, length, n_valid, hi):
+    """An ascending duplicate-free list: ``n_valid`` keys below ``hi`` with
+    integer totals, then KEY_INVALID/0."""
+    key = np.full(length, KI, np.int32)
+    key[:n_valid] = np.sort(rng.choice(hi, n_valid, replace=False))
+    val = np.zeros(length, np.float32)
+    val[:n_valid] = rng.integers(-4, 5, n_valid)
+    return key, val
+
+
+@pytest.mark.parametrize("length,na,nb,cap,hi", [
+    (128, 90, 17, 128, 1000),       # unequal valid lengths
+    (256, 200, 150, 256, 300),      # many keys in both lists
+    (128, 0, 60, 128, 500),         # an empty buffer (the first step)
+    (128, 0, 0, 128, 10),           # nothing at all
+    (256, 250, 240, 256, 400),      # uniques beyond cap: exact drops
+    (256, 180, 160, 64, 1000),      # cap below the list length
+])
+def test_merge_compact_pair_plain_matches_reference(length, na, nb, cap, hi):
+    """The stream's step on CPU tensors: the reference's
+    ``merge_coalesce_pair`` followed by its ``_coalesce_compact``, bit for
+    bit, ``count`` and ``dropped`` included; the step through
+    ``streaming._merge_tile`` likewise."""
+    rng = np.random.default_rng(length + na + nb + cap)
+    ka, va = _unique_list(rng, length, na, hi)
+    kb, vb = _unique_list(rng, length, nb, hi)
+    got = tbm.merge_compact_pair(*map(torch.from_numpy, (ka, va, kb, vb)),
+                                 cap=cap)
+    mk, mt = ref_bm.merge_coalesce_pair(*map(jnp.asarray, (ka, va, kb, vb)))
+    want = ref_st._coalesce_compact(mk, mt, cap)
+    _same_arrays(got, want)
+    assert got[2].dtype == torch.int32 and got[3].dtype == torch.int32
+    if cap == length:
+        state = tst.StreamState(
+            key=torch.from_numpy(ka), tot=torch.from_numpy(va),
+            count=torch.tensor(na, dtype=torch.int32),
+            dropped=torch.tensor(2, dtype=torch.int32))
+        step = tst._merge_tile(state, torch.from_numpy(kb),
+                               torch.from_numpy(vb),
+                               torch.tensor(nb, dtype=torch.int32),
+                               torch.tensor(1, dtype=torch.int32))
+        _same_arrays((step.key, step.tot, step.count), want[:3])
+        assert int(step.dropped) == 3 + int(want[3])
+
+
 @pytest.mark.parametrize("cap", [4, 64, 512])
 def test_coalesce_compact_matches_reference(cap):
     rng = np.random.default_rng(cap)
