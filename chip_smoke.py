@@ -30,8 +30,14 @@ Phases (any failure exits non-zero before the last line):
    count and scatter, which form the products from the operands, against
    the radix library's grids of digits 1-3, the scans and the totals. K8's
    operation count is a sort's n·log2(n) comparisons of its real lanes;
-   bytes set its bound.
-   The planner's sizes
+   bytes set its bound. K1 with its device time (the profiler's) beside
+   the events time of back-to-back wrapper calls (``[probe] sccp_multiply
+   split``). K3 in both entries at every shape: grouped by row of C
+   (``align_product_keys``, the 'search' path's and the warm 'sort' path's
+   kernel) with its grids a call and each grid's time (``[probe]
+   align_product_keys grids``), and flat (``align_keys``, the streaming
+   step's), also on a skewed stream at the same widths (40% of A's slots
+   in four rows of C). The planner's sizes
    for the 'bucket' and 'hash' paths are printed first (``[plan]``). Then
    ``make_structure`` for a 'sort' and a 'stream' plan, timed, and K1 and
    K3 held again at the warm phase's own shapes on those structures.
@@ -80,8 +86,9 @@ Phases (any failure exits non-zero before the last line):
    route), ``SparseLinear(nm="auto")`` at a 90% global prune (routes to
    ELLPACK), and ``matmul_sparse(backend='sort')`` twice (a cache miss,
    then a hit); then three timed calls of the MoE layer and the MLP.
-7. A ``kernels`` JSON line (all ten kernels), the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries), the
+   card's name and power limit, and as the last line ``{"ok": true,
+   "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -327,6 +334,20 @@ def radix_grid_ms(key, val, row: int) -> dict:
     return out
 
 
+def device_split(name: str, shape: str, fn, reps: int = 20) -> dict:
+    """A wrapper's kernel time split from its call time: the device ms a
+    call of the kernels ``fn`` launches (``profile_ms``) beside the events
+    ms a call over ``reps`` back-to-back calls (``cuda_ms``, which also
+    holds the host's share where the host sets the pace), printed as a
+    ``[probe]`` line."""
+    events = cuda_ms(fn, reps)
+    kern, wall = profile_ms(fn, reps=reps)
+    r = dict(device_ms=sum(kern.values()), events_ms=events,
+             profiled_host_ms=wall, kernels_ms=kern)
+    print(f"[probe] {name} split, {shape}: {json.dumps(r)}", flush=True)
+    return r
+
+
 def kernel_row(name: str, source: str, replaces: str, shapes: list,
                **extra) -> dict:
     """A ``kernels`` line entry: the first shape's numbers, and all shapes."""
@@ -354,6 +375,53 @@ def align_shape(shape: str, pk, uk) -> dict:
                      s * math.ceil(math.log2(u + 1)))
 
 
+def align_grouped_shape(shape: str, pk, uk, row, n_rows: int,
+                        n_cols: int) -> dict:
+    """K3 grouped by row of C (``align_product_keys``) held against its
+    plain version on the product keys ``pk`` of SCCP's row plane ``row``
+    (each group's row taken as ``ops.align_products`` takes it), with its
+    grids a call and each grid's time (``[probe]``). The bound is the flat
+    entry's bytes; its operations count a search of one row's share of
+    ``uk`` a key."""
+    import torch
+    from repro_torch.kernels import insitu_search as isr
+    group_row = row[:, :, 0].contiguous()
+    k_b = row.shape[2]
+    s, u = pk.numel(), uk.numel()
+
+    def grouped():
+        return isr.align_product_keys(pk, uk, group_row, k_b=k_b,
+                                      n_rows=n_rows, n_cols=n_cols)
+
+    r = held_pair("align_product_keys", grouped,
+                  lambda: isr.align_keys_plain(pk, uk),
+                  lambda: torch.searchsorted(uk, pk, out_int32=True),
+                  shape, 9 * s + 4 * min(u, s),
+                  s * math.ceil(math.log2(u / max(n_rows, 1) + 1)))
+    r["grids"] = grids_of(isr.align_product_keys, grouped)
+    r["grid_ms"] = grid_ms("align_product_keys", shape, grouped)
+    return r
+
+
+def skewed_stream(k_a: int, n: int, k_b: int, n_rows: int, n_cols: int, *,
+                  device, heavy: float = 0.4, seed: int = 7):
+    """A product stream at SCCP's (k_a, n, k_b) widths whose rows of C are
+    skewed, as a few dense rows make them: a share ``heavy`` of A's slots
+    fall in rows 0-3, the rest spread evenly, every B slot valid. Returns
+    the packed keys, SCCP's row plane (broadcast) and the ascending unique
+    keys."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    a_idx = torch.randint(0, n_rows, (k_a, n), generator=g, device=device,
+                          dtype=torch.int32)
+    a_idx = torch.where(torch.rand((k_a, n), generator=g, device=device)
+                        < heavy, a_idx % 4, a_idx)
+    b_idx = torch.randint(0, n_cols, (n, k_b), generator=g, device=device,
+                          dtype=torch.int32)
+    pk = (a_idx[:, :, None] * n_cols + b_idx[None]).reshape(-1)
+    return pk, a_idx[:, :, None].expand(k_a, n, k_b), torch.unique(pk)
+
+
 def check_kernels(a, b, a_cut, b_cut) -> list:
     import torch
     from repro_torch.kernels import insitu_search as isr
@@ -366,18 +434,21 @@ def check_kernels(a, b, a_cut, b_cut) -> list:
     k_a, n = a.val.shape
     k_b = b.val.shape[1]
     lanes = k_a * n * k_b
-    rows.append(kernel_row(
-        "sccp_multiply", "src/repro_torch/csrc/sccp_multiply.cu",
-        "src/repro/kernels/sccp_multiply.py:29", [held_pair(
-            "sccp_multiply", lambda: k1.sccp_multiply(*args),
-            lambda: k1.sccp_multiply_plain(*args), None,
-            f"({k_a},{n})x({n},{k_b})", 8 * (k_a * n + n * k_b) + 12 * lanes,
-            lanes)]))
+    mul = held_pair(
+        "sccp_multiply", lambda: k1.sccp_multiply(*args),
+        lambda: k1.sccp_multiply_plain(*args), None,
+        f"({k_a},{n})x({n},{k_b})", 8 * (k_a * n + n * k_b) + 12 * lanes,
+        lanes)
+    mul["split"] = device_split("sccp_multiply", mul["shape"],
+                                lambda: k1.sccp_multiply(*args), reps=5)
+    rows.append(kernel_row("sccp_multiply",
+                           "src/repro_torch/csrc/sccp_multiply.cu",
+                           "src/repro/kernels/sccp_multiply.py:29", [mul]))
 
     # K2: emission sort of the main path's packed key stream
     val, row, col = k1.sccp_multiply(*args)
     key, _ = ops._packed_stream(row, col, val, a.n_rows, b.n_cols)
-    del val, row, col
+    del val, col
     torch.cuda.empty_cache()
     s = key.numel()
     emit = held_pair("emit_sort", lambda: isr.emit_sort_keys(key),
@@ -391,17 +462,33 @@ def check_kernels(a, b, a_cut, b_cut) -> list:
     rows.append(kernel_row("emit_sort", "src/repro_torch/csrc/insitu_search.cu",
                            "src/repro/kernels/insitu_search.py:164", [emit]))
 
-    # K3: align every product key against the sorted unique keys
+    # K3: align every product key against the sorted unique keys, grouped
+    # by row of C as the 'search' path does, and the flat kernel beside it
     ks = isr.emit_sort_keys(key)
     n_unique = int(isr._unique_heads(ks, 1)[1])
     uk, _ = isr._unique_heads(ks, max(128, -(-n_unique // 128) * 128))
     del ks
+    shape = f"search: ({s},) in ({uk.numel()},), {n_unique} unique"
+    rows.append(kernel_row(
+        "align_product_keys", "src/repro_torch/csrc/insitu_search.cu",
+        "src/repro/kernels/insitu_search.py:268",
+        [align_grouped_shape(shape, key, uk, row, a.n_rows, b.n_cols)]))
     rows.append(kernel_row(
         "align_keys", "src/repro_torch/csrc/insitu_search.cu",
         "src/repro/kernels/insitu_search.py:268",
-        [align_shape(f"search: ({s},) in ({uk.numel()},), {n_unique} unique",
-                     key, uk)]))
-    del uk
+        [align_shape(shape, key, uk)]))
+    del uk, row
+
+    # K3 on a skewed product stream at the same widths, both entries
+    pk, row, uk = skewed_stream(k_a, n, k_b, a.n_rows, b.n_cols,
+                                device=key.device)
+    shape = (f"skewed: ({pk.numel()},) in ({uk.numel()},), 40% of A's "
+             f"slots in 4 rows of C")
+    rows[-2]["shapes"].append(align_grouped_shape(shape, pk, uk, row,
+                                                  a.n_rows, b.n_cols))
+    rows[-1]["shapes"].append(align_shape(shape, pk, uk))
+    del pk, row, uk
+    torch.cuda.empty_cache()
 
     # K4: the bit-serial minima scan, at the main path's shape (the packed
     # stream of the faithful path's one-column cut) and over 2^20 keys of
@@ -694,10 +781,13 @@ def check_stream_kernel(a, b) -> dict:
 def check_numeric_kernels(a, b, structures, rows) -> None:
     """K1 and K3 at the warm phase's own shapes, each added to its kernel's
     row as a further shape: K1 on one slab group of A times all of B (one
-    step of the 'stream' structure's numeric loop), K3 on that step's packed
-    product keys against the 'stream' structure's keys, and on the 'sort'
-    structure's path: every packed product key of the full stream (dead
-    lanes packed as 0) against the structure's KEY_INVALID-padded keys."""
+    step of the 'stream' structure's numeric loop), with its device time
+    split from its call time; K3 on that step's packed product keys against
+    the 'stream' structure's keys (the flat kernel the loop runs, first in
+    its row, and the grouped one beside it), and on the 'sort' structure's
+    path: every packed product key of the full stream (dead lanes packed as
+    0) against the structure's KEY_INVALID-padded keys (the grouped kernel
+    the path runs, and the flat one beside it)."""
     import torch
     from repro_torch.core.spgemm import _product_keys
     from repro_torch.core.streaming import _slab_groups
@@ -708,21 +798,31 @@ def check_numeric_kernels(a, b, structures, rows) -> None:
     args = (a_val[:grp], a_idx[:grp], b.val, b.idx)
     n, k_b = b.val.shape
     lanes = grp * n * k_b
-    by_name["sccp_multiply"]["shapes"].append(held_pair(
+    step = held_pair(
         "sccp_multiply", lambda: k1.sccp_multiply(*args),
         lambda: k1.sccp_multiply_plain(*args), None,
         f"numeric step: ({grp},{n})x({n},{k_b})",
-        8 * (grp * n + n * k_b) + 12 * lanes, lanes))
+        8 * (grp * n + n * k_b) + 12 * lanes, lanes)
+    step["split"] = device_split("sccp_multiply", step["shape"],
+                                 lambda: k1.sccp_multiply(*args))
+    by_name["sccp_multiply"]["shapes"].append(step)
     for what, st, mul_args in (("numeric step", structures["stream"], args),
                                ("numeric", structures["sort"],
                                 (a.val, a.idx, b.val, b.idx))):
         val, row, col = k1.sccp_multiply(*mul_args)
         _, pk = _product_keys(row, col, b.n_cols)
-        del val, row, col
-        by_name["align_keys"]["shapes"].append(align_shape(
-            f"{what} ({st.plan.backend} structure): ({pk.numel()},) in "
-            f"({st.key.numel()},)", pk, st.key))
-        del pk
+        del val, col
+        shape = (f"{what} ({st.plan.backend} structure): ({pk.numel()},) "
+                 f"in ({st.key.numel()},)")
+        flat = align_shape(shape, pk, st.key)
+        by_name["align_product_keys"]["shapes"].append(align_grouped_shape(
+            shape, pk, st.key, row, st.n_rows, st.n_cols))
+        if what == "numeric step":       # the loop's own kernel: first
+            by_name["align_keys"]["shapes"].insert(0, flat)
+            by_name["align_keys"].update(flat)
+        else:
+            by_name["align_keys"]["shapes"].append(flat)
+        del pk, row
     torch.cuda.empty_cache()
 
 
@@ -964,24 +1064,26 @@ def numeric_stream_stage_ms(a, b, st, want) -> dict:
 def numeric_stage_ms(a, b, st) -> dict:
     """Host-clock ms of the warm phase's stages on a 'sort' structure
     (``spgemm._slot_sums`` step by step), each synchronised: K1, the packed
-    product keys, K3, the slot sum as the path runs it (dead and missing
+    product keys, K3 grouped by row of C (``ops.align_products``, as the
+    path runs it), the slot sum as the path runs it (dead and missing
     lanes spread over the dump slots) and, for comparison, the same sum
     with every such lane sent to one dump slot, and over the valid lanes
     only (their selection included)."""
     import torch
     from repro_torch.core import spgemm as sp
     from repro_torch.core.sccp import sccp_multiply
-    from repro_torch.kernels.insitu_search import align_keys
+    from repro_torch.kernels import ops
 
     ms = {}
     (val, row, col), ms["numeric_sccp_multiply"] = timed_ms(
         lambda: sccp_multiply(a, b))
     (valid, pk), ms["numeric_pack_keys"] = timed_ms(
         lambda: sp._product_keys(row, col, st.n_cols))
-    del row, col
+    del col
     val = torch.where(valid, val.reshape(-1), 0)
     (slot, hit), ms["numeric_align_keys"] = timed_ms(
-        lambda: align_keys(pk, st.key))
+        lambda: ops.align_products(pk, st.key, row, st.n_rows, st.n_cols))
+    del row
     hit &= valid
 
     def slot_sum():
@@ -1415,7 +1517,7 @@ def spmm_slice(seed: int):
     require(counts["sparse_mlp"]["nm_spmm"] == 2,
             f"SparseMLP launched K10 {counts['sparse_mlp']['nm_spmm']} times")
     for name in ("matmul_sparse_miss", "matmul_sparse_hit"):
-        for kname in ("sccp_multiply", "align_keys"):
+        for kname in ("sccp_multiply", "align_product_keys"):
             require(counts[name][kname] > 0, f"{name} skipped {kname}")
 
     # MoE: the same call on CPU tensors (the plain twins), same routing
@@ -1603,7 +1705,7 @@ def main(argv=None) -> int:
     # -- phase 3: the main path -------------------------------------------------
     counts, out = drive_paths(a, b, a_cut, b_cut, structures)
     require(counts["sort"]["sccp_multiply"] > 0, "sort path skipped K1")
-    for kname in ("sccp_multiply", "emit_sort", "align_keys"):
+    for kname in ("sccp_multiply", "emit_sort", "align_product_keys"):
         require(counts["search"][kname] > 0, f"search path skipped {kname}")
     require(counts["search_faithful_cut"]["minima_mask"] > 0,
             "faithful path skipped minima_mask")
@@ -1614,7 +1716,7 @@ def main(argv=None) -> int:
                              ("hash", ("sccp_multiply", "sort_tiles")),
                              ("stream", ("fused_slab_sort", "merge_runs")),
                              ("numeric_sort", ("sccp_multiply",
-                                               "align_keys")),
+                                               "align_product_keys")),
                              ("numeric_stream", ("sccp_multiply",
                                                  "align_keys"))):
         for kname in kernels_run:

@@ -308,15 +308,18 @@ def _slot_index(slot: torch.Tensor, hit: torch.Tensor,
 
 
 def _slot_sums(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
-               key: torch.Tensor, n_cols: int, out_cap: int, sums: torch.Tensor):
+               key: torch.Tensor, n_rows: int, n_cols: int, out_cap: int,
+               sums: torch.Tensor, *, grouped: bool = True):
     """Add every product's value into its output slot of ``sums``
-    (``_slot_sums_init``). The slot is K3's ``align_keys`` against the
-    structure's sorted keys (``#{key < pk}``, the reference's
-    ``searchsorted``); dead lanes, and valid products whose key is not there
-    (a stale structure), go to the dump slots. Returns the count of such
-    misses."""
+    (``_slot_sums_init``). The slot is K3 against the structure's sorted
+    keys (``#{key < pk}``, the reference's ``searchsorted``): grouped by row
+    of C (``ops.align_products``), or the flat ``align_keys`` where
+    ``grouped`` is False (a streaming step, under one slab a row); dead
+    lanes, and valid products whose key is not there (a stale structure),
+    go to the dump slots. Returns the count of such misses."""
     valid, pk = _product_keys(row, col, n_cols)
-    slot, hit = align_keys(pk, key)
+    slot, hit = (ops.align_products(pk, key, row, n_rows, n_cols) if grouped
+                 else align_keys(pk, key))
     hit &= valid                                   # dead lanes never count
     sums.index_add_(0, _slot_index(slot, hit, out_cap),
                     torch.where(valid, val.reshape(-1), 0))
@@ -333,7 +336,7 @@ def _numeric_scatter(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     slot and poisons ``Coo.ngroups`` past ``out_cap``, like a backend
     drop."""
     sums = _slot_sums_init(out_cap, val.dtype, val.device)
-    n_miss = _slot_sums(row, col, val, key, n_cols, out_cap, sums)
+    n_miss = _slot_sums(row, col, val, key, n_rows, n_cols, out_cap, sums)
     coo = _coo_from_slots(key, sums[:out_cap], nnz, out_cap=out_cap,
                           n_rows=n_rows, n_cols=n_cols)
     return _poison_overflow(coo, n_miss)
@@ -355,7 +358,8 @@ def _numeric_stream(a: EllRows, b: EllCols, key: torch.Tensor,
         sl = slice(g * group, (g + 1) * group)
         val, row, col = sccp_multiply(
             EllRows(val=a_val[sl], idx=a_idx[sl], n_rows=a.n_rows), b)
-        n_miss += _slot_sums(row, col, val, key, n_cols, out_cap, sums)
+        n_miss += _slot_sums(row, col, val, key, n_rows, n_cols, out_cap,
+                             sums, grouped=False)
     coo = _coo_from_slots(key, sums[:out_cap], nnz, out_cap=out_cap,
                           n_rows=n_rows, n_cols=n_cols)
     return _poison_overflow(coo, n_miss)

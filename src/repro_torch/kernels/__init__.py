@@ -2,7 +2,8 @@
 
   sccp_multiply — structured slab-pair multiply (paper Fig. 8)
   insitu_search — the paper's Alg. 1 / Fig. 11: emission sort, alignment
-                  search, bit-serial minima scan
+                  search (flat, and grouped by row of C), bit-serial
+                  minima scan
   bitonic_merge — the (key, value) row sort, the merge-path merge-tree
                   level with run-tail totals ('tiled', the bucket/table
                   sort) and the streaming engine's merge-and-compact step
@@ -32,6 +33,7 @@ WRAPPERS = {
     "sccp_multiply": sccp_multiply.sccp_multiply,
     "emit_sort": insitu_search.emit_sort_keys,
     "align_keys": insitu_search.align_keys,
+    "align_product_keys": insitu_search.align_product_keys,
     "minima_mask": insitu_search.minima_mask,
     "sort_tiles": bitonic_merge.sort_tiles,
     "merge_runs": bitonic_merge.merge_runs,

@@ -13,10 +13,26 @@ in this module and a launch counter on its wrapper:
   8-bit digit passes of three grids each (count, scan, stable scatter), or
   one grid in shared memory for a stream of at most 4,096 keys.
   Plain twin: ``torch.sort`` (the reference's own ``jnp.sort`` realization).
-* ``align_keys`` replaces ``_make_align_kernel``: ``slot = #{uk < pk}``,
-  ``hit = pk ∈ uk``. The TPU kernel's O(S·u) broadcast compare becomes one
-  lower-bound binary search per product key, O(S log u), bound by bytes.
-  Plain twin: ``torch.searchsorted`` (the reference's ``searchsorted``).
+* ``align_keys`` and ``align_product_keys`` replace ``_make_align_kernel``:
+  ``slot = #{uk < pk}``, ``hit = pk ∈ uk``, bound by bytes. The TPU
+  kernel's O(S·u) broadcast compare becomes lower-bound binary searches,
+  O(S log u). ``align_keys`` searches all of ``uk`` for each key (the
+  streaming step's kernel). ``align_product_keys`` takes the keys in SCCP's
+  (k_a, n, k_b) lane order with each (s, c) group's row of C: the groups
+  are sorted by row (``ell_spmm``'s CSR transpose), and one block a row
+  reads that row's segment of ``uk`` once into shared memory, as a bitmap
+  of its columns with popcount prefixes (a binary search of the segment in
+  place, in rows wider than 131,072 columns or with equal keys), and ranks
+  every lane of the row's groups there, so each segment is read once a
+  call, not once a slab; a row's lanes past the first ``ROW_LANES`` are cut
+  into runs of ``ROW_LANES``, one more block each, so a heavy row gets as
+  many blocks as its lanes need. Any lane outside its block's row searches
+  its own key's segment in device memory, so the answer does not rest on
+  the grouping. Its lanes are 32-bit: a stream it does not take
+  (``grouped_fits``) takes ``align_keys`` (``ops.align_products`` routes
+  it).
+  Plain twin of both: ``torch.searchsorted`` (the reference's
+  ``searchsorted``).
 * ``minima_mask`` replaces ``_minima_kernel``: the 31-step bit scan, high bit
   to low, kept bit-serial on purpose, one block ending each bit with a
   block-wide OR. Plain twin: one min and a compare (``minima_mask_xla``).
@@ -34,7 +50,7 @@ import ctypes
 
 import torch
 
-from . import _build, radix_sort
+from . import _build, ell_spmm, radix_sort
 
 KEY_INVALID = 2 ** 31 - 1          # INT32_MAX: dead lane / consumed row
 EMIT_TILE = 4096                   # the reference's tile (unused by the sort)
@@ -231,3 +247,75 @@ def align_keys(pk: torch.Tensor, uk: torch.Tensor):
 
 
 align_keys.launches = 0
+
+
+ROW_LANES = 65536               # lanes a row block takes at most (the .cu's)
+
+
+def grouped_fits(n: int, u: int, n_rows: int) -> bool:
+    """Whether ``align_product_keys`` takes ``n`` product keys against
+    ``u`` unique keys in ``n_rows`` rows of C: its lanes are 32-bit, and its
+    row grid (a block a row, and one for each ``ROW_LANES`` of the stream)
+    holds fewer than 2³¹ blocks."""
+    return max(n, u) < 2 ** 31 and n_rows + -(-n // ROW_LANES) < 2 ** 31
+
+
+def align_scratch_ints(groups: int, n_rows: int) -> int:
+    """int32 scratch of one ``align_product_keys`` call: the CSR transpose
+    of the ``groups`` group rows, then ``n_rows + 1`` row bounds of uk."""
+    return ell_spmm.scratch_ints(1, groups, n_rows) + n_rows + 1
+
+
+def align_grids(n: int, groups: int, k_b: int, n_rows: int) -> int:
+    """Grids one ``align_product_keys`` call launches on ``n`` product keys:
+    the transpose of the groups (as ``ell_spmm.grids`` counts it, less the
+    gather), the row bounds of uk, the row blocks (none without rows) and
+    the loose lanes; none for an empty stream."""
+    if n == 0:
+        return 0
+    groups = groups if k_b else 0
+    sort = 0 if groups == 0 else 1 if groups <= ell_spmm.TILE \
+        else 3 * ell_spmm.transpose_passes(n_rows)
+    return sort + 1 + 1 + (1 if n_rows else 0) + 1
+
+
+def align_product_keys(pk: torch.Tensor, uk: torch.Tensor,
+                       group_row: torch.Tensor, *, k_b: int, n_rows: int,
+                       n_cols: int):
+    """``align_keys(pk, uk)``, lane for lane and bit for bit, on a product
+    stream in SCCP's (k_a, n, k_b) lane order: ``group_row`` (k_a, n) (any
+    shape of ``k_a·n`` lanes, contiguous) holds the row of C of each (s, c)
+    group, whose ``k_b`` keys are ``pk[g·k_b : (g+1)·k_b]``; lanes past
+    ``k_a·n·k_b`` are padding. Keys are packed ``row·n_cols + col`` with
+    ``n_rows·n_cols < 2³¹ − 1``, and ``grouped_fits`` holds (CUDA operands
+    raise otherwise).
+    ``group_row`` only orders the work: a wrong or out-of-range row changes
+    no answer."""
+    flat = group_row.view(-1) if group_row.is_contiguous() else group_row
+    if not _cuda_operands("align_product_keys", pk, uk, flat):
+        return align_keys_plain(pk, uk)
+    groups, n = flat.numel(), pk.numel()
+    if k_b < 0 or groups * k_b > n or n_rows < 0 or n_cols < 0 \
+            or n_rows * n_cols >= KEY_INVALID \
+            or not grouped_fits(n, uk.numel(), n_rows):
+        raise ValueError(f"align_product_keys: {groups} groups of {k_b} "
+                         f"lanes over {n} keys in a {n_rows}x{n_cols} space")
+    slot = torch.empty(pk.shape, dtype=torch.int32, device=pk.device)
+    hit = torch.empty(pk.shape, dtype=torch.bool, device=pk.device)
+    scratch = torch.empty(align_scratch_ints(groups, n_rows),
+                          dtype=torch.int32, device=pk.device)
+    lib, fn = _fn("align_product_keys", *[_P] * 6, *[_L] * 7,
+                  ctypes.POINTER(ctypes.c_int), _P)
+    launched = ctypes.c_int(0)
+    with _build.on_device(pk.device):
+        err = fn(pk.data_ptr(), uk.data_ptr(), flat.data_ptr(),
+                 slot.data_ptr(), hit.data_ptr(), scratch.data_ptr(),
+                 scratch.numel(), n, uk.numel(), groups, k_b, n_rows, n_cols,
+                 ctypes.byref(launched),
+                 torch.cuda.current_stream(pk.device).cuda_stream)
+    align_product_keys.launches += launched.value
+    _build.check(lib, _LIB, err)
+    return slot, hit
+
+
+align_product_keys.launches = 0

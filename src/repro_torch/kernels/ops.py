@@ -91,14 +91,33 @@ def sort_merge(row, col, val, n_rows: int, n_cols: int, *, tile: int = 4096):
     return sort_merge_tree(key, val, tile=tile)
 
 
+def align_products(key, uk, row, n_rows: int, n_cols: int):
+    """K3 on the packed keys ``key`` of a product stream: ``(slot, hit)``
+    against the ascending unique keys ``uk``. Where ``row`` is SCCP's
+    (k_a, n, k_b) row plane, ``insitu_search.align_product_keys`` groups the
+    work by row of C, each (s, c) group's row being its lane t = 0 (its
+    first B slot, valid first under ELLPACK; a group whose first lane is
+    dead has row −1, and its lanes are searched in device memory, with the
+    same answer). Any other stream, one without B slots, or one the grouped
+    kernel does not take (``insitu_search.grouped_fits``: 2³¹ keys or
+    unique keys or more) takes the flat ``align_keys``."""
+    if row.dim() != 3 or row.shape[2] == 0 or not insitu_search.grouped_fits(
+            key.numel(), uk.numel(), n_rows):
+        return insitu_search.align_keys(key, uk)
+    group_row = row[:, :, 0].contiguous().to(torch.int32)
+    return insitu_search.align_product_keys(key, uk, group_row,
+                                            k_b=row.shape[2], n_rows=n_rows,
+                                            n_cols=n_cols)
+
+
 def search_merge(row, col, val, n_rows: int, n_cols: int, *,
                  out_cap: int, faithful: bool = False):
     """The paper's in-situ-search accumulation (Alg. 1 / Fig. 11).
 
     ``insitu_search.emit_sorted_unique`` produces the sorted unique keys
     (the emission sort, or the literal iterated Alg. 1 scan with
-    ``faithful=True``) and ``insitu_search.align_keys`` locates each
-    product's slot in that list; the values are never sorted. Returns
+    ``faithful=True``) and K3 (``align_products``) locates each product's
+    slot in that list; the values are never sorted. Returns
     ``(uk, sums, nnz)``: the (out_cap,) sorted unique keys with KEY_INVALID
     padding, the per-slot value totals, and the TRUE unique count
     (``nnz > out_cap`` flags truncation; the kept slots are the first
@@ -106,7 +125,7 @@ def search_merge(row, col, val, n_rows: int, n_cols: int, *,
     """
     key, v = _packed_or_raise(row, col, val, n_rows, n_cols)
     uk, nnz = insitu_search.emit_sorted_unique(key, out_cap, faithful=faithful)
-    slot, hit = insitu_search.align_keys(key, uk)
+    slot, hit = align_products(key, uk, row, n_rows, n_cols)
     ok = (key != KEY_INVALID) & hit
     slot = torch.where(ok, slot, out_cap)
     sums = torch.zeros(out_cap + 1, dtype=v.dtype, device=v.device)

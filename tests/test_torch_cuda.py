@@ -59,6 +59,49 @@ def test_sccp_multiply_kernel(cuda, k_a, n, k_b):
         tsm.sccp_multiply(args[0].double(), *args[1:])
 
 
+@pytest.mark.parametrize("k_a,n,k_b", [(1, 45000, 72), (3, 1001, 7),
+                                       (2, 5, 2), (1, 3, 1)])
+def test_sccp_multiply_kernel_edges(cuda, k_a, n, k_b):
+    """Integer-valued operands: a one-slab call (the streaming step's
+    shape), n·k_b not a multiple of 4 (scalar stores on the misaligned
+    slabs, a partial last quad), fewer lanes than one quad."""
+    rng = np.random.default_rng(k_a * n + k_b)
+    a_val = rng.integers(-4, 5, (k_a, n)).astype(np.float32)
+    b_val = rng.integers(-4, 5, (n, k_b)).astype(np.float32)
+    a_idx = rng.integers(-1, 9, (k_a, n)).astype(np.int32)
+    b_idx = rng.integers(-1, 9, (n, k_b)).astype(np.int32)
+    args = [torch.from_numpy(t).to(cuda) for t in (a_val, a_idx, b_val,
+                                                   b_idx)]
+    got = tsm.sccp_multiply(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, tsm.sccp_multiply_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k_b", [72, 5])
+def test_sccp_multiply_kernel_row_slices(cuda, k_b):
+    """A row slice of A, as the warm 'stream' loop passes one slab group
+    (``a_val[sl]``), and B starting one row in, so B's planes lie 16-byte
+    aligned (k_b = 72) or not (k_b = 5: scalar loads): the plain twin's
+    planes bit for bit."""
+    rng = np.random.default_rng(k_b)
+    n = 2003
+    a_val = torch.from_numpy(rng.integers(-4, 5, (6, n)).astype(np.float32))
+    a_idx = torch.from_numpy(rng.integers(-1, 40, (6, n)).astype(np.int32))
+    b_val = torch.from_numpy(rng.integers(-4, 5, (n + 1, k_b))
+                             .astype(np.float32))
+    b_idx = torch.from_numpy(rng.integers(-1, 40, (n + 1, k_b))
+                             .astype(np.int32))
+    a_val, a_idx, b_val, b_idx = (t.to(cuda) for t in (a_val, a_idx, b_val,
+                                                       b_idx))
+    for sl in (slice(1, 2), slice(2, 5)):
+        args = (a_val[sl], a_idx[sl], b_val[1:], b_idx[1:])
+        got = tsm.sccp_multiply(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, tsm.sccp_multiply_plain(*args)):
+            assert torch.equal(g, w)
+
+
 def _radix_grids(row):
     """Grids of one radix sort: one in shared memory for a row of at most a
     tile, else a count, a scan and a scatter for each digit."""
@@ -115,6 +158,119 @@ def test_align_keys_kernel(cuda, s, u, pad):
     slot_p, hit_p = tis.align_keys_plain(pk, uk)
     torch.cuda.synchronize()
     assert torch.equal(slot, slot_p) and torch.equal(hit, hit_p)
+
+
+def _product_stream(seed, k_a, n, k_b, n_rows, n_cols, *, dead_as=KI,
+                    pad=True, dead=0.3, heavy=0.0):
+    """K3's operands as the main path forms them: packed keys of SCCP's
+    (k_a, n, k_b) lanes (dead lanes packed as ``dead_as``: KEY_INVALID on
+    the cold 'search' path, 0 on the warm one), padded with KEY_INVALID to
+    a power of two where ``pad``, B's valid slots first, and each group's
+    row as ``ops.align_products`` takes it (A's row where the group's first
+    B slot is valid, else −1). A share ``heavy`` of A's slots fall in rows
+    0 and 1 (skewed rows)."""
+    rng = np.random.default_rng(seed)
+    a_idx = np.where(rng.random((k_a, n)) < 1 - dead,
+                     rng.integers(0, n_rows, (k_a, n)), -1)
+    a_idx = np.where((a_idx >= 0) & (rng.random((k_a, n)) < heavy),
+                     a_idx % 2, a_idx)
+    nb = rng.binomial(k_b, 1 - dead, n)
+    b_idx = np.where(np.arange(k_b)[None, :] < nb[:, None],
+                     rng.integers(0, n_cols, (n, k_b)), -1)
+    row = np.broadcast_to(a_idx[:, :, None], (k_a, n, k_b))
+    col = np.broadcast_to(b_idx[None, :, :], (k_a, n, k_b))
+    ok = (row >= 0) & (col >= 0)
+    pk = np.where(ok, row * n_cols + col, dead_as).reshape(-1)
+    if pad:
+        pot = 1 << max(0, pk.size - 1).bit_length()
+        pk = np.concatenate([pk, np.full(pot - pk.size, KI)])
+    group_row = np.where(b_idx[None, :, 0] >= 0, a_idx, -1)
+    return pk.astype(np.int32), group_row.astype(np.int32)
+
+
+def _unique_keys(rng, pk, *, stale=False, equal=False, pad=0):
+    """The ascending unique keys of ``pk`` (a structure's or the emission's
+    ``uk``; key 0 left out, as dead lanes may be packed as 0); ``stale``
+    drops a tenth of them and adds keys no product has; ``equal`` repeats
+    every seventh (an ascending list that is not unique); ``pad``
+    KEY_INVALID slots after them."""
+    uk = np.unique(pk[(pk != KI) & (pk > 0)])
+    if stale and uk.size:
+        uk = uk[rng.random(uk.size) > 0.1]
+        uk = np.unique(np.concatenate([uk, rng.integers(0, uk.max() + 9,
+                                                        uk.size // 10)]))
+    if equal:
+        uk = np.sort(np.concatenate([uk, uk[::7]]))
+    return np.concatenate([uk, np.full(pad, KI)]).astype(np.int32)
+
+
+ALIGN_CASES = {
+    # name: (k_a, n, k_b, n_rows, n_cols, stream kwargs, uk kwargs)
+    "search": (6, 700, 9, 300, 310, {}, {}),
+    "numeric": (6, 700, 9, 300, 310, dict(dead_as=0, pad=False),
+                dict(pad=77)),
+    "empty_rows": (2, 50, 5, 4000, 4000, {}, {}),
+    "long_rows": (8, 3000, 8, 4, 40000, {}, dict(pad=3)),
+    "wide_rows": (8, 3000, 8, 4, 200000, {}, dict(pad=3)),
+    "wide_short": (4, 500, 8, 4, 300000, dict(dead_as=0, pad=False), {}),
+    "equal_keys": (6, 700, 9, 300, 310, {}, dict(equal=True)),
+    "few_rows": (16, 5000, 64, 4, 4000, dict(dead_as=0, pad=False), {}),
+    "skewed_rows": (16, 5000, 64, 300, 4000,
+                    dict(dead_as=0, pad=False, heavy=0.5), {}),
+    "stale": (5, 900, 11, 200, 250, dict(dead_as=0, pad=False),
+              dict(stale=True, pad=5)),
+    "no_unique": (3, 64, 4, 16, 16, dict(dead=1.0), {}),
+    "one_lane": (1, 1, 1, 1, 1, dict(pad=False), {}),
+    "bcsstk32_cut": (16, 5000, 16, 5000, 5000, dict(dead_as=0, pad=False),
+                     {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ALIGN_CASES))
+def test_align_product_keys_kernel(cuda, case):
+    """The grouped K3 against the plain twin (``torch.searchsorted``) bit
+    for bit, and the flat kernel: dead lanes of A and B packed as
+    KEY_INVALID or 0, the power-of-two padding, empty rows of C, rows
+    ranked in a bitmap (n_cols up to 131,072) and rows searched in place
+    (wider, with long and short segments), equal keys in uk (searched),
+    four rows of 1.28M lanes each (cut into runs, one a block), two rows of
+    ~1.3M lanes among 298 light ones (as many blocks as each row's lanes
+    need), a stale uk, u = 0 and one lane;
+    then the same keys under group rows drawn at random (wrong, out of
+    range); the grids one call launches."""
+    k_a, n, k_b, n_rows, n_cols, skw, ukw = ALIGN_CASES[case]
+    rng = np.random.default_rng(len(case))
+    pk, group_row = _product_stream(n + k_b, k_a, n, k_b, n_rows, n_cols,
+                                    **skw)
+    uk = _unique_keys(rng, pk, **ukw)
+    wrong = rng.integers(-3, n_rows + 3, group_row.shape).astype(np.int32)
+    pk, uk = torch.from_numpy(pk).to(cuda), torch.from_numpy(uk).to(cuda)
+    want = tis.align_keys_plain(pk, uk)
+    for rows in (group_row, wrong):
+        before = tis.align_product_keys.launches
+        got = tis.align_product_keys(pk, uk, torch.from_numpy(rows).to(cuda),
+                                     k_b=k_b, n_rows=n_rows, n_cols=n_cols)
+        torch.cuda.synchronize()
+        assert tis.align_product_keys.launches - before == tis.align_grids(
+            pk.numel(), rows.size, k_b, n_rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    flat = tis.align_keys(pk, uk)
+    assert torch.equal(flat[0], want[0]) and torch.equal(flat[1], want[1])
+
+
+def test_align_product_keys_kernel_checks(cuda):
+    """A wrong dtype or layout, or groups that overrun the keys, raise."""
+    pk, group_row = _product_stream(3, 2, 40, 3, 20, 20)
+    pk = torch.from_numpy(pk).to(cuda)
+    uk = torch.unique(pk)
+    rows = torch.from_numpy(group_row).to(cuda)
+    kw = dict(k_b=3, n_rows=20, n_cols=20)
+    with pytest.raises(TypeError):
+        tis.align_product_keys(pk, uk, rows.long(), **kw)
+    with pytest.raises(TypeError):
+        tis.align_product_keys(pk, uk, rows.T, **kw)
+    with pytest.raises(ValueError):
+        tis.align_product_keys(pk[:100], uk, rows, **kw)
 
 
 @pytest.mark.parametrize("n,hi,dead", [(1, 8, 0.0), (1000, 4, 0.2),
@@ -546,7 +702,12 @@ def test_numeric_phase_on_card(cuda, backend):
     counts = kernels.launch_counts()
     for f in ("row", "col", "val", "ngroups"):
         assert torch.equal(getattr(warm, f), getattr(cold, f)), f
-    assert counts["sccp_multiply"] > 0 and counts["align_keys"] > 0
+    assert counts["sccp_multiply"] > 0
+    # a 'sort' structure aligns grouped by row of C; the 'stream' loop's
+    # one-slab steps keep the flat kernel
+    grouped = backend == "sort"
+    assert (counts["align_product_keys"] > 0) == grouped
+    assert (counts["align_keys"] > 0) != grouped
     a2 = a.copy()                  # move one nonzero within its column
     r, c = np.argwhere(a2 != 0)[0]
     z = np.flatnonzero(a2[:, c] == 0)[0]

@@ -135,6 +135,367 @@ def test_align_keys_matches_reference(u, pad):
         _eq(hit, ihit)
 
 
+# The grouped design of K3 (csrc/insitu_search.cu align_product_keys),
+# emulated on the CPU lane by lane: the groups sorted stably by row (the CSR
+# transpose), the row bounds of uk, the row blocks (each row's first
+# ``row_lanes`` lanes, then the lanes past them in runs of ``row_lanes`` of
+# all the rows' lanes) reading their row's segment of uk into a bitmap of
+# its columns with popcount prefixes (or, for wide rows and equal keys,
+# searching it in place), and the loose lanes (keys outside their block's
+# row, groups outside [0, n_rows), the padding) searching their own key's
+# segment. Every read of uk goes through a guard that fails outside the
+# segment the design allows, and every lane must be written exactly once.
+# The kernels themselves run only on the card (tests/test_torch_cuda.py).
+
+class _Segment:
+    """uk[lo, hi); reading any other lane is a fault of the design."""
+
+    def __init__(self, uk, lo, hi):
+        self.uk, self.lo, self.hi = uk, lo, hi
+
+    def __getitem__(self, p):
+        assert 0 <= p < self.hi - self.lo, (p, self.lo, self.hi)
+        return int(self.uk[self.lo + p])
+
+
+def _lower_bound(seg, n, x):
+    lo, hi = 0, n
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if seg[mid] < x:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _row_bitmap(seg, n, key_lo, n_cols):
+    """A row block's bitmap of its segment's columns and each word's
+    exclusive popcount prefix; None where two keys are equal (they would
+    share a bit)."""
+    bits = np.zeros(-(-n_cols // 32), np.uint64)
+    for i in range(n):
+        c = seg[i] - key_lo
+        assert 0 <= c < n_cols, c
+        if i > 0 and seg[i - 1] >= seg[i]:
+            return None
+        bits[c >> 5] |= np.uint64(1 << (c & 31))
+    pops = np.array([bin(int(w)).count("1") for w in bits], np.int64)
+    return bits, np.concatenate([[0], np.cumsum(pops)[:-1]])
+
+
+def _row_runs(rowptr, n_rows, k_b, groups, row_lanes):
+    """The row kernel's blocks as (row, j_lo, j_hi) runs, block by block:
+    block r < n_rows takes row r's lanes [0, row_lanes); block n_rows + e
+    the lanes at or past ``row_lanes`` of the rows at the two ends of the e-th
+    ``row_lanes`` of the rows' lanes in sorted order (the kernel's
+    ``row_of``, a binary search of ``rowptr``)."""
+    def row_of(g):
+        lo, hi = 0, n_rows
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if rowptr[mid + 1] <= g:
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    blocks = [[(r, 0, min((rowptr[r + 1] - rowptr[r]) * k_b, row_lanes))]
+              for r in range(n_rows)]
+    end = rowptr[n_rows] * k_b
+    for e in range(-(-groups * k_b // row_lanes)):
+        p0, runs = e * row_lanes, []
+        if p0 < end:
+            p1 = min(p0 + row_lanes, end)
+            for r in sorted({row_of(p0 // k_b), row_of((p1 - 1) // k_b)}):
+                base, lanes = rowptr[r] * k_b, (rowptr[r + 1] - rowptr[r]) * k_b
+                runs.append((r, max(p0 - base, row_lanes), min(p1 - base,
+                                                                lanes)))
+        blocks.append(runs)
+    return [[run for run in b if run[1] < run[2]] for b in blocks]
+
+
+def _emulate_align_grouped(pk, uk, group_row, k_b, n_rows, n_cols,
+                           bitmap_cols, row_lanes):
+    """(slot, hit) as the grouped design computes them: a row's segment as
+    a bitmap where ``n_cols <= bitmap_cols``, else (or with equal keys)
+    searched in place; the row blocks of ``_row_runs``, each taking at most
+    ``row_lanes`` lanes and reading its row's segment again."""
+    n, u, groups = pk.size, uk.size, group_row.size
+    if k_b == 0:
+        groups = 0
+    row_key = np.where((group_row >= 0) & (group_row < n_rows), group_row,
+                       n_rows)[:groups]
+    ids = np.argsort(row_key, kind="stable")
+    rowptr = [int(x) for x in
+              np.searchsorted(row_key[ids], np.arange(n_rows + 1))]
+    whole = _Segment(uk, 0, u)
+    bnd = [_lower_bound(whole, u, r * n_cols) for r in range(n_rows + 1)]
+    slot, hit = np.full(n, -1, np.int64), np.full(n, -1, np.int8)
+
+    def put(lane, lo, p, seg, ln, x):
+        assert slot[lane] == -1, lane                 # written once
+        slot[lane] = lo + p
+        hit[lane] = p < ln and seg[p] == x
+
+    def loose(lane):
+        x = int(pk[lane])
+        if x < 0:
+            lo, hi = 0, bnd[0]
+        elif x >= n_rows * n_cols:
+            lo, hi = bnd[n_rows], u
+        else:
+            lo, hi = bnd[x // n_cols], bnd[x // n_cols + 1]
+        seg = _Segment(uk, lo, hi)
+        put(lane, lo, _lower_bound(seg, hi - lo, x), seg, hi - lo, x)
+
+    blocks = _row_runs(rowptr, n_rows, k_b, groups, row_lanes) \
+        if n_rows else []
+    for runs in blocks:
+        assert sum(j_hi - j_lo for _, j_lo, j_hi in runs) <= row_lanes
+        for r, j_lo, j_hi in runs:
+            g0 = rowptr[r]
+            lo, hi = bnd[r], bnd[r + 1]
+            seg = _Segment(uk, lo, hi)
+            bitmap = _row_bitmap(seg, hi - lo, r * n_cols, n_cols) \
+                if n_cols <= bitmap_cols else None
+            for j in range(j_lo, j_hi):
+                lane = int(ids[g0 + j // k_b]) * k_b + j % k_b
+                x = int(pk[lane])
+                if not r * n_cols <= x < (r + 1) * n_cols:
+                    loose(lane)
+                elif bitmap is not None:
+                    c = x - r * n_cols
+                    w = int(bitmap[0][c >> 5])
+                    assert slot[lane] == -1, lane
+                    slot[lane] = lo + bitmap[1][c >> 5] + bin(
+                        w & ((1 << (c & 31)) - 1)).count("1")
+                    hit[lane] = (w >> (c & 31)) & 1
+                else:
+                    put(lane, lo, _lower_bound(seg, hi - lo, x), seg,
+                        hi - lo, x)
+    for pos in range(rowptr[n_rows] if n_rows else 0, groups):
+        for t in range(k_b):
+            loose(int(ids[pos]) * k_b + t)
+    for lane in range(groups * k_b, n):
+        loose(lane)
+    assert (slot >= 0).all() and (hit >= 0).all()      # every lane written
+    return slot.astype(np.int32), hit.astype(bool)
+
+
+def _product_stream(rng, k_a, n, k_b, n_rows, n_cols, *, dead_as=KI,
+                    pad=True, dead=0.3, heavy=0.0):
+    """K3's operands as the main path forms them: packed keys of SCCP's
+    (k_a, n, k_b) lanes, dead lanes (in A and in B, B's valid slots first)
+    packed as ``dead_as`` (KEY_INVALID cold, 0 warm), padded with
+    KEY_INVALID to a power of two where ``pad``; each group's row as
+    ``ops.align_products`` takes it (−1 where its first B slot is dead).
+    A share ``heavy`` of A's slots fall in rows 0 and 1 (skewed rows)."""
+    a_idx = np.where(rng.random((k_a, n)) < 1 - dead,
+                     rng.integers(0, max(n_rows, 1), (k_a, n)), -1)
+    a_idx = np.where((a_idx >= 0) & (rng.random((k_a, n)) < heavy),
+                     a_idx % 2, a_idx)
+    nb = rng.binomial(k_b, 1 - dead, n)
+    b_idx = np.where(np.arange(k_b)[None, :] < nb[:, None],
+                     rng.integers(0, max(n_cols, 1), (n, k_b)), -1)
+    row = np.broadcast_to(a_idx[:, :, None], (k_a, n, k_b))
+    col = np.broadcast_to(b_idx[None, :, :], (k_a, n, k_b))
+    ok = (row >= 0) & (col >= 0)
+    pk = np.where(ok, row * n_cols + col, dead_as).reshape(-1)
+    if pad:
+        pot = 1 << max(0, pk.size - 1).bit_length()
+        pk = np.concatenate([pk, np.full(pot - pk.size, KI)])
+    group_row = np.where(b_idx[None, :, 0] >= 0, a_idx, -1)
+    return pk.astype(np.int32), group_row.astype(np.int32)
+
+
+ALIGN_CASES = {
+    # name: (k_a, n, k_b, n_rows, n_cols, bitmap_cols, row_lanes, stream
+    #        kwargs, uk kind)
+    "search": (4, 60, 6, 50, 70, 1 << 17, 1 << 16, {}, "exact"),
+    "numeric": (4, 60, 6, 50, 70, 1 << 17, 1 << 16, dict(dead_as=0, pad=False),
+                "padded"),
+    "empty_rows": (2, 20, 5, 300, 300, 1 << 17, 1 << 16, {}, "exact"),
+    "searched_rows": (4, 60, 6, 50, 70, 0, 1 << 16, dict(dead_as=0, pad=False),
+                      "padded"),
+    "long_rows": (6, 80, 6, 3, 400, 0, 64, {}, "padded"),
+    "equal_keys": (4, 60, 6, 20, 70, 1 << 17, 1 << 16, {}, "equal"),
+    "stale": (5, 50, 7, 40, 45, 1 << 17, 1 << 16, dict(dead_as=0, pad=False),
+              "stale"),
+    "no_unique": (3, 16, 4, 8, 8, 1 << 17, 1 << 16, dict(dead=1.0), "padded"),
+    "empty_uk": (3, 16, 4, 8, 8, 1 << 17, 1 << 16, dict(dead_as=0, pad=False),
+                 "empty"),
+    "wrong_rows": (4, 60, 6, 50, 70, 1 << 17, 1 << 16, {}, "wrong"),
+    "no_groups": (0, 0, 4, 8, 8, 1 << 17, 1 << 16, dict(pad=False), "padded"),
+    "few_rows": (6, 80, 6, 3, 90, 1 << 17, 16, dict(dead_as=0, pad=False),
+                 "padded"),
+    "skewed_rows": (6, 80, 6, 40, 90, 1 << 17, 24,
+                    dict(dead_as=0, pad=False, heavy=0.5), "padded"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ALIGN_CASES))
+def test_align_grouped_design_matches_reference(case):
+    """Emulated, the grouped K3 design gives the flat answer bit for bit:
+    ``align_keys_plain`` and ``align_product_keys``'s CPU route, the
+    reference's XLA ``align_keys_xla`` and, where it pads ``uk`` alike, its
+    Pallas ``align_keys`` in interpret mode. Cases: dead lanes in A and in
+    B packed as KEY_INVALID or 0, the power-of-two padding, empty rows of
+    C, rows searched in place rather than ranked in a bitmap (short rows,
+    and long rows cut into several blocks), equal keys in ``uk`` (which a
+    bitmap cannot rank, so the row is searched), rows cut into several
+    blocks' runs (few rows; and two heavy rows among light ones, each block
+    at most ``row_lanes`` lanes), a stale ``uk`` that misses keys
+    and holds keys no product has, no unique key (``uk`` all padding),
+    group rows drawn at random (wrong and out of range) and no groups at
+    all; and ``u = 0``, which the reference's realizations do not take
+    (they index ``uk``), against the plain twin alone."""
+    k_a, n, k_b, n_rows, n_cols, bitmap_cols, row_lanes, skw, kind = \
+        ALIGN_CASES[case]
+    rng = np.random.default_rng(len(case) + k_a * n)
+    pk, group_row = _product_stream(rng, k_a, n, k_b, n_rows, n_cols, **skw)
+    if pk.size == 0:
+        pk = np.full(8, KI, np.int32)                # padding lanes only
+    uk = np.unique(pk[(pk != KI) & (pk != 0)]) if kind != "empty" \
+        else np.zeros(0, np.int32)
+    if kind == "stale":
+        uk = np.unique(np.concatenate([uk[rng.random(uk.size) > 0.2],
+                                       rng.integers(0, n_rows * n_cols, 9)]))
+    if kind == "equal":
+        uk = np.sort(np.concatenate([uk, uk[::7]]))
+    if kind in ("padded", "stale"):
+        uk = np.concatenate([uk, np.full(5, KI)])
+    if kind == "wrong":
+        group_row = rng.integers(-3, n_rows + 3, group_row.shape)
+    uk, group_row = uk.astype(np.int32), group_row.astype(np.int32)
+    got = _emulate_align_grouped(pk, uk, group_row.reshape(-1), k_b, n_rows,
+                                 n_cols, bitmap_cols, row_lanes)
+    if case in ("long_rows", "few_rows", "skewed_rows"):   # rows are cut
+        lanes = np.bincount(group_row[group_row >= 0], minlength=n_rows) * k_b
+        assert lanes.max() > 2 * row_lanes
+    tpk, tuk = torch.from_numpy(pk), torch.from_numpy(uk)
+    wants = [tis.align_keys_plain(tpk, tuk),
+             tis.align_product_keys(tpk, tuk, torch.from_numpy(group_row),
+                                    k_b=k_b, n_rows=n_rows, n_cols=n_cols)]
+    if uk.size:
+        wants.append(ref_is.align_keys_xla(jnp.asarray(pk), jnp.asarray(uk)))
+    for want in wants:
+        _eq(got[0], want[0])
+        _eq(got[1], want[1])
+    if uk.size and (uk.size % 512 == 0 or uk[-1] == KI):
+        want = ref_is.align_keys(jnp.asarray(pk), jnp.asarray(uk),
+                                 interpret=True)
+        _eq(got[0], want[0])
+        _eq(got[1], want[1])
+    assert tis.align_product_keys.launches == 0      # plain twin on the CPU
+
+
+@pytest.mark.parametrize("rows,k_b,row_lanes", [
+    ([5, 0, 3, 200, 1, 0, 90], 3, 16), ([0, 0], 4, 8), ([1000], 1, 64),
+    ([7] * 40, 2, 16), ([3, 500, 3, 500, 3], 5, 100)])
+def test_align_row_runs_follow_each_rows_lanes(rows, k_b, row_lanes):
+    """The row kernel's blocks take every lane of every row exactly once,
+    at most ``row_lanes`` a block, and a row's blocks follow its own lane
+    count: at least ceil(lanes / row_lanes) and at most two more, whatever
+    the other rows hold."""
+    rowptr = np.concatenate([[0], np.cumsum(rows)]).tolist()
+    blocks = _row_runs(rowptr, len(rows), k_b, rowptr[-1], row_lanes)
+    taken = [np.zeros(g * k_b, int) for g in rows]
+    per_row = np.zeros(len(rows), int)
+    for runs in blocks:
+        assert sum(hi - lo for _, lo, hi in runs) <= row_lanes
+        for r, lo, hi in runs:
+            taken[r][lo:hi] += 1
+            per_row[r] += 1
+    assert all((t == 1).all() for t in taken)
+    for r, g in enumerate(rows):
+        need = -(-g * k_b // row_lanes)
+        assert need <= per_row[r] <= need + 2, (r, per_row[r], need)
+
+
+def test_align_products_routes_long_streams_to_flat(monkeypatch):
+    """``ops.align_products`` sends a product stream to the grouped entry
+    while its keys and unique keys number under 2³¹ and its row grid (a
+    block a row of C, one for each 65,536 keys) under 2³¹ blocks, and to the
+    flat ``align_keys`` past either (the grouped kernel's lanes are 32-bit),
+    as it does a stream without SCCP's row plane. Meta tensors: no memory."""
+    from repro_torch.kernels import ops
+    calls = []
+    for name in ("align_keys", "align_product_keys"):
+        monkeypatch.setattr(tis, name, lambda *a, _n=name, **kw: (
+            calls.append(_n), None)[1])
+    row = torch.empty((1, 4, 8), dtype=torch.int64, device="meta")
+    for n, u, n_rows, want in (
+            (2 ** 31 - 1, 5, 8, "align_product_keys"),
+            (2 ** 31, 5, 8, "align_keys"),
+            (64, 2 ** 31, 8, "align_keys"),
+            (64, 2 ** 31 - 1, 8, "align_product_keys"),
+            (2 ** 17, 5, 2 ** 31 - 2, "align_keys"),    # 2 ** 31 blocks
+            (64, 5, 2 ** 31 - 2 ** 20, "align_product_keys")):
+        calls.clear()
+        key = torch.empty(n, dtype=torch.int32, device="meta")
+        uk = torch.empty(u, dtype=torch.int32, device="meta")
+        ops.align_products(key, uk, row, n_rows, 1)
+        assert calls == [want], (n, u, n_rows, calls)
+    assert tis.grouped_fits(2 ** 31 - 1, 2 ** 31 - 1, 2 ** 31 - 2 ** 15 - 1)
+    assert not tis.grouped_fits(2 ** 31 - 1, 5, 2 ** 31 - 2 ** 15)
+    calls.clear()
+    ops.align_products(key, uk, row.reshape(-1), 8, 8)
+    assert calls == ["align_keys"]
+
+
+@pytest.mark.parametrize("n,groups,k_b,n_rows,grids", [
+    (0, 10, 4, 8, 0), (64, 0, 4, 8, 4), (64, 16, 0, 8, 4),
+    (64, 16, 4, 8, 5), (1 << 20, 4096, 72, 300, 5),
+    (1 << 28, 72 * 45000, 72, 45000, 6 + 4),
+    (3240000, 45000, 72, 45000, 6 + 4), (1 << 12, 5000, 8, 100, 3 + 4),
+    (64, 16, 4, 0, 4)])
+def test_align_grouped_grids_and_scratch(n, groups, k_b, n_rows, grids):
+    """The grids a grouped K3 call launches (the transpose's sort, none
+    without groups, one grid up to a tile and three a digit above; its row
+    bounds; uk's row bounds; the row blocks, none without rows; the loose
+    lanes) and its scratch (the transpose's, then n_rows + 1 bounds)."""
+    assert tis.align_grids(n, groups, k_b, n_rows) == grids
+    s = groups if groups <= 4096 else -(-groups // 4096) * 4096
+    assert tis.align_scratch_ints(groups, n_rows) == \
+        4 * s + (s // 4096 + 1) * 256 + 2 * (n_rows + 1)
+
+
+@pytest.mark.parametrize("case", ["square", "skewed"])
+def test_grouped_align_front_door_matches_reference(case, monkeypatch):
+    """The cold 'search' call and the warm call on a 'sort' structure go
+    through ``align_product_keys`` (its CPU route) and give the
+    reference's ``Coo`` bit for bit on integer operands; the warm
+    'stream' structure's one-slab loop keeps the flat ``align_keys``."""
+    import repro_torch as rt
+    from repro.core import spgemm_coo
+    from repro.core.spgemm import spgemm_coo_numeric as ref_numeric
+    from repro.plan import make_structure as ref_make_structure
+    from repro.plan import symbolic as ref_sym
+    from repro_torch.core import spgemm as tsp
+    from test_torch_spgemm import ZOO, _pair, _same_coo
+    a, b, k = ZOO[case]
+    (ea, eb), (ta, tb) = _pair(a, b, k)
+    calls = []
+    for mod, name in ((tis, "align_product_keys"), (tis, "align_keys"),
+                      (tsp, "align_keys")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *x, _f=fn, _n=name, **kw: (
+            calls.append(_n), _f(*x, **kw))[1])
+    cap = ref_sym.out_cap_auto(ea, eb, exact=True)
+    _same_coo(rt.spgemm(ta, tb, accumulator="search", check=True),
+              spgemm_coo(ea, eb, out_cap=cap, accumulator="search"))
+    assert calls == ["align_product_keys"]
+    for backend, want in (("sort", "align_product_keys"),
+                          ("stream", "align_keys")):
+        calls.clear()
+        st = rt.make_structure(ta, tb, backend=backend)
+        warm = rt.spgemm(ta, tb, structure=st, check=True)
+        _same_coo(warm, ref_numeric(ea, eb, ref_make_structure(
+            ea, eb, backend=backend)))
+        assert calls and set(calls) == {want}, calls
+
+
 @pytest.mark.parametrize("case", ["random", "ties", "dead_lanes", "all_dead"])
 def test_minima_mask_matches_bit_serial_reference(case):
     rng = np.random.default_rng(7)

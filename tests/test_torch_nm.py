@@ -242,12 +242,17 @@ def _emulate_ell_spmm(a_val, a_idx, x, n_rows):
     for p in range(tes.transpose_passes(n_rows)):
         digit = ((key[order] + 2 ** 31) >> (8 * p)) & 255
         order = order[np.argsort(digit, kind="stable")]
-    cur = np.minimum(key[order], n_rows)
+    sorted_key = key[order]
     rowptr = np.empty(n_rows + 1, np.int64)
-    for i in range(k * n + 1):              # the rows key[i-1] < r <= key[i]
-        lo = -1 if i == 0 else cur[i - 1]
-        hi = n_rows if i == k * n else cur[i]
-        rowptr[lo + 1:hi + 1] = i
+    for r in range(n_rows + 1):             # a lower-bound search a row
+        lo, hi = 0, k * n
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if sorted_key[mid] < r:
+                lo = mid + 1
+            else:
+                hi = mid
+        rowptr[r] = lo
     out = np.zeros((n_rows, x.shape[1]), np.float32)
     val = a_val.reshape(-1)
     for r in range(n_rows):
