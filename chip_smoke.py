@@ -32,7 +32,13 @@ Phases (any failure exits non-zero before the last line):
    operation count is a sort's n·log2(n) comparisons of its real lanes;
    bytes set its bound. K1 with its device time (the profiler's) beside
    the events time of back-to-back wrapper calls (``[probe] sccp_multiply
-   split``). K3 in both entries at every shape: grouped by row of C
+   split``). K7 as its rank entry (``bin_ranks``) and as the 'bucket'
+   path's binning entry (``bin_stream``: the layout and drop count, bound
+   by 8 bytes a lane read and 8 a slot written) at the planned buckets and
+   at the one stream-sized bucket of a call given an ``out_cap`` and no
+   plan, each with its grids a call and each grid's time (``[probe]
+   bin_stream grids``). K3 in both entries at every shape: grouped by row
+   of C
    (``align_product_keys``, the 'search' path's and the warm 'sort' path's
    kernel) with its grids a call and each grid's time (``[probe]
    align_product_keys grids``), and flat (``align_keys``, the streaming
@@ -566,7 +572,10 @@ def check_accumulator_kernels(a, b, plan) -> list:
     them: K5 at 4,096-lane rows over the packed stream, at ``bucket_cap``
     rows over the binned buckets and at ``block_cap`` rows over the hash
     tables; K6 at the merge tree's first and last level; K7 over every
-    lane's bucket id."""
+    lane's bucket id (``bin_ranks``) and as the 'bucket' path's binning
+    entry (``bin_stream``: layout and drop count) at the planned buckets
+    and at the one stream-sized bucket of a call given an ``out_cap`` and
+    no plan, each with its grids a call and each grid's time."""
     import torch
     from repro_torch.core.sccp import sccp_multiply
     from repro_torch.kernels import bitonic_merge as bm
@@ -632,22 +641,36 @@ def check_accumulator_kernels(a, b, plan) -> list:
     print(f"[kernel] merge tree (K5 + {(n // plan.tile).bit_length() - 1} "
           f"K6 levels) over {n}: {tree_ms:.3f} ms", flush=True)
 
-    # K7 over every lane's bucket id
+    # K7 over every lane's bucket id (rank only), then the binning entry at
+    # the planned buckets and at the one stream-sized bucket that a call
+    # given an out_cap and no plan bins into (ops.bucket_merge, no sizes)
     bid = torch.where(key != ops.KEY_INVALID, key // kpb, -1).clamp(
         max=plan.n_buckets - 1).to(torch.int32)
-    err = same("bin_ranks", rb.bin_ranks(bid, n_buckets=plan.n_buckets),
-               rb.bin_ranks_plain(bid, n_buckets=plan.n_buckets))
-    t, by = bound(8 * n, n)
-    rank = dict(shape=f"({n},) ids of {plan.n_buckets} buckets",
-                max_abs_err=err,
-                ms=cuda_ms(lambda: rb.bin_ranks(bid, n_buckets=plan.n_buckets),
-                           3),
-                plain_ms=cuda_ms(lambda: rb.bin_ranks_plain(
-                    bid, n_buckets=plan.n_buckets), 2),
-                library_ms=None, bound_ms=t, bound_by=by)
-    print(f"[kernel] bin_ranks {rank['shape']}: bit-identical, "
-          f"{json.dumps(rank)}", flush=True)
-    del key, v, bid
+    rank = held_pair(
+        "bin_ranks", lambda: rb.bin_ranks(bid, n_buckets=plan.n_buckets),
+        lambda: rb.bin_ranks_plain(bid, n_buckets=plan.n_buckets), None,
+        f"({n},) ids of {plan.n_buckets} buckets", 8 * n, n)
+    rank["grids"] = grids_of(rb.bin_ranks, lambda: rb.bin_ranks(
+        bid, n_buckets=plan.n_buckets))
+    rank["grid_ms"] = grid_ms("bin_ranks", rank["shape"], lambda: (
+        rb.bin_ranks(bid, n_buckets=plan.n_buckets)))
+    del bid
+    torch.cuda.empty_cache()
+    binning = [rank]
+    for nb, cap in ((plan.n_buckets, plan.bucket_cap), (1, n)):
+        kw = dict(n_buckets=nb, bucket_cap=cap,
+                  keys_per_bucket=rb.bucket_bounds(a.n_rows, b.n_cols, nb))
+        r = held_pair("bin_stream", lambda: rb.bin_stream(key, v, **kw),
+                      lambda: rb.bin_stream_plain(key, v, **kw), None,
+                      f"({n},) into {nb} x {cap}",
+                      8 * n + 8 * nb * cap, n)
+        r["grids"] = grids_of(rb.bin_ranks,
+                              lambda: rb.bin_stream(key, v, **kw))
+        r["grid_ms"] = grid_ms("bin_stream", r["shape"],
+                               lambda: rb.bin_stream(key, v, **kw))
+        binning.append(r)
+        torch.cuda.empty_cache()
+    del key, v
     torch.cuda.empty_cache()
 
     src = "src/repro_torch/csrc/bitonic_merge.cu"
@@ -656,9 +679,8 @@ def check_accumulator_kernels(a, b, plan) -> list:
                    shapes),
         kernel_row("merge_runs", src, "src/repro/kernels/bitonic_merge.py:162",
                    levels, tree_ms=tree_ms),
-        dict(name="bin_ranks", route="cuda",
-             source="src/repro_torch/csrc/radix_bucket.cu",
-             replaces="src/repro/kernels/radix_bucket.py:49", **rank),
+        kernel_row("bin_ranks", "src/repro_torch/csrc/radix_bucket.cu",
+                   "src/repro/kernels/radix_bucket.py:49", binning),
     ]
 
 
@@ -1721,6 +1743,9 @@ def main(argv=None) -> int:
                                                  "align_keys"))):
         for kname in kernels_run:
             require(counts[acc][kname] > 0, f"{acc} path skipped {kname}")
+    require(counts["bucket"]["bin_ranks"] == 3,
+            f"bucket path launched {counts['bucket']['bin_ranks']} K7 grids, "
+            "not 3 (count, scan, place)")
     c_sort = out["sort"][0]
     check_against_scipy("sort", c_sort, c_ref, nnz_c)
     others = ACCUMULATORS[1:] + tuple(f"numeric_{s}" for s in structures)

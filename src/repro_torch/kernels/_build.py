@@ -15,7 +15,6 @@ only when a wrapper first launches a kernel on a CUDA tensor.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -132,16 +131,6 @@ def bind(name: str, entries: dict) -> tuple[ctypes.CDLL, dict]:
             fns[entry] = fn
         _bound[key] = (lib, fns)
     return _bound[key]
-
-
-def on_device(device):
-    """The context a launch on a tensor of CUDA ``device`` needs: none when
-    it is the current device (the common case, which then costs no context
-    switch), else ``torch.cuda.device(device)``."""
-    import torch
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
 
 
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:

@@ -307,7 +307,7 @@ def align_product_keys(pk: torch.Tensor, uk: torch.Tensor,
     lib, fn = _fn("align_product_keys", *[_P] * 6, *[_L] * 7,
                   ctypes.POINTER(ctypes.c_int), _P)
     launched = ctypes.c_int(0)
-    with _build.on_device(pk.device):
+    with torch.cuda.device(pk.device):
         err = fn(pk.data_ptr(), uk.data_ptr(), flat.data_ptr(),
                  slot.data_ptr(), hit.data_ptr(), scratch.data_ptr(),
                  scratch.numel(), n, uk.numel(), groups, k_b, n_rows, n_cols,

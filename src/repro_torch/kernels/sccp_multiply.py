@@ -2,14 +2,11 @@
 
 Replaces ``src/repro/kernels/sccp_multiply.py:_sccp_kernel`` (the Pallas
 kernel tiling the lane axis into VMEM blocks). The CUDA kernel is
-``csrc/sccp_multiply.cu``: a thread owns a quad of four lanes of B's plane,
-read with 16-byte loads, and walks A's k_a slabs, storing each slab's quad
-of val, row and col as 16-byte stores where the output offset allows, in a
-grid-stride loop over a grid sized to the card, with 32-bit index math below
-2³¹ lanes. It is bound by bytes: it writes the three (k_a, n, k_b) planes,
-12 bytes a lane, and reads each operand once. It masks the ragged edge of
-``n`` itself, so no padding is needed. The wrapper binds its C entry once and
-enters no device context when the operands are on the current device.
+``csrc/sccp_multiply.cu``: one thread per (c, t) lane of B's plane, walking
+A's k_a slabs, so every store is coalesced; the stores are streaming. It is
+bound by bytes: it writes the three (k_a, n, k_b) planes, 12 bytes a lane,
+and reads each operand once. It masks the ragged edge of ``n`` itself, so no
+padding is needed.
 
 ``sccp_multiply`` launches the kernel for CUDA tensors and runs
 ``sccp_multiply_plain`` only for tensors the caller put on the CPU.
@@ -72,8 +69,9 @@ def sccp_multiply(a_val: torch.Tensor, a_idx: torch.Tensor,
     col = torch.empty((k_a, n, k_b), dtype=torch.int32, device=dev)
     lib, fns = _build.bind(_LIB, {"sccp_multiply_f32": (
         [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])})
-    with _build.on_device(dev):
-        err = fns["sccp_multiply_f32"](a_val.data_ptr(), a_idx.data_ptr(), b_val.data_ptr(),
+    fn = fns["sccp_multiply_f32"]
+    with torch.cuda.device(dev):
+        err = fn(a_val.data_ptr(), a_idx.data_ptr(), b_val.data_ptr(),
                  b_idx.data_ptr(), val.data_ptr(), row.data_ptr(),
                  col.data_ptr(), k_a, n, k_b,
                  torch.cuda.current_stream(dev).cuda_stream)

@@ -63,8 +63,8 @@ def test_sccp_multiply_kernel(cuda, k_a, n, k_b):
                                        (2, 5, 2), (1, 3, 1)])
 def test_sccp_multiply_kernel_edges(cuda, k_a, n, k_b):
     """Integer-valued operands: a one-slab call (the streaming step's
-    shape), n·k_b not a multiple of 4 (scalar stores on the misaligned
-    slabs, a partial last quad), fewer lanes than one quad."""
+    shape), n·k_b not a multiple of 4 (slabs that start off a 16-byte
+    boundary, a partial last block), fewer lanes than four."""
     rng = np.random.default_rng(k_a * n + k_b)
     a_val = rng.integers(-4, 5, (k_a, n)).astype(np.float32)
     b_val = rng.integers(-4, 5, (n, k_b)).astype(np.float32)
@@ -82,8 +82,8 @@ def test_sccp_multiply_kernel_edges(cuda, k_a, n, k_b):
 def test_sccp_multiply_kernel_row_slices(cuda, k_b):
     """A row slice of A, as the warm 'stream' loop passes one slab group
     (``a_val[sl]``), and B starting one row in, so B's planes lie 16-byte
-    aligned (k_b = 72) or not (k_b = 5: scalar loads): the plain twin's
-    planes bit for bit."""
+    aligned (k_b = 72) or not (k_b = 5): the plain twin's planes bit for
+    bit."""
     rng = np.random.default_rng(k_b)
     n = 2003
     a_val = torch.from_numpy(rng.integers(-4, 5, (6, n)).astype(np.float32))
@@ -441,6 +441,66 @@ def test_bin_ranks_kernel(cuda, n, n_buckets, dead):
     assert torch.equal(got, trb.bin_ranks_plain(bid, n_buckets=n_buckets))
     with pytest.raises(ValueError):
         trb.bin_ranks(bid, n_buckets=trb.MAX_BUCKETS + 1)
+
+
+def test_bin_ranks_kernel_lane_limit(cuda):
+    """Counts and ranks are int32: a stream of 2^31 lanes (a broadcast
+    view, nothing allocated) is refused with the limit named."""
+    big = torch.zeros(1, dtype=torch.int32, device=cuda).expand(2 ** 31)
+    with pytest.raises(ValueError, match="2147483647 lanes"):
+        trb.bin_ranks(big, n_buckets=4)
+    with pytest.raises(ValueError, match="2147483647 lanes"):
+        trb.bin_stream(big, big.float(), n_buckets=4, bucket_cap=1 << 20,
+                       keys_per_bucket=100)
+
+
+def _bin_keys(seed, n, n_buckets, kpb, dead, kind):
+    """Keys for the binning: runs of one key range with some past the last
+    bucket's span, all in one bucket, or keys below 0 among them; dead
+    lanes; float values that are not integers."""
+    rng = np.random.default_rng(seed)
+    if kind == "one":
+        key = rng.integers(kpb, 2 * kpb, n)
+    else:
+        key = np.repeat(rng.integers(0, (n_buckets + 1) * kpb, -(-n // 37)),
+                        37)[:n] + rng.integers(0, 5, n)
+    key = key.astype(np.int32)
+    if kind == "negative":
+        neg = rng.random(n) < 0.05
+        key[neg] = rng.integers(-2 ** 31, 0, int(neg.sum()))
+    key[rng.random(n) < dead] = KI
+    val = rng.standard_normal(n).astype(np.float32)
+    return torch.from_numpy(key), torch.from_numpy(val)
+
+
+@pytest.mark.parametrize("n,n_buckets,cap,kpb,dead,kind", [
+    (1, 1, 1, 1, 0.0, "runs"),                # one lane
+    (5000, 3, 1024, 1000, 0.2, "runs"),       # drops in some buckets
+    (1 << 20, 64, 1 << 15, 9000, 0.4, "runs"),  # empty tails, 256 tiles
+    (123457, 256, 512, 300, 0.1, "runs"),     # n not a multiple of the tile
+    (4096, 1, 4096, 7, 0.0, "runs"),          # one bucket, ids clamped
+    (20000, 8, 1 << 14, 1000, 1.0, "runs"),   # every lane dead
+    (70000, 64, 1 << 17, 5000, 0.1, "one"),   # one bucket holds everything
+    (30001, 5, 4096, 1, 0.3, "negative"),     # keys_per_bucket 1, keys < 0
+    (1 << 16, 3, 16, 2 ** 31 - 1, 0.0, "runs")])  # the widest span
+def test_bin_stream_kernel(cuda, n, n_buckets, cap, kpb, dead, kind):
+    """The binning entry against its plain twin, bit for bit on float
+    values: both layouts and the drop count, in three grids."""
+    key, val = (t.to(cuda) for t in _bin_keys(n + n_buckets, n, n_buckets,
+                                              kpb, dead, kind))
+    kw = dict(n_buckets=n_buckets, bucket_cap=cap, keys_per_bucket=kpb)
+    before = trb.bin_ranks.launches
+    got = trb.bin_stream(key, val, **kw)
+    torch.cuda.synchronize()
+    assert trb.bin_ranks.launches == before + 3
+    want = trb.bin_stream_plain(key, val, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    with pytest.raises(TypeError):
+        trb.bin_stream(key, val.double(), **kw)
+    with pytest.raises(ValueError):
+        trb.bin_stream(key, val, **dict(kw, n_buckets=trb.MAX_BUCKETS + 1))
 
 
 @pytest.mark.parametrize("accumulator,kw", [

@@ -784,6 +784,147 @@ def test_bin_ranks_out_of_range_ids_rank_like_the_pallas_kernel():
     assert (got.numpy()[bid >= 3] == -1).all()
 
 
+def _bin_operands(seed, n, n_buckets, kpb, dead, negative=0.0):
+    """A packed-key stream for the binning: runs of one key range (as
+    neighbouring products share a row), keys past the last bucket's span
+    (the ceil split's slack), dead lanes, optionally keys below 0, and
+    float values that are not integers."""
+    rng = np.random.default_rng(seed)
+    hi = (n_buckets + 1) * kpb
+    key = np.repeat(rng.integers(0, hi, -(-n // 7)), 7)[:n]
+    key = (key + rng.integers(0, 3, n)).astype(np.int32)
+    key[rng.random(n) < dead] = KI
+    key[rng.random(n) < negative] = -5
+    val = rng.standard_normal(n).astype(np.float32)
+    return key, val
+
+
+# (n, n_buckets, bucket_cap, keys_per_bucket, dead, negative): drops, empty
+# tails, dead lanes, ids past the last bucket, one bucket, keys below 0
+BIN_CASES = [(1000, 4, 256, 300, 0.2, 0.0), (4096, 8, 64, 97, 0.3, 0.0),
+             (3000, 1, 4096, 1 << 20, 0.1, 0.0), (777, 3, 128, 50, 0.0, 0.05),
+             (5000, 64, 32, 13, 0.5, 0.0), (600, 5, 512, 1, 1.0, 0.0)]
+
+
+@pytest.mark.parametrize("n,n_buckets,cap,kpb,dead,negative", BIN_CASES)
+def test_bin_stream_plain_matches_reference(n, n_buckets, cap, kpb, dead,
+                                            negative):
+    """The plain binning equals, slot for slot, the layout the reference's
+    own ranks (``bin_ranks_xla``) and placement rule give, and ``dropped``
+    equals the reference ``bucket_merge``'s."""
+    key, val = _bin_operands(n + n_buckets, n, n_buckets, kpb, dead, negative)
+    bk, bv, dropped = trb.bin_stream(
+        torch.from_numpy(key), torch.from_numpy(val), n_buckets=n_buckets,
+        bucket_cap=cap, keys_per_bucket=kpb)
+    assert trb.bin_ranks.launches == 0
+    jk, jv = jnp.asarray(key), jnp.asarray(val)
+    bid = jnp.minimum(jnp.where(jk != KI, jk // kpb, -1).astype(jnp.int32),
+                      n_buckets - 1)
+    rank = ref_rb.bin_ranks_xla(bid, n_buckets=n_buckets)
+    in_cap = (rank >= 0) & (rank < cap)
+    dump = n_buckets * cap
+    dst = jnp.where(in_cap, bid * cap + rank, dump)
+    _eq(bk, jnp.full((dump + 1,), KI, jnp.int32)
+        .at[dst].set(jnp.where(in_cap, jk, KI))[:dump])
+    _eq(bv, jnp.zeros((dump + 1,), jnp.float32)
+        .at[dst].set(jnp.where(in_cap, jv, 0))[:dump])
+    want = ref_rb.bucket_merge(jk, jv, n_buckets=n_buckets, bucket_cap=cap,
+                               keys_per_bucket=kpb)[2]
+    assert dropped.dtype == torch.int32 and int(dropped) == int(want)
+
+
+def _emulate_bin_stream(key, val, n_buckets, cap, kpb, tile=4096, warps=8,
+                        items=16):
+    """``csrc/radix_bucket.cu``'s three grids lane by lane: the count grid's
+    walk (warp w of a tile owns lanes w*512 .. w*512+511, item i of lane l
+    is lane w*512 + i*32 + l, items in order, each warp's counters updated
+    once per item by the lowest peer), the scan over tiles per column, the
+    place grid's ranks and writes, and the fill blocks' tails and drop
+    count. Slots no grid writes stay -7 / NaN."""
+    n, nb, cols = key.size, n_buckets, n_buckets + 1
+    n_tiles = max(1, -(-n // tile))
+    # the bucket by a wide multiply and a shift, as KeyLanes
+    shift = 31 + (kpb - 1).bit_length()
+    magic = (1 << shift) // kpb + 1
+    assert magic < 1 << 32
+
+    def bucket(k):
+        if k == KI:
+            return -1
+        if k < 0:
+            return nb
+        return min((magic * k) >> shift, nb - 1)
+
+    def walk(t):
+        wc = np.zeros((warps, cols), np.int64)
+        out = []                                      # (lane, b, in-warp r)
+        for w in range(warps):
+            for i in range(items):
+                lanes = t * tile + w * items * 32 + i * 32 + np.arange(32)
+                b = [bucket(int(key[l])) if l < n else -1 for l in lanes]
+                for j, l in enumerate(lanes):
+                    if b[j] < 0:
+                        continue
+                    below = sum(b[m] == b[j] for m in range(j))
+                    out.append((l, w, b[j], wc[w, b[j]] + below))
+                for bb in set(b) - {-1}:              # the leaders' adds
+                    wc[w, bb] += b.count(bb)
+        return wc, out
+
+    walks = [walk(t) for t in range(n_tiles)]
+    counts = np.stack([wc.sum(0) for wc, _ in walks], axis=1)  # cols x tiles
+    offs = np.cumsum(counts, axis=1) - counts
+    totals = counts.sum(1)
+    bk = np.full(nb * cap, -7, np.int32)
+    bv = np.full(nb * cap, np.nan, np.float32)
+    for t, (wc, out) in enumerate(walks):
+        before = np.cumsum(wc, axis=0) - wc           # earlier warps
+        for l, w, b, r in out:
+            rank = offs[b, t] + before[w, b] + r
+            if b < nb and rank < cap:
+                assert bk[b * cap + rank] == -7      # each slot written once
+                bk[b * cap + rank], bv[b * cap + rank] = key[l], val[l]
+    for b in range(nb):
+        tail = slice(b * cap + min(totals[b], cap), (b + 1) * cap)
+        assert (bk[tail] == -7).all()
+        bk[tail], bv[tail] = KI, 0.0
+    dropped = sum(max(0, totals[b] - cap) for b in range(nb)) + totals[nb]
+    return bk, bv, dropped
+
+
+@pytest.mark.parametrize("n,n_buckets,cap,kpb,dead,negative", BIN_CASES[:4]
+                         + [(9000, 2, 8192, 5000, 0.1, 0.0)])
+def test_bin_stream_design_matches_plain(n, n_buckets, cap, kpb, dead,
+                                         negative):
+    """Emulated, the kernel's grids give the plain twin's layout and drop
+    count, every slot written exactly once, with ragged last tiles and
+    more than one tile."""
+    key, val = _bin_operands(n + n_buckets, n, n_buckets, kpb, dead, negative)
+    bk, bv, dropped = _emulate_bin_stream(key, val, n_buckets, cap, kpb)
+    want = trb.bin_stream_plain(torch.from_numpy(key), torch.from_numpy(val),
+                                n_buckets=n_buckets, bucket_cap=cap,
+                                keys_per_bucket=kpb)
+    _eq(want[0], bk)
+    _eq(want[1], bv)
+    assert int(want[2]) == dropped
+
+
+def test_bin_stream_checks():
+    key = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        trb.bin_stream(key, key.float(), n_buckets=2, bucket_cap=6,
+                       keys_per_bucket=4)
+    with pytest.raises(ValueError, match="int32 span"):
+        trb.bin_stream(key, key.float(), n_buckets=2, bucket_cap=4,
+                       keys_per_bucket=2 ** 31)
+    with pytest.raises(ValueError, match="1-D shape"):
+        trb.bin_stream(key, key[:4].float(), n_buckets=2, bucket_cap=4,
+                       keys_per_bucket=4)
+    with pytest.raises(ValueError, match="no kernel"):
+        trb.bin_stream(key.to("meta"), key.float().to("meta"), n_buckets=2,
+                       bucket_cap=4, keys_per_bucket=4)
+
+
 # ---------------------------------------------------------------------------
 # The radix sort's host arithmetic (kernels/radix_sort.py)
 # ---------------------------------------------------------------------------
