@@ -43,7 +43,13 @@ Phases (any failure exits non-zero before the last line):
    kernel) with its grids a call and each grid's time (``[probe]
    align_product_keys grids``), and flat (``align_keys``, the streaming
    step's), also on a skewed stream at the same widths (40% of A's slots
-   in four rows of C). The planner's sizes
+   in four rows of C). K4 as its one-launch faithful emission
+   (``emit_sorted_unique(faithful=True)``) at the faithful cut's stream
+   and cap and at two cuts of the full stream, against the plain loop
+   (values, counts, nnz), the batched emission and ``torch.unique``, beside
+   the step loop over its mask entry; and as its mask entry at the cut's
+   stream, one block's keys (``minima_chunk()``), one more and 2^20 keys,
+   with its grids. The planner's sizes
    for the 'bucket' and 'hash' paths are printed first (``[plan]``). Then
    ``make_structure`` for a 'sort' and a 'stream' plan, timed, and K1 and
    K3 held again at the warm phase's own shapes on those structures.
@@ -233,11 +239,12 @@ def gpu_line() -> str:
 
 
 def held_pair(name: str, kernel, plain, library, shape: str, n_bytes: float,
-              n_ops: float) -> dict:
+              n_ops: float, reps=(3, 2, 3)) -> dict:
     """Hold ``kernel()`` against ``plain()`` bit for bit (every output of a
     tuple), then time the kernel, the plain version and ``library`` (None
-    where no one library call computes the same function). Returns the
-    shape's entry, also printed as a ``[kernel]`` line."""
+    where no one library call computes the same function), each over its
+    count of ``reps``. Returns the shape's entry, also printed as a
+    ``[kernel]`` line."""
     import torch
     got, want = kernel(), plain()
     if isinstance(got, torch.Tensor):
@@ -246,9 +253,10 @@ def held_pair(name: str, kernel, plain, library, shape: str, n_bytes: float,
               for i, (g, w) in enumerate(zip(got, want)))
     del got, want
     t, by = bound(n_bytes, n_ops)
-    r = dict(shape=shape, max_abs_err=err, ms=cuda_ms(kernel, 3),
-             plain_ms=cuda_ms(plain, 2),
-             library_ms=None if library is None else cuda_ms(library, 3),
+    r = dict(shape=shape, max_abs_err=err, ms=cuda_ms(kernel, reps[0]),
+             plain_ms=cuda_ms(plain, reps[1]),
+             library_ms=None if library is None else cuda_ms(library,
+                                                             reps[2]),
              bound_ms=t, bound_by=by)
     print(f"[kernel] {name} {shape}: bit-identical, {json.dumps(r)}",
           flush=True)
@@ -428,6 +436,100 @@ def skewed_stream(k_a: int, n: int, k_b: int, n_rows: int, n_cols: int, *,
     return pk, a_idx[:, :, None].expand(k_a, n, k_b), torch.unique(pk)
 
 
+def faithful_cap(a_cut, b_cut) -> int:
+    """The faithful cut's out_cap: its products, rounded up to 128."""
+    import repro_torch
+    return max(128, -(-int(repro_torch.count_products(a_cut, b_cut))
+                      // 128) * 128)
+
+
+def minima_mask_shape(v) -> dict:
+    """K4's mask entry on ``v``, bit for bit against its plain version,
+    with its grids a call and its device time beside its call time. Bound:
+    5 bytes a key (read once, a mask byte written once); 31 bit steps a key
+    beside."""
+    from repro_torch.kernels import insitu_search as isr
+    n = v.numel()
+    r = held_pair("minima_mask", lambda: isr.minima_mask(v),
+                  lambda: isr.minima_mask_plain(v), None, f"mask ({n},)",
+                  5 * n, 31 * n, reps=(20, 20, 20))
+    r["grids"] = grids_of(isr.minima_mask, lambda: isr.minima_mask(v))
+    r["split"] = device_split("minima_mask", r["shape"],
+                              lambda: isr.minima_mask(v))
+    return r
+
+
+def emission_shape(key, cap: int, what: str) -> dict:
+    """K4's emission entry (``emit_sorted_unique(faithful=True)``, the
+    faithful path's call) on ``key`` at ``cap``: ``faithful_emit``'s values,
+    counts and nnz bit for bit against the plain loop, the path's call's uk
+    and nnz against the batched emission (on the stream padded to a power of
+    two with dead lanes), the caller's keys unchanged, one launch a call up
+    to a block's keys. Timed beside ``torch.unique(key, sorted=True)``
+    (``library_ms``), the plain loop (``plain_ms``), the step loop over the
+    mask entry (``loop_ms``) and the call with counts (``counts_ms``,
+    ``search_emit_sorted``). Bound: the keys read once and ``cap`` slots written, 4
+    bytes each; a sort's n·log2(n) compares beside."""
+    import torch
+    from repro_torch.kernels import insitu_search as isr
+    n = key.numel()
+    kept = key.clone()
+    want = isr.faithful_emit_plain(key, cap)
+    got = isr.faithful_emit(key, cap)
+    err = max(same(f"faithful_emit[{i}] {what}", g, w)
+              for i, (g, w) in enumerate(zip(got, want)))
+    path = (lambda: isr.emit_sorted_unique(key, cap, faithful=True))
+    launches = grids_of(isr.minima_mask, path)
+    require(launches == 1 or n > isr.minima_chunk(),
+            f"faithful emission {what}: {launches} launches, not 1")
+    uk_f, nnz_f = path()
+    same(f"faithful emission uk {what}", uk_f, want[0])
+    same(f"faithful emission nnz {what}", nnz_f, want[2])
+    pad = key.new_full((isr.next_pot(n) - n,), isr.KEY_INVALID)
+    uk_b, nnz_b = isr.emit_sorted_unique(torch.cat([key, pad]), cap)
+    same(f"faithful vs batched uk {what}", uk_f, uk_b)
+    nf, nb = int(nnz_f), int(nnz_b)
+    require(nf == nb if nb <= cap else (nf == cap + 1 and nb > cap),
+            f"faithful nnz {nf} vs batched {nb} at cap {cap}")
+    same(f"faithful emission keys unchanged {what}", key, kept)
+    t, by = bound(4 * n + 4 * cap, n * math.log2(max(n, 2)))
+    r = dict(shape=f"emission {what}", max_abs_err=err,
+             ms=cuda_ms(path, 20),
+             plain_ms=cuda_ms(lambda: isr.faithful_emit_plain(key, cap), 1),
+             library_ms=cuda_ms(lambda: torch.unique(key, sorted=True), 20),
+             bound_ms=t, bound_by=by, grids=launches, emitted=min(nb, cap),
+             loop_ms=cuda_ms(lambda: isr._emit_loop(key, cap,
+                                                    isr.minima_mask), 1),
+             counts_ms=cuda_ms(lambda: isr.search_emit_sorted(key, cap), 20))
+    print(f"[kernel] minima emission {what}: bit-identical to the plain "
+          f"loop, uk == batched, nnz {nf} / {nb}, {json.dumps(r)}",
+          flush=True)
+    return r
+
+
+def check_minima(key, v_cut, cap: int) -> dict:
+    """K4's row: the emission at the faithful cut's shape first (the main
+    path's one launch; its library call ``torch.unique``), with its device
+    time beside its call time, then at 512 keys cap 512 and 4,096 keys cap
+    256 of the full stream; the mask entry at the cut's stream, at one
+    block's keys, one more, and 2^20 keys."""
+    from repro_torch.kernels import insitu_search as isr
+    n_cut = v_cut.numel()
+    shapes = [emission_shape(v_cut, cap, f"({n_cut},) cap {cap}")]
+    shapes[0]["split"] = device_split(
+        "minima emission", shapes[0]["shape"],
+        lambda: isr.emit_sorted_unique(v_cut, cap, faithful=True))
+    for lanes, c in ((512, 512), (4096, 256)):
+        shapes.append(emission_shape(key[:lanes].contiguous(), c,
+                                     f"({lanes},) cap {c}"))
+    c = isr.minima_chunk()
+    shapes += [minima_mask_shape(v) for v in
+               (v_cut, key[:c].contiguous(), key[:c + 1].contiguous(),
+                key[:1 << 20].contiguous())]
+    return kernel_row("minima_mask", "src/repro_torch/csrc/insitu_search.cu",
+                      "src/repro/kernels/insitu_search.py:46", shapes)
+
+
 def check_kernels(a, b, a_cut, b_cut) -> list:
     import torch
     from repro_torch.kernels import insitu_search as isr
@@ -496,41 +598,14 @@ def check_kernels(a, b, a_cut, b_cut) -> list:
     del pk, row, uk
     torch.cuda.empty_cache()
 
-    # K4: the bit-serial minima scan, at the main path's shape (the packed
-    # stream of the faithful path's one-column cut) and over 2^20 keys of
-    # the full stream; then the faithful emission against the batched one
-    # (untruncated and truncated)
+    # K4: the minima scan's two entries on the faithful path's stream (the
+    # packed stream of its one-column cut) and on cuts of the full stream
     val, row, col = k1.sccp_multiply(a_cut.val, a_cut.idx, b_cut.val,
                                      b_cut.idx)
     v_cut, _ = ops._packed_stream(row, col, val, a_cut.n_rows, b_cut.n_cols)
-    v = key[: 1 << 20].contiguous()
-    for vec in (v_cut, v):
-        nv = vec.numel()
-        err = same(f"minima_mask ({nv},)", isr.minima_mask(vec),
-                   isr.minima_mask_plain(vec))
-        t, by = bound(5 * nv, 31 * nv)
-        r = dict(ms=cuda_ms(lambda: isr.minima_mask(vec), 20),
-                 plain_ms=cuda_ms(lambda: isr.minima_mask_plain(vec), 20),
-                 bound_ms=t, bound_by=by)
-        print(f"[kernel] minima_mask {nv} keys: bit-identical, {json.dumps(r)}",
-              flush=True)
-        if vec is v_cut:
-            rows.append(dict(
-                name="minima_mask", route="cuda",
-                source="src/repro_torch/csrc/insitu_search.cu",
-                replaces="src/repro/kernels/insitu_search.py:46",
-                max_abs_err=err, shape=f"({nv},)", library_ms=None, **r))
-    for lanes_cut, cap in ((512, 512), (4096, 256)):
-        kk = key[:lanes_cut].contiguous()
-        uk_f, nnz_f = isr.emit_sorted_unique(kk, cap, faithful=True)
-        uk_b, nnz_b = isr.emit_sorted_unique(kk, cap)
-        same(f"faithful emission uk ({lanes_cut} lanes, cap {cap})", uk_f, uk_b)
-        nf, nb = int(nnz_f), int(nnz_b)
-        require(nf == nb if nb <= cap else (nf == cap + 1 and nb > cap),
-                f"faithful nnz {nf} vs batched {nb} at cap {cap}")
-        print(f"[kernel] faithful emission {lanes_cut} lanes cap {cap}: "
-              f"uk bit-identical, nnz {nf} / {nb}", flush=True)
-    del key, v
+    del val, row, col
+    rows.append(check_minima(key, v_cut, faithful_cap(a_cut, b_cut)))
+    del key
     torch.cuda.empty_cache()
     return rows
 
@@ -865,8 +940,7 @@ def drive_paths(a, b, a_cut, b_cut, structures):
 
     def faithful():
         val, row, col = sccp_multiply(a_cut, b_cut)
-        cap = max(128, -(-int(repro_torch.count_products(a_cut, b_cut))
-                         // 128) * 128)
+        cap = faithful_cap(a_cut, b_cut)
         uk, sums, nnz = kernels.ops.search_merge(
             row, col, val, a_cut.n_rows, b_cut.n_cols, out_cap=cap,
             faithful=True)
@@ -1729,8 +1803,10 @@ def main(argv=None) -> int:
     require(counts["sort"]["sccp_multiply"] > 0, "sort path skipped K1")
     for kname in ("sccp_multiply", "emit_sort", "align_product_keys"):
         require(counts["search"][kname] > 0, f"search path skipped {kname}")
-    require(counts["search_faithful_cut"]["minima_mask"] > 0,
-            "faithful path skipped minima_mask")
+    require(counts["search_faithful_cut"]["minima_mask"] == 1,
+            f"faithful path launched "
+            f"{counts['search_faithful_cut']['minima_mask']} minima_mask "
+            "kernels, not 1 (the emission in one launch)")
     for acc, kernels_run in (("tiled", ("sccp_multiply", "sort_tiles",
                                         "merge_runs")),
                              ("bucket", ("sccp_multiply", "bin_ranks",

@@ -23,6 +23,8 @@ Constructors default to ``default_device()`` (CUDA, or an error); pass
 ``device="cpu"`` to run the kernels' plain torch versions on the CPU. The
 CUDA kernels build from ``src/repro_torch/csrc`` on first use.
 """
+from . import configs, core, kernels, models, plan
+from .core import sccp
 from .core.accumulate import AccumulatorOverflow, check_no_overflow
 from .core.api import spgemm
 from .core.formats import (Coo, EllCols, EllRows, coo_from_dense,
@@ -40,11 +42,15 @@ from .plan import (Plan, SpgemmStructure, StructureCache, fingerprint,
                    make_plan, make_structure, make_structure_batched,
                    plan_spmm_format)
 
+# the reference's submodules reachable as repro_torch.<name>, for the ones
+# ported so far ('hwmodel', 'hybrid', 'serve' and 'obs' are not)
+_MODULES = ("configs", "core", "kernels", "models", "plan", "sccp")
+
 __all__ = [
-    "AccumulatorOverflow", "Coo", "EllCols", "EllRows", "NmWeights", "Plan",
-    "SparseLinear", "SparseMLP", "SpgemmStructure", "StructureCache",
-    "check_no_overflow", "coo_from_dense", "count_products",
-    "default_device", "detect_nm", "ell_cols_from_dense",
+    *_MODULES, "AccumulatorOverflow", "Coo", "EllCols", "EllRows",
+    "NmWeights", "Plan", "SparseLinear", "SparseMLP", "SpgemmStructure",
+    "StructureCache", "check_no_overflow", "coo_from_dense",
+    "count_products", "default_device", "detect_nm", "ell_cols_from_dense",
     "ell_rows_from_dense", "fingerprint", "from_numpy", "magnitude_prune",
     "magnitude_prune_nm", "make_plan", "make_structure",
     "make_structure_batched", "moe_apply", "nm_from_dense", "nm_from_numpy",

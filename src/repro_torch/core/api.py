@@ -19,8 +19,9 @@ of either package) and ``check`` mean what they mean there.
 ``schedule``, ``dist_plan`` and ``overlap`` steer only the sharded paths;
 without a mesh they are ignored, whatever their values, as the reference
 ignores them. ``accumulator='auto'`` without a plan and the sharded paths
-(``mesh=``/``axis=``) raise ``NotImplementedError`` until their slices are
-ported.
+(a ``mesh=`` and ``axis=`` pair) raise ``NotImplementedError`` until their
+slices are ported; one of the two without the other raises ``ValueError``,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -38,7 +39,11 @@ def spgemm(a: EllRows, b: EllCols, *, structure=None, mesh=None,
            validate: bool = True) -> Coo:
     """C = A·B as sorted COO — dispatches to the right SpGEMM variant."""
     from . import spgemm as sp
-    if mesh is not None or axis is not None:
+    if axis is not None and mesh is None:
+        raise ValueError("axis= requires mesh= (a device mesh)")
+    if mesh is not None and axis is None:
+        raise ValueError("mesh= requires axis= (the mesh axis name)")
+    if mesh is not None:
         sp._not_ported("mesh=/axis=", "mesh")
     del schedule, dist_plan, overlap          # read by the sharded paths only
     if batched == "auto":

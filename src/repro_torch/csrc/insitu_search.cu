@@ -61,11 +61,42 @@
 //       what keeps it above the byte bound is not measured (PERF.md §7).
 // 3. minima replaces src/repro/kernels/insitu_search.py:_minima_kernel: the
 //    paper's Alg. 1, a 31-step scan from bit 30 down to bit 0 that keeps the
-//    active rows whose bit is 0 whenever any active row has a 0 there.
-//    Bound: operations on a short vector; it is kept bit-serial on purpose.
-//    Design: one block walks the vector once per bit and ends the bit with
-//    __syncthreads_or, the block-wide "does any row hold a 0" of the paper's
-//    sense amplifiers.
+//    active rows whose bit is 0 whenever any active row has a 0 there; its
+//    survivors are the active rows (v != KEY_INVALID) holding min(v).
+//    Bound: bytes (each key read once, each mask byte written once); the old
+//    form (one block walking the keys and the mask in device memory once or
+//    twice a bit) was 160x the min-and-compare it replaces at 2^20 keys.
+//    Design: a block holds MIN_CHUNK = 1,024 threads x 16 keys in registers,
+//    read once; lanes past n read as KEY_INVALID. Each thread folds its keys
+//    to their least (Alg. 1's survivor value over them), each warp reduces
+//    its 32 lanes' values to theirs, and the warps' values meet in shared
+//    memory behind one barrier, where every warp reduces them the same way.
+//    Alg. 1's survivors over a union of parts are the rows equal to the
+//    least of the parts' survivor values, which is min(v), so the split is
+//    exact. Up to MIN_CHUNK keys that is one grid; above it, grid 1 writes
+//    each block's value to scratch and grid 2 folds those values in every
+//    block and writes the mask: the keys read twice, no block waiting on
+//    another.
+//    A warp's reduction is one __reduce_min_sync, the reference's
+//    minima_mask_xla contract (the same rows for values >= 0). The literal
+//    form, Alg. 1 over the 32 lanes with one __ballot_sync a bit ("does any
+//    active word line hold a 0 here", the sense amplifier), stopping once
+//    one lane is left, was built first: at the faithful cut's emission it
+//    took about 4.7x the reduction's time on an H100, above 0.15 ms
+//    (PERF.md's K4 row), so the reduction is kept.
+//    minima_chunk and minima_part_ints tell the wrapper a block's keys and
+//    the scratch a mask call needs, so the sizes live here alone.
+//    minima_emit is the faithful emission, iterated Alg. 1 (Fig. 11), in
+//    one launch of one block for streams of at most MIN_CHUNK keys: the keys
+//    stay in registers (the caller's are never written), each warp keeps
+//    its least active key in a shared array double-buffered by emission,
+//    and an emission is: every warp reduces the warps' values to the
+//    block's minimum m (no barrier before it is used), one thread writes it
+//    (and the count of its rows), only the warps that held m invalidate
+//    those lanes and reduce again, and one __syncthreads ends it. The loop
+//    stops at the first m == KEY_INVALID and fills the remaining slots.
+//    Of an emission's chain, the rescan (one warp) and the decision with
+//    the barrier take about equal parts (tools/k4_emit_probe.py; PERF.md).
 #include "ell_transpose.cuh"
 
 namespace {
@@ -379,20 +410,180 @@ align_loose_kernel(const int32_t* __restrict__ pk,
   }
 }
 
-__global__ void minima_mask_kernel(const int32_t* __restrict__ v,
-                                   uint8_t* __restrict__ mask, int64_t n) {
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x)
-    mask[i] = v[i] != KEY_INVALID;
-  for (int bit = 30; bit >= 0; --bit) {
-    int zero = 0;
-    for (int64_t i = threadIdx.x; i < n; i += blockDim.x)
-      if (mask[i] && ((v[i] >> bit) & 1) == 0) zero = 1;
-    // Alg. 1 line 8: keep the '0' rows iff some active row holds a '0'.
-    if (__syncthreads_or(zero)) {
-      for (int64_t i = threadIdx.x; i < n; i += blockDim.x)
-        if (mask[i] && ((v[i] >> bit) & 1)) mask[i] = 0;
-    }
+constexpr int MIN_THREADS = 1024;
+constexpr int MIN_KEYS = 16;                          // a thread's keys
+constexpr int64_t MIN_CHUNK = (int64_t)MIN_THREADS * MIN_KEYS;
+constexpr int MIN_PARTS = 1024;                       // grid 1's blocks
+constexpr unsigned FULL = 0xffffffffu;
+
+// The survivors' value of Alg. 1 over the 32 lanes of a warp, each offering
+// one value (KEY_INVALID: no active row), in every lane; KEY_INVALID when no
+// lane is active. For values >= 0, as Alg. 1 scans bits 30..0, that is
+// their least: one __reduce_min_sync.
+__device__ __forceinline__ int32_t warp_minima(int32_t x) {
+  return __reduce_min_sync(FULL, x);
+}
+
+// The block's survivor value over each thread's x: each warp's value to
+// shared memory, one barrier, then every warp reduces the warps' values.
+// Called once a kernel (wv is not reused).
+__device__ __forceinline__ int32_t block_minima(int32_t x, int32_t* wv) {
+  const int32_t w = warp_minima(x);
+  if ((threadIdx.x & 31) == 0) wv[threadIdx.x >> 5] = w;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  return warp_minima(lane < (int)(blockDim.x >> 5) ? wv[lane] : KEY_INVALID);
+}
+
+// A thread's MIN_KEYS keys of the chunk at base: lanes base + j*blockDim.x
+// + threadIdx.x (each load coalesced across the warp), KEY_INVALID past n.
+__device__ __forceinline__ void load_keys(const int32_t* __restrict__ v,
+                                          int64_t n, int64_t base,
+                                          int32_t (&k)[MIN_KEYS]) {
+#pragma unroll
+  for (int j = 0; j < MIN_KEYS; ++j) {
+    const int64_t i = base + (int64_t)j * blockDim.x + threadIdx.x;
+    k[j] = i < n ? __ldg(v + i) : KEY_INVALID;
   }
+}
+
+// The least of a thread's keys, folded as a tree (4 dependent steps).
+__device__ __forceinline__ int32_t fold_keys(const int32_t (&k)[MIN_KEYS]) {
+  int32_t t[MIN_KEYS / 2];
+#pragma unroll
+  for (int j = 0; j < MIN_KEYS / 2; ++j) t[j] = min(k[2 * j], k[2 * j + 1]);
+#pragma unroll
+  for (int w = MIN_KEYS / 4; w >= 1; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = min(t[2 * j], t[2 * j + 1]);
+  return t[0];
+}
+
+// The chunk's mask lanes: an active row holding the minimum m.
+__device__ __forceinline__ void store_mask(uint8_t* __restrict__ mask,
+                                           int64_t n, int64_t base,
+                                           const int32_t (&k)[MIN_KEYS],
+                                           int32_t m) {
+#pragma unroll
+  for (int j = 0; j < MIN_KEYS; ++j) {
+    const int64_t i = base + (int64_t)j * blockDim.x + threadIdx.x;
+    if (i < n) mask[i] = k[j] == m && m != KEY_INVALID;
+  }
+}
+
+// n <= MIN_CHUNK: one block, the keys read once, the mask written once.
+__global__ void __launch_bounds__(MIN_THREADS)
+minima_mask_kernel(const int32_t* __restrict__ v, uint8_t* __restrict__ mask,
+                   int64_t n) {
+  __shared__ int32_t wv[32];
+  int32_t k[MIN_KEYS];
+  load_keys(v, n, 0, k);
+  const int32_t m = block_minima(fold_keys(k), wv);
+  store_mask(mask, n, 0, k, m);
+}
+
+// n > MIN_CHUNK, grid 1: block b folds chunks b, b + gridDim.x, ... and
+// writes their survivors' value to part[b].
+__global__ void __launch_bounds__(MIN_THREADS)
+minima_part_kernel(const int32_t* __restrict__ v, int32_t* __restrict__ part,
+                   int64_t n) {
+  __shared__ int32_t wv[32];
+  int32_t lo = KEY_INVALID;
+  for (int64_t base = blockIdx.x * MIN_CHUNK; base < n;
+       base += (int64_t)gridDim.x * MIN_CHUNK) {
+    int32_t k[MIN_KEYS];
+    load_keys(v, n, base, k);
+    lo = min(lo, fold_keys(k));
+  }
+  const int32_t m = block_minima(lo, wv);
+  if (threadIdx.x == 0) part[blockIdx.x] = m;
+}
+
+// Grid 2: every block folds the gridDim.x parts to min(v), then writes the
+// mask lanes of the same chunks.
+__global__ void __launch_bounds__(MIN_THREADS)
+minima_apply_kernel(const int32_t* __restrict__ v,
+                    const int32_t* __restrict__ part,
+                    uint8_t* __restrict__ mask, int64_t n) {
+  __shared__ int32_t wv[32];
+  int32_t lo = KEY_INVALID;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
+    lo = min(lo, part[i]);
+  const int32_t m = block_minima(lo, wv);
+  for (int64_t base = blockIdx.x * MIN_CHUNK; base < n;
+       base += (int64_t)gridDim.x * MIN_CHUNK) {
+    int32_t k[MIN_KEYS];
+    load_keys(v, n, base, k);
+    store_mask(mask, n, base, k, m);
+  }
+}
+
+// The faithful emission of n <= MIN_CHUNK keys: vals[e] the e-th least
+// distinct active key (KEY_INVALID past the last), counts[e] (when given)
+// its rows (0 past the last), *nnz the keys emitted plus 1 if an active row
+// is left after out_cap emissions.
+__global__ void __launch_bounds__(MIN_THREADS)
+minima_emit_kernel(const int32_t* __restrict__ key, int64_t n,
+                   int32_t* __restrict__ vals, int32_t* __restrict__ counts,
+                   int32_t* __restrict__ nnz, int64_t out_cap) {
+  __shared__ int32_t wv[2][32];  // each warp's least active key, by parity
+  __shared__ int32_t cnt[2];     // rows of the emission's key, by parity
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int32_t k[MIN_KEYS];
+  load_keys(key, n, 0, k);
+  int32_t w = warp_minima(fold_keys(k));
+  if (lane == 0) wv[0][warp] = w;
+  if (threadIdx.x < 2) cnt[threadIdx.x] = 0;
+  __syncthreads();
+  int64_t e = 0;
+  for (; e < out_cap; ++e) {
+    const int p = (int)(e & 1);
+    // the block's Alg. 1 decision, the same in every warp
+    const int32_t m = warp_minima(lane < warps ? wv[p][lane] : KEY_INVALID);
+    if (m == KEY_INVALID) break;
+    if (threadIdx.x == 0) {
+      vals[e] = m;
+      if (counts && e > 0) {  // the last emission's adds ended at its barrier
+        counts[e - 1] = cnt[p ^ 1];
+        cnt[p ^ 1] = 0;
+      }
+    }
+    if (w == m) {  // this warp held m: consume its rows, reduce again
+      int c = 0;
+#pragma unroll
+      for (int j = 0; j < MIN_KEYS; ++j) {
+        c += k[j] == m;
+        k[j] = k[j] == m ? KEY_INVALID : k[j];
+      }
+      if (counts) {
+        c = __reduce_add_sync(FULL, c);
+        if (lane == 0) atomicAdd(&cnt[p], c);
+      }
+      w = warp_minima(fold_keys(k));
+    }
+    if (lane == 0) wv[p ^ 1][warp] = w;
+    __syncthreads();
+  }
+  // e is the same in every thread: the emissions made
+  const int32_t left =
+      warp_minima(lane < warps ? wv[e & 1][lane] : KEY_INVALID);
+  if (threadIdx.x == 0) {
+    if (counts && e > 0) counts[e - 1] = cnt[(e - 1) & 1];
+    *nnz = (int32_t)e + (left != KEY_INVALID);
+  }
+  for (int64_t s = e + threadIdx.x; s < out_cap; s += blockDim.x) {
+    vals[s] = KEY_INVALID;
+    if (counts) counts[s] = 0;
+  }
+}
+
+// Threads of a block that holds n <= MIN_CHUNK keys: whole warps, enough
+// for MIN_KEYS keys each.
+int chunk_threads(int64_t n) {
+  const int64_t t = (n + MIN_KEYS - 1) / MIN_KEYS;
+  return (int)(t <= 32 ? 32 : (t + 31) / 32 * 32);
 }
 
 }  // namespace
@@ -464,10 +655,57 @@ extern "C" int align_product_keys(const void* pk, const void* uk,
   return (int)cudaGetLastError();
 }
 
-extern "C" int minima_mask(const void* v, void* mask, long long n,
+// Keys one block of the minima kernels holds: minima_emit takes at most
+// this many, and minima_mask launches one grid up to it.
+extern "C" int minima_chunk() { return (int)MIN_CHUNK; }
+
+// int32 scratch of a minima_mask call on n keys: one survivor value for
+// each block of grid 1, none while one block holds the keys.
+extern "C" int minima_part_ints(long long n) {
+  if (n <= MIN_CHUNK) return 0;
+  const int64_t chunks = (n + MIN_CHUNK - 1) / MIN_CHUNK;
+  return (int)(chunks < MIN_PARTS ? chunks : MIN_PARTS);
+}
+
+// Mask of the active rows of v (n,) holding min(v): one grid for n <=
+// MIN_CHUNK, else two over `part` (minima_part_ints(n) int32s); none for
+// n = 0. *grids receives the grids launched.
+extern "C" int minima_mask(const void* v, void* mask, void* part,
+                           long long part_len, long long n, int* grids,
                            void* stream) {
-  minima_mask_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)v, (uint8_t*)mask, n);
+  *grids = 0;
+  const int parts = minima_part_ints(n);
+  if (n < 0 || n >= (1LL << 31) || part_len < parts)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= MIN_CHUNK) {
+    minima_mask_kernel<<<1, chunk_threads(n), 0, st>>>(
+        (const int32_t*)v, (uint8_t*)mask, n);
+    ++*grids;
+    return (int)cudaGetLastError();
+  }
+  minima_part_kernel<<<(unsigned)parts, MIN_THREADS, 0, st>>>(
+      (const int32_t*)v, (int32_t*)part, n);
+  ++*grids;
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  minima_apply_kernel<<<(unsigned)parts, MIN_THREADS, 0, st>>>(
+      (const int32_t*)v, (const int32_t*)part, (uint8_t*)mask, n);
+  ++*grids;
+  return (int)cudaGetLastError();
+}
+
+// The faithful emission of key (n,), n <= MIN_CHUNK, in one launch: vals
+// (out_cap,), counts (out_cap,) or null, nnz one int32.
+extern "C" int minima_emit(const void* key, long long n, void* vals,
+                           void* counts, void* nnz, long long out_cap,
+                           void* stream) {
+  if (n < 0 || n > MIN_CHUNK || out_cap < 0)
+    return (int)cudaErrorInvalidValue;
+  minima_emit_kernel<<<1, chunk_threads(n), 0, (cudaStream_t)stream>>>(
+      (const int32_t*)key, n, (int32_t*)vals, (int32_t*)counts,
+      (int32_t*)nnz, out_cap);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 """The paper's in-situ search (Alg. 1 / Fig. 11) on Hopper: the emission
-sort, the alignment search and the literal bit-serial minima scan.
+sort, the alignment search, and Alg. 1's minima selection with the faithful
+emission built on it.
 
 Three CUDA kernels (``csrc/insitu_search.cu``), each with a plain torch twin
 in this module and a launch counter on its wrapper:
@@ -33,9 +34,22 @@ in this module and a launch counter on its wrapper:
   it).
   Plain twin of both: ``torch.searchsorted`` (the reference's
   ``searchsorted``).
-* ``minima_mask`` replaces ``_minima_kernel``: the 31-step bit scan, high bit
-  to low, kept bit-serial on purpose, one block ending each bit with a
-  block-wide OR. Plain twin: one min and a compare (``minima_mask_xla``).
+* ``minima_mask`` replaces ``_minima_kernel``: the mask of the active rows
+  holding min(v), the rows Alg. 1's 31-step bit scan keeps, bound by bytes.
+  A block holds ``minima_chunk()`` keys in registers, read once; each
+  thread folds its keys to their least, each warp reduces its lanes with
+  one ``__reduce_min_sync`` (the same rows as the scan for keys ≥ 0), and
+  the warps' values meet behind one barrier. Above one chunk, a first grid
+  writes each block's value and a second folds them and writes the mask.
+  Plain twin: one min and a compare (``minima_mask_xla``). ``faithful_emit``
+  (the C entry ``minima_emit``, counted on ``minima_mask``) is the whole
+  faithful emission in one launch of one block for streams of at most
+  ``minima_chunk()`` keys: the keys stay in registers, each warp keeps its
+  least active key in shared memory, an emission is one reduction of the
+  warps' values, a rescan by the warps that held the minimum and one
+  barrier, and the loop stops at the last key. Longer streams take
+  ``out_cap`` steps of ``minima_mask``. Plain twin: that loop over
+  ``minima_mask_plain`` (``faithful_emit_plain``).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain twin
 only for tensors the caller put on the CPU. ``emit_sorted_unique``,
@@ -91,8 +105,11 @@ def _fn(name: str, *argtypes):
 
 
 # ---------------------------------------------------------------------------
-# K4: the literal Alg. 1 minima scan
+# K4: the Alg. 1 minima scan
 # ---------------------------------------------------------------------------
+
+MAX_LANES = 2 ** 31 - 1         # lanes are int32 on the kernels' outputs
+
 
 def minima_mask_plain(v: torch.Tensor) -> torch.Tensor:
     """Mask of the active rows holding min(v): the 31-step bit scan selects
@@ -102,32 +119,104 @@ def minima_mask_plain(v: torch.Tensor) -> torch.Tensor:
     return active & (v == vmin)
 
 
+def minima_chunk() -> int:
+    """Keys one block of the K4 kernels holds (the library's answer, so it
+    needs the built library): ``faithful_emit`` launches once up to it."""
+    return _fn("minima_chunk")[1]()
+
+
+def minima_parts(n: int) -> int:
+    """int32 scratch of a ``minima_mask`` call on ``n`` keys (the library's
+    answer): one survivor value for each block of grid 1, none while one
+    block holds the keys."""
+    return _fn("minima_part_ints", _L)[1](n)
+
+
+def _minima_operand(name: str, v: torch.Tensor) -> bool:
+    """``_cuda_operands`` for one key stream, its lanes checked first."""
+    if v.device.type == "cuda" and v.numel() > MAX_LANES:
+        raise ValueError(f"{name}: {v.numel()} keys, the kernel takes at "
+                         f"most {MAX_LANES} lanes")
+    return _cuda_operands(name, v)
+
+
 def minima_mask(v: torch.Tensor) -> torch.Tensor:
     """Boolean mask of the rows holding min(v). v: (n,) int32 ≥ 0;
-    KEY_INVALID marks consumed/invalid rows (the flipped sign bit)."""
-    if not _cuda_operands("minima_mask", v):
+    KEY_INVALID marks consumed/invalid rows (the flipped sign bit). One
+    grid up to ``minima_chunk()`` keys, two above, none for ``n = 0``."""
+    if not _minima_operand("minima_mask", v):
         return minima_mask_plain(v)
+    n = v.numel()
     mask = torch.empty(v.shape, dtype=torch.bool, device=v.device)
-    lib, fn = _fn("minima_mask", _P, _P, _L, _P)
+    parts = minima_parts(n)
+    part = torch.empty(parts, dtype=torch.int32, device=v.device) \
+        if parts else None
+    lib, fn = _fn("minima_mask", _P, _P, _P, _L, _L,
+                   ctypes.POINTER(ctypes.c_int), _P)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(v.device):
-        err = fn(v.data_ptr(), mask.data_ptr(), v.numel(),
+        err = fn(v.data_ptr(), mask.data_ptr(),
+                 None if part is None else part.data_ptr(), parts, n,
+                 ctypes.byref(launched),
                  torch.cuda.current_stream(v.device).cuda_stream)
+    minima_mask.launches += launched.value
     _build.check(lib, _LIB, err)
-    minima_mask.launches += 1
     return mask
 
 
 minima_mask.launches = 0
 
 
-def _emit_step(v: torch.Tensor):
-    """One Alg. 1 emission: ``v`` with the rows holding its minimum
-    invalidated, that minimum (KEY_INVALID once no valid row is left) and
-    how many rows held it."""
-    mask = minima_mask(v)
-    return (torch.where(mask, KEY_INVALID, v),      # flip consumed rows
-            torch.where(mask, v, KEY_INVALID).min(),
-            mask.sum(dtype=torch.int32))
+def _emit_loop(v: torch.Tensor, out_cap: int, mask_fn):
+    """``out_cap`` Alg. 1 emissions, one ``mask_fn`` step each: each emits
+    the minimum of ``v`` (KEY_INVALID once no valid row is left) and how
+    many rows held it, and invalidates those rows. Returns (vals, counts,
+    nnz), nnz the keys emitted plus 1 if a valid row is left."""
+    vals, counts = [v.new_empty(0)], [v.new_empty(0)]
+    for _ in range(out_cap):
+        mask = mask_fn(v)
+        vals.append(torch.where(mask, v, KEY_INVALID).min()[None])
+        counts.append(mask.sum(dtype=torch.int32)[None])
+        v = torch.where(mask, KEY_INVALID, v)       # flip consumed rows
+    vals = torch.cat(vals)
+    left = (v != KEY_INVALID).any()
+    return (vals, torch.cat(counts),
+            (vals != KEY_INVALID).sum(dtype=torch.int32) + left.to(torch.int32))
+
+
+def faithful_emit_plain(v: torch.Tensor, out_cap: int):
+    """The faithful emission's plain version: ``out_cap`` steps over
+    ``minima_mask_plain``."""
+    return _emit_loop(v, out_cap, minima_mask_plain)
+
+
+def faithful_emit(v: torch.Tensor, out_cap: int, *, counts: bool = True):
+    """Iterated Alg. 1 (Fig. 11) on the key stream ``v`` (never written):
+    ``(vals, counts, nnz)``, ``vals`` (out_cap,) the sorted distinct valid
+    keys padded with KEY_INVALID, ``counts`` (out_cap,) the rows holding
+    each (0 in padding; None when ``counts=False``), ``nnz`` the keys
+    emitted plus 1 if a valid row is left after ``out_cap`` emissions.
+    A stream of at most ``minima_chunk()`` keys is one launch of
+    ``minima_emit`` (counted on ``minima_mask``), which stops at the last
+    key; a longer one takes ``out_cap`` steps of ``minima_mask``."""
+    cuda = _minima_operand("faithful_emit", v)
+    n = v.numel()
+    if not cuda or n > minima_chunk():
+        vals, cnt, nnz = _emit_loop(
+            v, out_cap, minima_mask if cuda else minima_mask_plain)
+        return vals, cnt if counts else None, nnz
+    vals = torch.empty(out_cap, dtype=torch.int32, device=v.device)
+    cnt = torch.empty(out_cap, dtype=torch.int32, device=v.device) \
+        if counts else None
+    nnz = torch.empty((), dtype=torch.int32, device=v.device)
+    lib, fn = _fn("minima_emit", _P, _L, _P, _P, _P, _L, _P)
+    with torch.cuda.device(v.device):
+        err = fn(v.data_ptr(), n, vals.data_ptr(),
+                 None if cnt is None else cnt.data_ptr(), nnz.data_ptr(),
+                 out_cap, torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check(lib, _LIB, err)
+    minima_mask.launches += 1
+    return vals, cnt, nnz
 
 
 def search_emit_sorted(v: torch.Tensor, max_unique: int):
@@ -135,12 +224,8 @@ def search_emit_sorted(v: torch.Tensor, max_unique: int):
     invalidate its rows — the sorted unique values in the hardware's
     emission order. Returns (values, counts), each (max_unique,); empty
     slots carry KEY_INVALID / 0."""
-    vals, counts = [v.new_empty(0)], [v.new_empty(0)]
-    for _ in range(max_unique):
-        v, val, cnt = _emit_step(v)
-        vals.append(val[None])
-        counts.append(cnt[None])
-    return torch.cat(vals), torch.cat(counts)
+    vals, counts, _ = faithful_emit(v, max_unique)
+    return vals, counts
 
 
 # ---------------------------------------------------------------------------
@@ -196,19 +281,14 @@ def emit_sorted_unique(key: torch.Tensor, out_cap: int, *,
     Returns ``(uk, nnz)``: ``uk`` (out_cap,) ascending with KEY_INVALID
     padding, ``nnz`` the true unique-key count (``nnz > out_cap`` flags
     truncation; the first ``out_cap`` unique keys are kept).
-    ``faithful=True`` runs the literal iterated Alg. 1 scan (``out_cap``
-    minima searches) instead of the batched sort; the two are bit-identical,
-    and the faithful ``nnz`` is ``out_cap + 1`` when truncated (a floor).
+    ``faithful=True`` runs the literal iterated Alg. 1 scan
+    (``faithful_emit``: one launch up to ``minima_chunk()`` keys) instead of
+    the batched sort; the two are bit-identical, and the faithful ``nnz`` is
+    ``out_cap + 1`` when truncated (a floor).
     """
     if faithful:
-        v, outs = key, [key.new_empty(0)]
-        for _ in range(out_cap):
-            v, val, _ = _emit_step(v)
-            outs.append(val[None])
-        uk = torch.cat(outs)
-        emitted = (uk != KEY_INVALID).sum(dtype=torch.int32)
-        leftover = (v != KEY_INVALID).any()
-        return uk, emitted + leftover.to(torch.int32)
+        uk, _, nnz = faithful_emit(key, out_cap, counts=False)
+        return uk, nnz
     return _unique_heads(emit_sort_keys(key, tile=tile), out_cap)
 
 

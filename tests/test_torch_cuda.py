@@ -273,14 +273,114 @@ def test_align_product_keys_kernel_checks(cuda):
         tis.align_product_keys(pk[:100], uk, rows, **kw)
 
 
+def _lanes(n):
+    """``n``, or ``"C"`` / ``"C+1"``: one block's keys of the K4 kernels
+    (``minima_chunk()``, the built library's answer), and one more."""
+    if isinstance(n, int):
+        return n
+    return tis.minima_chunk() + int(n.partition("+")[2] or 0)
+
+
+def test_minima_chunk(cuda):
+    """A block of the K4 kernels holds 1,024 threads x 16 keys."""
+    assert tis.minima_chunk() == 16384
+
+
+@pytest.mark.parametrize("n,parts", [(0, 0), (1, 0), ("C", 0), ("C+1", 2),
+                                     (1 << 20, 64), (1 << 28, 1024),
+                                     (2 ** 31 - 1, 1024)])
+def test_minima_parts(cuda, n, parts):
+    """The mask entry's scratch: none while one block holds the keys, one
+    value a block of grid 1 above, at most 1,024 blocks."""
+    assert tis.minima_parts(_lanes(n)) == parts
+
+
 @pytest.mark.parametrize("n,hi,dead", [(1, 8, 0.0), (1000, 4, 0.2),
                                        (1 << 20, 1 << 30, 0.1),
-                                       (3000, 100, 1.0)])
+                                       (3000, 100, 1.0), ("C", 4, 0.3),
+                                       ("C+1", 1 << 30, 0.1),
+                                       (1 << 20, 16, 0.5)])
 def test_minima_mask_kernel(cuda, n, hi, dead):
+    n = _lanes(n)
     v = _keys(n, n, hi, dead).to(cuda)
     got = tis.minima_mask(v)
     torch.cuda.synchronize()
     assert torch.equal(got, tis.minima_mask_plain(v))
+
+
+@pytest.mark.parametrize("n,grids", [(0, 0), (1, 1), ("C", 1), ("C+1", 2),
+                                     (1 << 20, 2)])
+def test_minima_mask_kernel_grids(cuda, n, grids):
+    """One grid while one block holds the keys, two above (each block's
+    value, then the mask), none for an empty stream."""
+    n = _lanes(n)
+    v = _keys(n + 1, n, 1 << 30, 0.1).to(cuda)
+    before = tis.minima_mask.launches
+    got = tis.minima_mask(v)
+    torch.cuda.synchronize()
+    assert tis.minima_mask.launches == before + grids
+    assert got.shape == v.shape and got.dtype == torch.bool
+    if n:                          # the plain min has no empty reduction
+        assert torch.equal(got, tis.minima_mask_plain(v))
+
+
+@pytest.mark.parametrize("n,hi,dead,cap", [
+    (1, 8, 0.0, 4),                        # one key
+    (1000, 4, 0.2, 2),                     # ties, cap below the unique count
+    (1000, 500, 0.1, 1200),                # cap far above: the early stop
+    (8192, 400, 0.5, 512),                 # the faithful cut's shape
+    ("C", 1 << 20, 0.1, 300), ("C", 3000, 0.1, 4096),
+    ("C", 1 << 20, 0.0, 2048),             # a cap of 2,048, all emitted
+    ("C", 1025, 0.0, 4096),                # 1,025 keys emitted, then padding
+    ("C+1", 200, 0.1, 256),                # past one block: the step loop
+    ("C+1", 1 << 20, 0.1, 64),
+    (3000, 100, 1.0, 64)])                 # every lane dead
+def test_faithful_emit_kernel(cuda, n, hi, dead, cap):
+    """The one-launch emission against its plain loop (values, counts and
+    nnz bit for bit) and the batched emission (uk, on the stream padded to
+    a power of two with dead lanes); the caller's keys are
+    never written; one launch up to a block's keys, the step loop's two
+    grids a step above."""
+    n = _lanes(n)
+    key = _keys(n + cap, n, hi, dead).to(cuda)
+    kept = key.clone()
+    want = tis.faithful_emit_plain(key, cap)
+    before = tis.minima_mask.launches
+    got = tis.faithful_emit(key, cap)
+    torch.cuda.synchronize()
+    assert tis.minima_mask.launches - before == \
+        (1 if n <= tis.minima_chunk() else 2 * cap)
+    assert torch.equal(key, kept)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    vals, counts = tis.search_emit_sorted(key, cap)
+    assert torch.equal(vals, want[0]) and torch.equal(counts, want[1])
+    uk_f, nnz_f = tis.emit_sorted_unique(key, cap, faithful=True)
+    pad = key.new_full((tis.next_pot(n) - n,), KI)   # the batched sort's
+    uk_b, nnz_b = tis.emit_sorted_unique(torch.cat([key, pad]), cap)
+    assert torch.equal(uk_f, uk_b) and torch.equal(uk_f, want[0])
+    n_uniq = int(nnz_b)
+    assert int(nnz_f) == int(want[2]) == (n_uniq if n_uniq <= cap
+                                          else cap + 1)
+    assert torch.equal(key, kept)
+
+
+def test_minima_kernels_refuse_bad_keys(cuda):
+    """int64 or strided keys, and streams of 2^31 lanes (a broadcast view,
+    nothing allocated), are refused."""
+    v = _keys(3, 1000, 64).to(cuda)
+    for bad in (v.long(), v[::2]):
+        with pytest.raises(TypeError):
+            tis.minima_mask(bad)
+        with pytest.raises(TypeError):
+            tis.faithful_emit(bad, 8)
+        with pytest.raises(TypeError):
+            tis.emit_sorted_unique(bad, 8, faithful=True)
+    big = torch.zeros(1, dtype=torch.int32, device=cuda).expand(2 ** 31)
+    with pytest.raises(ValueError, match="2147483647 lanes"):
+        tis.minima_mask(big)
+    with pytest.raises(ValueError, match="2147483647 lanes"):
+        tis.faithful_emit(big, 8)
 
 
 @pytest.mark.parametrize("cap", [64, 600])

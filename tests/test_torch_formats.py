@@ -1,6 +1,12 @@
 """repro_torch formats against the JAX reference: the dense → ELLPACK/COO
 converters, the scipy host constructors, ``to_dense`` and the numpy
-carry-over, all bit-identical on the same numpy inputs."""
+carry-over, all bit-identical on the same numpy inputs; and the package's
+top level against the reference's (its names and its module aliases)."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -97,6 +103,37 @@ def test_scipy_constructors_and_numpy_carry_over(k):
         np.testing.assert_array_equal(got, np.asarray(want))
     with pytest.raises(ValueError):
         rt.from_numpy(er.val, er.idx, device="cpu")
+
+
+PORTED_MODULES = {"configs": "repro_torch.configs", "core": "repro_torch.core",
+                  "kernels": "repro_torch.kernels",
+                  "models": "repro_torch.models", "plan": "repro_torch.plan",
+                  "sccp": "repro_torch.core.sccp"}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_MODULES))
+def test_reference_modules_resolve_in_a_fresh_process(name):
+    """Each submodule the reference reaches as ``repro.<name>``
+    (``repro._MODULES``) and the port has ported resolves as
+    ``repro_torch.<name>`` right after ``import repro_torch``, in a process
+    that imported nothing else; the unported ones stay absent."""
+    import repro
+    unported = {"hwmodel", "hybrid", "serve", "obs"}
+    assert set(repro._MODULES) == set(PORTED_MODULES) | unported
+    assert repro._MODULES[name].replace("repro.", "repro_torch.", 1) \
+        == PORTED_MODULES[name]
+    code = (f"import sys, repro_torch\n"
+            f"m = repro_torch.{name}\n"
+            f"assert m is sys.modules[{PORTED_MODULES[name]!r}], m\n"
+            f"assert {name!r} in repro_torch.__all__\n"
+            f"assert not any(hasattr(repro_torch, u) for u in "
+            f"{sorted(unported)!r})\n"
+            f"assert 'jax' not in sys.modules\nprint('ok')")
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=repo,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr
 
 
 def test_coo_overflow_flag():

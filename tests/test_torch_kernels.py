@@ -81,7 +81,10 @@ def _stream(seed, n, hi, n_valid):
 
 STREAMS = [(256, 96, 200, 128), (256, 96, 200, 40),   # untruncated, truncated
            (1024, 1 << 20, 1000, 256), (512, 4096, 512, 64),
-           (64, 8, 0, 16)]                            # all lanes dead
+           (64, 8, 0, 16),                            # all lanes dead
+           (128, 8, 100, 512),        # cap far above the unique count
+           (256, 1, 200, 8),          # every valid key the same
+           (1, 1 << 20, 1, 4)]        # one key
 
 
 @pytest.mark.parametrize("n,hi,n_valid,cap", STREAMS)
@@ -520,6 +523,110 @@ def test_search_emit_sorted_matches_reference():
                                                interpret=True)
     _eq(vals, rvals)
     _eq(counts, rcounts)
+
+
+@pytest.mark.parametrize("n,hi,n_valid,cap", STREAMS)
+def test_faithful_emission_edges_match_reference(n, hi, n_valid, cap):
+    """``search_emit_sorted`` and ``faithful_emit_plain`` (the emission
+    entry's plain version) against the reference's iterated Alg. 1 in
+    interpret mode: values, counts (0 in padding) and nnz, on streams where
+    the cap is far above the unique count, every lane is dead, the stream
+    is truncated, the keys all tie, or there is one key."""
+    key = _stream(n + hi, n, hi, n_valid)
+    vals, counts = tis.search_emit_sorted(torch.from_numpy(key), cap)
+    rvals, rcounts = ref_is.search_emit_sorted(jnp.asarray(key), cap,
+                                               interpret=True)
+    _eq(vals, rvals)
+    _eq(counts, rcounts)
+    pv, pc, pnnz = tis.faithful_emit_plain(torch.from_numpy(key), cap)
+    _eq(pv, rvals)
+    _eq(pc, rcounts)
+    _, rnnz = ref_is.emit_sorted_unique(jnp.asarray(key), cap,
+                                        interpret=True, faithful=True)
+    assert int(pnnz) == int(rnnz)
+    assert tis.minima_mask.launches == 0
+
+
+def _emulate_minima(v, warps_per_block, keys=16):
+    """The mask entry's design on a numpy stream: blocks of
+    ``warps_per_block`` warps holding ``keys`` keys a thread (lanes
+    base + j*threads + t), each thread folding its keys, each warp and then
+    the block reducing to the survivors' value, and the mask from the
+    blocks' values folded again (the two-grid form when there are
+    several)."""
+    threads = 32 * warps_per_block
+    chunk = threads * keys
+    n = v.size
+    blocks = max(1, -(-n // chunk))
+    part = []
+    for b in range(blocks):
+        lanes = b * chunk + np.arange(keys)[:, None] * threads \
+            + np.arange(threads)[None, :]
+        k = np.where(lanes < n, v[np.minimum(lanes, max(n - 1, 0))], KI) \
+            if n else np.full(lanes.shape, KI)
+        thread = k.min(0)
+        warp = thread.reshape(warps_per_block, 32).min(1)
+        part.append(warp.min())
+    m = min(part)
+    return (v == m) & (m != KI)
+
+
+@pytest.mark.parametrize("n,hi,dead,warps", [
+    (1, 8, 0.0, 1), (700, 4, 0.3, 2), (2048, 1 << 30, 0.1, 4),
+    (2049, 100, 0.5, 4), (5000, 1 << 20, 1.0, 2)])
+def test_minima_mask_design(n, hi, dead, warps):
+    """The register-tiled split (thread, warp, block, blocks) selects the
+    rows of the bit-serial reference, ties and dead lanes included."""
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, hi, n).astype(np.int32)
+    v[rng.random(n) < dead] = KI
+    _eq(_emulate_minima(v, warps),
+        ref_is.minima_mask_pallas(jnp.asarray(v), interpret=True))
+
+
+def _emulate_emit(v, out_cap, warps, keys=16):
+    """The emission entry's design on a numpy stream: each warp's least
+    active key (``wv``), an emission's minimum over the warps' values, only
+    the warps that held it consuming its rows and rescanning, the loop
+    stopping at the first KEY_INVALID; counts and nnz as the kernel writes
+    them."""
+    threads = 32 * warps
+    lanes = np.arange(keys)[:, None] * threads + np.arange(threads)[None, :]
+    k = np.where(lanes < v.size, v[np.minimum(lanes, v.size - 1)], KI)
+    by_warp = [k[:, w * 32:(w + 1) * 32].copy() for w in range(warps)]
+    wv = [blk.min() for blk in by_warp]
+    vals = np.full(out_cap, KI, np.int32)
+    counts = np.zeros(out_cap, np.int32)
+    e = 0
+    while e < out_cap:
+        m = min(wv)
+        if m == KI:
+            break
+        vals[e] = m
+        for w, blk in enumerate(by_warp):
+            if wv[w] == m:
+                counts[e] += int((blk == m).sum())
+                blk[blk == m] = KI
+                wv[w] = blk.min()
+        e += 1
+    return vals, counts, e + int(min(wv) != KI)
+
+
+@pytest.mark.parametrize("n,hi,n_valid,cap", STREAMS)
+@pytest.mark.parametrize("warps", [1, 3])
+def test_faithful_emit_design(n, hi, n_valid, cap, warps):
+    """The one-launch emission's loop (warp values, rescans by the warps
+    that held the minimum, the early stop, counts and nnz) gives the
+    reference's iterated Alg. 1, on streams of one or several warps."""
+    key = _stream(n + hi, n, hi, n_valid)
+    vals, counts, nnz = _emulate_emit(key, cap, max(warps, -(-n // 512)))
+    rvals, rcounts = ref_is.search_emit_sorted(jnp.asarray(key), cap,
+                                               interpret=True)
+    _eq(vals, rvals)
+    _eq(counts, rcounts)
+    _, rnnz = ref_is.emit_sorted_unique(jnp.asarray(key), cap,
+                                        interpret=True, faithful=True)
+    assert nnz == int(rnnz)
 
 
 # ---------------------------------------------------------------------------

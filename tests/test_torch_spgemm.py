@@ -275,6 +275,21 @@ def test_unported_routes_raise(kwargs):
             getattr(rt, call)(ta, tb, **kwargs)
 
 
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(axis="x"), "axis= requires mesh="),
+    (dict(mesh=object()), "mesh= requires axis=")])
+def test_half_given_mesh_raises_value_error(kwargs, match):
+    """``mesh=`` without ``axis=``, or ``axis=`` without ``mesh=``, is a
+    caller's error (``ValueError``), as the reference raises on the same
+    operands; only a full pair names the unported sharded slice."""
+    from repro.core.api import spgemm as ref_spgemm
+    (ea, eb), (ta, tb) = _pair(*ZOO["dup_heavy"][:2])
+    with pytest.raises(ValueError, match=match):
+        rt.spgemm(ta, tb, **kwargs)
+    with pytest.raises(ValueError, match=match):
+        ref_spgemm(ea, eb, **kwargs)
+
+
 @pytest.mark.parametrize("accumulator", ["sort", "search"])
 def test_sharded_keywords_are_ignored_without_a_mesh(accumulator):
     """``schedule``/``dist_plan``/``overlap`` steer only the sharded paths:
