@@ -5,8 +5,9 @@
 
 Builds every CUDA kernel from ``src/repro_torch/csrc`` and drives the port's
 single-device SpGEMM, cold through all six ported accumulators ('sort',
-'search', 'tiled', 'bucket', 'hash', 'stream') and warm through the numeric
-phase on a 'sort' and a 'stream' structure, and its SpMM side (MoE with
+'search', 'tiled', 'bucket', 'hash', 'stream') and the planner's choice among
+them (``accumulator='auto'``, and the measured autotune), warm through the
+numeric phase on a 'sort' and a 'stream' structure, and its SpMM side (MoE with
 ``dispatch='spmm'``, ``SparseMLP``/``SparseLinear``), at a real size: C = A·Aᵀ
 for the paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
@@ -73,6 +74,21 @@ Phases (any failure exits non-zero before the last line):
    time. K6's levels, the stream's merge-and-compact step and K9's shapes
    also print each grid's device time from the profiler
    (``[probe] ... grids``).
+4b. Backend selection on bcsstk32 A·Aᵀ and on A cut to its first 1/8 of
+   columns times its transpose (``selection_phase``): three rounds of the
+   six cold calls beside the cold ``accumulator='auto'`` call, and of each
+   backend's planned call; the planned peaks, the model's forms, costs,
+   bytes and pick; 'auto' (counters zeroed around it) runs its backend's
+   kernels, equals 'sort' bit for bit, and its cold median is within 10% of
+   the fastest cold call whose planned peak fits the card's budget; one
+   ``StructureCache(autotune=True)`` miss (each candidate's probe µs, the
+   winner's probe within 10% of the fastest cold call and its planned
+   call within 10% of the fastest planned call, its numeric result equal
+   to 'sort'); one 'auto' call with the tracer on (``spgemm.symbolic``,
+   ``plan.decision``, ``spgemm.multiply``, ``spgemm.accumulate``; the
+   planner ledger); ``measure_roofline``'s ``frac`` in (0, 1.5] for every
+   backend. Last, each backend's unit and fixed term through the two
+   operands' planned calls (``[fit]``, the form of ``planner.CUDA_COSTS``).
 5. The SpMM slice at deepseek-v2-lite's published widths (d_model 2048, 64
    routed experts top-6 with d_ff_expert 1408, 2 shared experts, capacity
    factor 1.25, dense FFN 10944) on a prefill batch of 4 x 1,024 tokens:
@@ -96,8 +112,12 @@ Phases (any failure exits non-zero before the last line):
    nm=(2, 4))`` (two K10 launches; each layer bit-identical to ``x @ wp``
    with TF32 off), the ELLPACK twin on 8 tokens (bit-identical to the N:M
    route), ``SparseLinear(nm="auto")`` at a 90% global prune (routes to
-   ELLPACK), and ``matmul_sparse(backend='sort')`` twice (a cache miss,
-   then a hit); then three timed calls of the MoE layer and the MLP.
+   ELLPACK), ``matmul_sparse(backend='sort')`` twice (a cache miss, then a
+   hit) and once without ``backend=`` on a cache of its own (the planner
+   chooses); then three timed calls of the MoE layer and the MLP, and the
+   six backends' planned calls on ``matmul_sparse``'s activation operand,
+   a shape the cost table was not fitted on (``held_out_selection``: the
+   backend ``matmul_sparse`` planned within 10% of the fastest).
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries), the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -124,6 +144,18 @@ REPO = Path(__file__).resolve().parent
 BCSSTK32 = (3, "bcsstk32", 45_000, 2_000_000, 45.2, 15.48)
 
 ACCUMULATORS = ("sort", "search", "tiled", "bucket", "hash", "stream")
+# the kernels each accumulator's cold path launches on CUDA operands
+BACKEND_KERNELS = {
+    "sort": ("sccp_multiply",),
+    "search": ("sccp_multiply", "emit_sort", "align_product_keys"),
+    "tiled": ("sccp_multiply", "sort_tiles", "merge_runs"),
+    "bucket": ("sccp_multiply", "bin_ranks", "sort_tiles"),
+    "hash": ("sccp_multiply", "sort_tiles"),
+    "stream": ("fused_slab_sort", "merge_runs"),
+}
+# the selection phase's second operand: A cut to its first 1/CUT_PART columns
+# (the contraction), times its transpose
+CUT_PART = 8
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the CUDA-core fp32
 # rate, the table's nearest entry for the int32 compares these kernels do.
@@ -1228,6 +1260,226 @@ def check_against_scipy(name: str, coo, c_ref, nnz_ref: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: backend selection ('auto', autotune) with the tracer
+# ---------------------------------------------------------------------------
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def selection_phase(name: str, a, b):
+    """'auto' on one operand pair beside the six accumulators. Returns
+    ({path: launch counts}, the summary, also printed as ``[select]``).
+
+    Three rounds, in turns: the six cold calls and the cold 'auto' call
+    (``out_cap="auto"``), then each backend's planned call
+    (``spgemm(a, b, plan=p)``, what 'auto' runs after planning and what the
+    CUDA cost table is fitted on); each backend's planned peak; the model's
+    forms (``planner.FORMS``), costs, bytes and pick. Then 'auto' with the
+    counters zeroed around it (the chosen backend's kernels must run, its
+    result equal 'sort' bit for bit), one autotuned ``StructureCache`` miss
+    (the winner's numeric result equal 'sort' too), one 'auto' call with the
+    tracer on (its spans and the planner ledger) and ``measure_roofline``'s
+    ``frac`` for each backend."""
+    import torch
+    import repro_torch
+    from repro_torch import kernels, obs
+    from repro_torch.obs import roofline
+    from repro_torch.plan import planner
+
+    budget = planner.default_mem_budget(a.idx.device)
+    plans = {bk: planner.make_plan(a, b, backend=bk) for bk in ACCUMULATORS}
+    auto = planner.make_plan(a, b)
+    forms, interm = planner.plan_costs(auto, a.k, a.n_cols, b.k,
+                                       planner.FORMS)
+    calls = {k: (lambda k=k: repro_torch.spgemm(a, b, accumulator=k))
+             for k in (*ACCUMULATORS, "auto")}
+    cold = {k: [] for k in calls}
+    planned = {bk: [] for bk in ACCUMULATORS}
+    for _ in range(3):
+        for k, fn in calls.items():
+            cold[k].append(timed_ms(fn)[1])
+        for bk, p in plans.items():
+            planned[bk].append(
+                timed_ms(lambda p=p: repro_torch.spgemm(a, b, plan=p))[1])
+    peak = {bk: peak_of(lambda p=p: repro_torch.spgemm(a, b, plan=p))[1]
+            for bk, p in plans.items()}
+    fits = [bk for bk in ACCUMULATORS
+            if peak[bk]["call_gib"] * 2**30 <= budget]
+    require(fits, f"{name}: no backend's planned peak fits {budget} B")
+    best = min(fits, key=lambda bk: median(cold[bk]))
+    fastest_planned = min(ACCUMULATORS, key=lambda bk: median(planned[bk]))
+
+    # 'auto' runs the chosen backend's kernels and equals 'sort'
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    c_auto = repro_torch.spgemm(a, b, accumulator="auto", check=True)
+    torch.cuda.synchronize()
+    counts = {f"auto_{name}": kernels.launch_counts()}
+    for kname in BACKEND_KERNELS[auto.backend]:
+        require(counts[f"auto_{name}"][kname] > 0,
+                f"{name}: 'auto' ({auto.backend}) skipped {kname}")
+    c_sort = repro_torch.spgemm(a, b, check=True)
+    for f in ("row", "col", "val", "ngroups"):
+        same(f"{name} auto vs sort .{f}", getattr(c_auto, f),
+             getattr(c_sort, f))
+    del c_auto
+
+    # one autotuned miss: every candidate probed on the card
+    cache = repro_torch.StructureCache(autotune=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    st, tune_ms = timed_ms(lambda: cache.get(a, b))
+    counts[f"autotune_{name}"] = kernels.launch_counts()
+    probe_us = st.plan.est["autotune_us"]
+    winner = st.plan.backend
+    require(set(probe_us) == set(ACCUMULATORS) and winner in ACCUMULATORS
+            and cache.stats()["autotuned"] == 1,
+            f"{name}: autotune {probe_us}, {cache.stats()}")
+    for bk in ACCUMULATORS:
+        for kname in BACKEND_KERNELS[bk]:
+            require(counts[f"autotune_{name}"][kname] > 0,
+                    f"{name}: autotune's {bk} probe skipped {kname}")
+    c_tuned = repro_torch.spgemm(a, b, structure=st, check=True)
+    for f in ("row", "col", "val", "ngroups"):
+        same(f"{name} autotuned numeric vs sort .{f}", getattr(c_tuned, f),
+             getattr(c_sort, f))
+    del c_tuned, c_sort, st, cache
+
+    # one 'auto' call with the tracer on
+    obs.enable(reset=True)
+    try:
+        repro_torch.spgemm(a, b, accumulator="auto")
+    finally:
+        obs.disable()
+    events = obs.get_tracer().snapshot()["events"]
+    need = {"spgemm.symbolic", "plan.decision", "spgemm.accumulate"}
+    if auto.backend != "stream":       # 'stream' fuses its own multiply
+        need.add("spgemm.multiply")
+    require(need <= {e["name"] for e in events},
+            f"{name}: traced 'auto' call recorded "
+            f"{sorted({e['name'] for e in events})}")
+    spans = [(e["name"], e["dur_us"]) for e in events
+             if e["ph"] == "X" and e["depth"] <= 1]
+    ledger = obs.metrics.snapshot()["planner"]
+    obs.reset()
+
+    rl = roofline.measure_roofline(a, b, plan=auto, iters=1)
+    obs.reset()
+    for bk, r in rl.items():
+        require(0.0 < r["frac"] <= 1.5,
+                f"{name}: roofline frac {r['frac']} for {bk}")
+    costs, _ = planner.plan_costs(auto, a.k, a.n_cols, b.k,
+                                  planner.cost_table(a.idx.device))
+    summary = dict(
+        operand=name, chosen=auto.backend, mem_budget=budget,
+        stats=dataclasses.asdict(auto.stats),
+        sizes={f: getattr(auto, f) for f in (
+            "out_cap", "tile", "stream_cap", "stream_group", "n_buckets",
+            "bucket_cap", "n_blocks", "block_cap")},
+        k_a=a.k, n=a.n_cols, k_b=b.k,
+        cost=costs, forms=forms, interm=interm, cold_ms=cold,
+        planned_ms=planned, planned_peak=peak,
+        peak_over_interm={bk: peak[bk]["call_gib"] * 2**30 / interm[bk]
+                          for bk in ACCUMULATORS},
+        fastest_cold_under_budget=best, fastest_planned=fastest_planned,
+        autotune_us=probe_us, autotune_winner=winner,
+        autotune_miss_ms=tune_ms, traced_spans_us=spans,
+        planner_ledger=ledger,
+        roofline={bk: {k: r[k] for k in ("us", "modeled_bytes", "frac")}
+                  for bk, r in rl.items()},
+        ref_bw=next(iter(rl.values()))["ref_bw"])
+    print(f"[select] {name}: 'auto' chose {auto.backend} (cold median "
+          f"{median(cold['auto']):.1f} ms; fastest cold under the budget "
+          f"{best} {median(cold[best]):.1f}; fastest planned "
+          f"{fastest_planned} {median(planned[fastest_planned]):.1f}); "
+          f"autotune winner {winner} {probe_us[winner] / 1e3:.1f} ms; "
+          f"'auto' == sort bit for bit; roofline frac "
+          f"{ {bk: round(r['frac'], 4) for bk, r in rl.items()} }",
+          flush=True)
+    print(f"[select] {json.dumps(summary)}", flush=True)
+    return counts, summary
+
+
+def check_selection(s: dict) -> None:
+    """The timing gates of one ``selection_phase``, after its numbers and
+    the fit are printed: the cold 'auto' median within 10% of the fastest
+    cold call whose planned peak fits the budget; the autotune winner's
+    probe within 10% of the fastest cold call; and the winner's own planned
+    median within 10% of the fastest planned median. The probe is a planned
+    call, so it sits far under any cold call (which adds the symbolic
+    pass); the last gate compares like with like and is the one a wrong
+    winner fails."""
+    cold, planned, name = s["cold_ms"], s["planned_ms"], s["operand"]
+    best = s["fastest_cold_under_budget"]
+    require(median(cold["auto"]) <= 1.10 * median(cold[best]),
+            f"{name}: 'auto' ({s['chosen']}) cold "
+            f"{median(cold['auto']):.1f} ms > 1.1 x {best}'s "
+            f"{median(cold[best]):.1f}")
+    fastest = min(median(cold[bk]) for bk in ACCUMULATORS)
+    winner = s["autotune_winner"]
+    won = s["autotune_us"][winner] / 1e3
+    require(won <= 1.10 * fastest,
+            f"{name}: autotune winner {winner} {won:.1f} ms > "
+            f"1.1 x the fastest cold {fastest:.1f}")
+    fp = s["fastest_planned"]
+    require(median(planned[winner]) <= 1.10 * median(planned[fp]),
+            f"{name}: autotune winner {winner}'s planned call "
+            f"{median(planned[winner]):.1f} ms > 1.1 x {fp}'s "
+            f"{median(planned[fp]):.1f}")
+
+
+def held_out_selection(a, b, chosen: str) -> dict:
+    """The cost table away from its fit points: the six backends' planned
+    calls (``spgemm(a, b, plan=p)``, three each, in turns) on
+    ``matmul_sparse``'s activation operand, whose shape and duplicate ratio
+    differ from bcsstk32's. Requires the backend ``matmul_sparse`` planned
+    without ``backend=`` (``chosen``) within 10% of the fastest."""
+    import repro_torch
+    from repro_torch.plan import planner
+    auto = planner.make_plan(a, b)
+    require(chosen == auto.backend,
+            f"matmul_sparse planned {chosen}, make_plan {auto.backend}")
+    plans = {bk: planner.make_plan(a, b, backend=bk) for bk in ACCUMULATORS}
+    planned = {bk: [] for bk in ACCUMULATORS}
+    for bk, p in plans.items():                          # warm each once
+        repro_torch.spgemm(a, b, plan=p)
+    for _ in range(3):
+        for bk, p in plans.items():
+            planned[bk].append(
+                timed_ms(lambda p=p: repro_torch.spgemm(a, b, plan=p))[1])
+    costs, _ = planner.plan_costs(auto, a.k, a.n_cols, b.k,
+                                  planner.cost_table(a.idx.device))
+    fastest = min(ACCUMULATORS, key=lambda bk: median(planned[bk]))
+    out = dict(chosen=chosen, fastest_planned=fastest, planned_ms=planned,
+               cost=costs, stats=dataclasses.asdict(auto.stats))
+    print(f"[select] matmul_sparse activation operand (held out of the "
+          f"fit): planned {chosen} {median(planned[chosen]):.2f} ms, fastest "
+          f"planned {fastest} {median(planned[fastest]):.2f}; "
+          f"{json.dumps(out)}", flush=True)
+    require(median(planned[chosen]) <= 1.10 * median(planned[fastest]),
+            f"matmul_sparse's planned backend {chosen} "
+            f"{median(planned[chosen]):.2f} ms > 1.1 x {fastest}'s "
+            f"{median(planned[fastest]):.2f} on the held-out operand")
+    return out
+
+
+def fit_cuda_costs(sel: list) -> dict:
+    """One unit and one fixed term a backend through the planned-call
+    medians (µs) of the two operands against their forms, the
+    ``planner.CUDA_COSTS`` form; printed as ``[fit]``."""
+    (f1, t1), (f2, t2) = ((s["forms"], s["planned_ms"]) for s in sel)
+    fit = {}
+    for bk in ACCUMULATORS:
+        y1, y2 = median(t1[bk]) * 1e3, median(t2[bk]) * 1e3
+        unit = (y1 - y2) / (f1[bk] - f2[bk])
+        fit[bk] = dict(unit=unit, fixed=y1 - unit * f1[bk])
+    print(f"[fit] CUDA_COSTS from the planned calls of "
+          f"{[s['operand'] for s in sel]}: {json.dumps(fit)}", flush=True)
+    return fit
+
+
+# ---------------------------------------------------------------------------
 # The SpMM slice: MoE dispatch='spmm' (K9) and SparseMLP's N:M route (K10)
 # ---------------------------------------------------------------------------
 
@@ -1578,7 +1830,7 @@ def spmm_slice(seed: int):
                               ).to(dev)
     lin_auto = repro_torch.SparseLinear(w_auto, 0.9, nm="auto")
     a_dense = int_tensor(rng, (64, d), dev) \
-        * (torch.rand((64, d), device=dev) < 0.05)
+        * torch.from_numpy(rng.random((64, d)) < 0.05).to(dev)
     a_act = repro_torch.ell_rows_from_dense(
         a_dense, int((a_dense != 0).sum(0).max()), device=dev)
     torch.cuda.synchronize()
@@ -1605,7 +1857,10 @@ def spmm_slice(seed: int):
             a_act, backend="sort"),
         "matmul_sparse_hit": lambda: lin_auto.matmul_sparse(
             a_act, backend="sort"),
+        "matmul_sparse_auto": lambda: lin_planned.matmul_sparse(a_act),
     }
+    # the same weight in a layer of its own cache: its miss plans 'auto'
+    lin_planned = sl.SparseLinear.from_planes(lin_auto.w_ell)
     counts, out, cost = drive_spmm_paths(paths)
     require(counts["moe_spmm"]["ell_spmm"] == k9_grids(cfg, t),
             f"moe path launched {counts['moe_spmm']['ell_spmm']} K9 grids, "
@@ -1615,6 +1870,12 @@ def spmm_slice(seed: int):
     for name in ("matmul_sparse_miss", "matmul_sparse_hit"):
         for kname in ("sccp_multiply", "align_product_keys"):
             require(counts[name][kname] > 0, f"{name} skipped {kname}")
+    auto_backend = lin_planned.cache.get(a_act, lin_planned.w_ell).plan.backend
+    numeric_kernel = "align_keys" if auto_backend == "stream" \
+        else "align_product_keys"
+    for kname in ("sccp_multiply", numeric_kernel):
+        require(counts["matmul_sparse_auto"][kname] > 0,
+                f"matmul_sparse_auto ({auto_backend}) skipped {kname}")
 
     # MoE: the same call on CPU tensors (the plain twins), same routing
     y, aux = out["moe_spmm"]
@@ -1669,7 +1930,8 @@ def spmm_slice(seed: int):
     st = lin_auto.cache.stats()
     require(st["misses"] == 1 and st["hits"] == 1, f"cache stats {st}")
     c_ref = a_dense @ lin_auto.w_ell.to_dense()
-    for name in ("matmul_sparse_miss", "matmul_sparse_hit"):
+    for name in ("matmul_sparse_miss", "matmul_sparse_hit",
+                 "matmul_sparse_auto"):
         coo = out[name]
         require(not bool(coo.overflowed()), f"{name} overflowed")
         err = float((coo.to_dense() - c_ref).abs().max())
@@ -1684,9 +1946,12 @@ def spmm_slice(seed: int):
     require(float((hit.val - miss.val).abs().max())
             <= 1e-5 * float(miss.val.abs().max()),
             "matmul_sparse hit vs miss values differ")
+    same("matmul_sparse without backend= vs miss .ngroups",
+         out["matmul_sparse_auto"].ngroups, miss.ngroups)
     print(f"[check] 'auto' at 90% -> ELLPACK (k {lin_auto.w_ell.k}), max|diff| "
           f"{auto_err:.3e}; matmul_sparse miss then hit {st}, "
-          f"{int(out['matmul_sparse_hit'].ngroups)} groups", flush=True)
+          f"{int(out['matmul_sparse_hit'].ngroups)} groups; without "
+          f"backend= it planned {auto_backend}", flush=True)
     del out
 
     # -- e2e: three timed calls each, K9's grids twice, K10 twice a call -------
@@ -1704,7 +1969,9 @@ def spmm_slice(seed: int):
             n = kernels.launch_counts()[kname]
             require(n == want, f"{name} launched {kname} {n} times")
         e2e[name] = times
+    held_out = held_out_selection(a_act, lin_auto.w_ell, auto_backend)
     summary = {"spmm_e2e_ms": e2e,
+               "spmm_held_out_selection": held_out,
                "spmm_stage_ms": spmm_stage_ms(cfg, p, x, mlp, x_int),
                "spmm_path_ms": {k: v[0] for k, v in cost.items()},
                "spmm_peak_mem_per_call": {k: v[1] for k, v in cost.items()},
@@ -1800,19 +2067,11 @@ def main(argv=None) -> int:
 
     # -- phase 3: the main path -------------------------------------------------
     counts, out = drive_paths(a, b, a_cut, b_cut, structures)
-    require(counts["sort"]["sccp_multiply"] > 0, "sort path skipped K1")
-    for kname in ("sccp_multiply", "emit_sort", "align_product_keys"):
-        require(counts["search"][kname] > 0, f"search path skipped {kname}")
     require(counts["search_faithful_cut"]["minima_mask"] == 1,
             f"faithful path launched "
             f"{counts['search_faithful_cut']['minima_mask']} minima_mask "
             "kernels, not 1 (the emission in one launch)")
-    for acc, kernels_run in (("tiled", ("sccp_multiply", "sort_tiles",
-                                        "merge_runs")),
-                             ("bucket", ("sccp_multiply", "bin_ranks",
-                                         "sort_tiles")),
-                             ("hash", ("sccp_multiply", "sort_tiles")),
-                             ("stream", ("fused_slab_sort", "merge_runs")),
+    for acc, kernels_run in (*BACKEND_KERNELS.items(),
                              ("numeric_sort", ("sccp_multiply",
                                                "align_product_keys")),
                              ("numeric_stream", ("sccp_multiply",
@@ -1910,6 +2169,27 @@ def main(argv=None) -> int:
                                    **numeric_stage_ms(a, b,
                                                       structures["sort"])},
                       "operand": BCSSTK32[1], "nnz_c": nnz_c}), flush=True)
+    del plans, calls
+    torch.cuda.empty_cache()
+
+    # -- phase 4b: backend selection on A·Aᵀ and on A's first 1/8 columns ------
+    cols = A.shape[1] // CUT_PART
+    A8 = A_csc[:, :cols]
+    k8 = int(np.diff(A8.indptr).max())
+    a8 = from_numpy(*np_ell_rows_from_scipy(A8, k8), n_rows=A.shape[0],
+                    device=dev)
+    b8 = from_numpy(*np_ell_cols_from_scipy(A8.T.tocsr(), k8),
+                    n_cols=A.shape[0], device=dev)
+    sel = []
+    for name, x, y in ((BCSSTK32[1], a, b), (f"{BCSSTK32[1]}_cols{cols}",
+                                             a8, b8)):
+        sel_counts, summary = selection_phase(name, x, y)
+        counts.update(sel_counts)
+        sel.append(summary)
+        torch.cuda.empty_cache()
+    fit_cuda_costs(sel)
+    for summary in sel:
+        check_selection(summary)
 
     # -- phases 5-6: the SpMM slice ---------------------------------------------
     spmm_rows, spmm_counts, spmm_summary = spmm_slice(args.seed)

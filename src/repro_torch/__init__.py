@@ -12,8 +12,11 @@ Its slices so far carry the single-device SpGEMM, cold and warm:
     st = repro_torch.make_structure(a, b, backend="sort")  # symbolic, once
     c = repro_torch.spgemm(a, b, structure=st)         # numeric, each call
 
-and the SpMM side: pruned weights as N:M planes or ELLPACK, and the MoE
-layer whose top-k routing is a row-wise ELLPACK matrix:
+with the backend chosen by the planner (``accumulator="auto"``, fitted to
+the H100 on CUDA operands) or by measurement
+(``StructureCache(autotune=True)``), and the SpMM side: pruned weights as
+N:M planes or ELLPACK, and the MoE layer whose top-k routing is a row-wise
+ELLPACK matrix:
 
     lyr = repro_torch.SparseLinear(w, 0.5, nm=(2, 4))  # K10 on x @ W
     mlp = repro_torch.SparseMLP(w_in, w_out, 0.5, nm=(2, 4))
@@ -22,9 +25,11 @@ layer whose top-k routing is a row-wise ELLPACK matrix:
 Constructors default to ``default_device()`` (CUDA, or an error); pass
 ``device="cpu"`` to run the kernels' plain torch versions on the CPU. The
 CUDA kernels build from ``src/repro_torch/csrc`` on first use.
+``repro_torch.obs.enable()`` turns on the spans and counters the entry points
+report through (``obs.export_chrome(path)`` writes a Chrome trace).
 """
-from . import configs, core, kernels, models, plan
-from .core import sccp
+from . import configs, core, kernels, models, obs, plan
+from .core import hwmodel, sccp
 from .core.accumulate import AccumulatorOverflow, check_no_overflow
 from .core.api import spgemm
 from .core.formats import (Coo, EllCols, EllRows, coo_from_dense,
@@ -43,8 +48,9 @@ from .plan import (Plan, SpgemmStructure, StructureCache, fingerprint,
                    plan_spmm_format)
 
 # the reference's submodules reachable as repro_torch.<name>, for the ones
-# ported so far ('hwmodel', 'hybrid', 'serve' and 'obs' are not)
-_MODULES = ("configs", "core", "kernels", "models", "plan", "sccp")
+# ported so far ('hybrid' and 'serve' are not)
+_MODULES = ("configs", "core", "hwmodel", "kernels", "models", "obs", "plan",
+            "sccp")
 
 __all__ = [
     *_MODULES, "AccumulatorOverflow", "Coo", "EllCols", "EllRows",

@@ -2,13 +2,15 @@
 
   api        — the ``spgemm()`` front door (prefer ``repro_torch.spgemm``)
   formats    — COO / ELLPACK containers, converters, numpy carry-over
+  hwmodel    — the paper's analytical PUM latency/energy model (Table II)
+               and the planner's ``MatrixStats``
   sccp       — Structured Condensing Computation Paradigm multiply
   accumulate — the sort-and-segment-sum accumulation, overflow contract
   spgemm     — end-to-end spgemm / spmm entry points, the warm numeric
                phase
   streaming  — the slab-group streaming engine ('stream')
 """
-from . import accumulate, api, formats, sccp, spgemm, streaming
+from . import accumulate, api, formats, hwmodel, sccp, spgemm, streaming
 from .accumulate import AccumulatorOverflow, accumulate_checked, check_no_overflow
 from .formats import (Coo, EllCols, EllRows, coo_from_dense, default_device,
                       ell_cols_from_dense, ell_rows_from_dense, from_numpy,
@@ -20,7 +22,8 @@ from .spgemm import (accumulate_stream, spgemm_coo, spgemm_coo_batched,
 from .streaming import spgemm_coo_stream, spgemm_coo_stream_numeric
 
 __all__ = [
-    "accumulate", "api", "formats", "sccp", "spgemm", "streaming",
+    "accumulate", "api", "formats", "hwmodel", "sccp", "spgemm",
+    "streaming",
     "AccumulatorOverflow", "accumulate_checked", "check_no_overflow",
     "Coo", "EllCols", "EllRows", "coo_from_dense", "default_device",
     "ell_cols_from_dense", "ell_rows_from_dense", "from_numpy", "to_numpy",

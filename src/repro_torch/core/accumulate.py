@@ -91,6 +91,11 @@ def check_no_overflow(coo: Coo) -> Coo:
         n_bad = int((ngroups > cap).sum()) if ngroups.ndim else 1
         where = ("" if ngroups.ndim == 0 else
                  f" in {n_bad} batch entr{'y' if n_bad == 1 else 'ies'}")
+        # exactly one event per offending call (not per batch entry)
+        from ..obs import metrics as _obs_metrics
+        from ..obs import trace as _obs
+        _obs_metrics.inc("spgemm.overflow_events")
+        _obs.instant("spgemm.overflow", worst=worst, cap=cap, n_bad=n_bad)
         raise AccumulatorOverflow(
             f"accumulation produced up to {worst} unique coordinates but "
             f"out_cap={cap}{where}; {worst - cap} group(s) were dropped — "

@@ -13,15 +13,14 @@ It dispatches on what it is handed (first match wins):
   ``spgemm_coo_batched``, 2-D ones to ``spgemm_coo``.
 
 ``out_cap`` (``"auto"`` sizes it symbolically), ``accumulator`` (``'sort'``,
-``'tiled'``, ``'bucket'``, ``'hash'``, ``'stream'`` or ``'search'``),
-``tile`` (the ``'tiled'`` merge tree's tile), ``plan`` (``plan.make_plan``,
-of either package) and ``check`` mean what they mean there.
-``schedule``, ``dist_plan`` and ``overlap`` steer only the sharded paths;
-without a mesh they are ignored, whatever their values, as the reference
-ignores them. ``accumulator='auto'`` without a plan and the sharded paths
-(a ``mesh=`` and ``axis=`` pair) raise ``NotImplementedError`` until their
-slices are ported; one of the two without the other raises ``ValueError``,
-as in the reference.
+``'tiled'``, ``'bucket'``, ``'hash'``, ``'stream'``, ``'search'``, or
+``'auto'``: the planner chooses), ``tile`` (the ``'tiled'`` merge tree's
+tile), ``plan`` (``plan.make_plan``, of either package) and ``check`` mean
+what they mean there. ``schedule``, ``dist_plan`` and ``overlap`` steer only
+the sharded paths; without a mesh they are ignored, whatever their values,
+as the reference ignores them. The sharded paths (a ``mesh=`` and ``axis=``
+pair) raise ``NotImplementedError`` until their slice is ported; one of the
+two without the other raises ``ValueError``, as in the reference.
 """
 from __future__ import annotations
 

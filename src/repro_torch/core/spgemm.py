@@ -13,10 +13,11 @@ mirroring the single-device subset of ``src/repro/core/spgemm.py``.
                            materializes the (k_a, n, k_b) product stream) and
                            ``'search'`` (the paper's own Alg. 1 / Fig. 11,
                            kernels.insitu_search); ``out_cap='auto'`` sizes
-                           the output symbolically, a ``plan``
-                           (plan.make_plan) supplies the cap and the blocking
-                           sizes, ``check=True`` raises on truncation or a
-                           backend drop.
+                           the output symbolically, ``accumulator='auto'``
+                           lets ``plan.make_plan`` choose the backend, a
+                           ``plan`` supplies the cap, the backend and the
+                           blocking sizes, ``check=True`` raises on
+                           truncation or a backend drop.
   * ``spgemm_coo_numeric`` / ``_numeric_batched`` — the warm numeric phase
                            on a precomputed ``plan.make_structure``: multiply
                            and one slot sum, no planning, no sort.
@@ -26,8 +27,11 @@ mirroring the single-device subset of ``src/repro/core/spgemm.py``.
                            leading batch axis of both ELLPACK operands.
   * ``spmm_ell_dense`` / ``spmm_dense_ell`` — ELLPACK × dense.
 
-Options that later slices port raise ``NotImplementedError`` naming their
-ROADMAP item.
+The entry points report through ``repro_torch.obs`` (spans
+``spgemm.multiply``, ``spgemm.accumulate``, ``spgemm.numeric``; the
+``spgemm.poison`` event), which costs one flag test while disabled. Options
+that later slices port raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ import torch
 
 from ..kernels import ops
 from ..kernels.insitu_search import KEY_INVALID, align_keys
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs
 from .accumulate import accumulate, check_no_overflow, scatter_dense
 from .formats import (INVALID, Coo, EllCols, EllRows, ell_cols_from_dense,
                       ell_rows_from_dense)
@@ -47,7 +53,6 @@ from .streaming import (_slab_groups, accumulate_products_stream,
 KEY_SPACE = 2 ** 31 - 1     # packed int32 keys span n_rows·n_cols below this
 BACKENDS = ("sort", "tiled", "bucket", "hash", "stream", "search")
 _LATER = {
-    "auto": "ROADMAP queue 1 item 3 (planner: backend selection)",
     "mesh": "ROADMAP queue 1 item 9 (distributed SpGEMM)",
 }
 
@@ -55,6 +60,13 @@ _LATER = {
 def _not_ported(what: str, key: str):
     raise NotImplementedError(f"{what} is not ported to repro_torch yet: "
                               f"{_LATER[key]}")
+
+
+def _plan_key(plan, n_rows: int, n_cols: int) -> str:
+    """Metrics-ledger key for est-vs-measured joins: the plan fingerprint
+    when there is one, else a shape tag."""
+    fp = getattr(plan, "fp", None)
+    return fp[:12] if fp else f"shape:{n_rows}x{n_cols}"
 
 
 def _poison_overflow(coo: Coo, dropped: torch.Tensor) -> Coo:
@@ -110,7 +122,34 @@ def accumulate_stream(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     """Run one accumulation backend over a raw product stream → sorted COO
     (the backend-dispatch half of ``spgemm_coo``). ``plan`` supplies the
     bucket and table sizes; products a backend drops poison
-    ``Coo.ngroups``."""
+    ``Coo.ngroups``.
+
+    Traced (``repro_torch.obs``), it runs in a ``spgemm.accumulate`` span
+    that ends in a device sync, and its µs feed the planner's
+    est-vs-measured ledger; a drop is one ``spgemm.poison`` event."""
+    if not _obs.is_enabled():
+        return _accumulate_impl(row, col, val, out_cap, n_rows, n_cols,
+                                backend=backend, tile=tile, plan=plan)
+    with _obs.span("spgemm.accumulate", backend=backend, lanes=row.numel(),
+                   out_cap=int(out_cap)) as sp:
+        coo = _obs.sync(_accumulate_impl(row, col, val, out_cap, n_rows,
+                                         n_cols, backend=backend, tile=tile,
+                                         plan=plan))
+        ng = int(coo.ngroups)
+        sp.set(nnz=ng)
+        if ng > out_cap and backend in ("bucket", "hash"):
+            # a backend drop: _poison_overflow stamped ngroups past the cap
+            _obs_metrics.inc("spgemm.poison_events")
+            _obs.instant("spgemm.poison", backend=backend, ngroups=ng,
+                         cap=int(out_cap))
+    _obs_metrics.record_backend_us(_plan_key(plan, n_rows, n_cols), backend,
+                                   sp.dur_us)
+    return coo
+
+
+def _accumulate_impl(row: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+                     out_cap: int, n_rows: int, n_cols: int, *,
+                     backend: str, tile: int, plan) -> Coo:
     if backend == "sort":
         return accumulate(row, col, val, out_cap, n_rows, n_cols)
     if backend == "stream":
@@ -174,10 +213,12 @@ def spgemm_coo(a: EllRows, b: EllCols, out_cap="auto", *,
     Prefer ``repro_torch.spgemm(a, b, ...)``. ``out_cap`` is the static
     output capacity, or ``'auto'`` to size it with the exact symbolic pass.
     ``accumulator`` is ``'sort'`` (``None`` defaults to it), ``'tiled'``,
-    ``'bucket'``, ``'hash'``, ``'stream'`` or ``'search'``. A ``plan``
-    (``plan.make_plan``, of either package) supplies ``out_cap``, the
-    backend, ``tile`` and the blocking sizes, explicit arguments winning; it
-    must have been sized for these operands' pattern. Without a plan,
+    ``'bucket'``, ``'hash'``, ``'stream'`` or ``'search'``, or ``'auto'``:
+    ``plan.make_plan`` chooses the backend and sizes it (on CUDA operands it
+    then runs that backend's kernels). A ``plan`` (``plan.make_plan``, of
+    either package) supplies ``out_cap``, the backend, ``tile`` and the
+    blocking sizes, explicit arguments winning; it must have been sized for
+    these operands' pattern. Without a plan,
     ``'bucket'``, ``'hash'`` and ``'stream'`` with ``out_cap='auto'`` plan
     their sizes in the same symbolic pass; with an int ``out_cap`` they take
     one stream-sized bucket or table, or one-slab stream steps compacted at
@@ -189,12 +230,18 @@ def spgemm_coo(a: EllRows, b: EllCols, out_cap="auto", *,
     """
     if plan is not None:
         _validate_plan_fp(plan, a, b)
+    elif accumulator == "auto":
+        from ..plan.planner import make_plan
+        # an oversized space takes the unpacked 'sort' path below: ask the
+        # planner only for its sizes, as the reference does
+        plan = make_plan(a, b, out_cap=None if out_cap == "auto" else out_cap,
+                         backend="sort" if a.n_rows * b.n_cols >= KEY_SPACE
+                         else None)
+    if plan is not None:
         out_cap = plan.out_cap if out_cap == "auto" else out_cap
         accumulator = plan.backend if accumulator in (None, "auto") \
             else accumulator
         tile = plan.tile if tile is None else tile
-    if accumulator == "auto":
-        _not_ported("accumulator='auto'", "auto")
     accumulator = accumulator or "sort"
     tile = tile or 4096
     if accumulator not in BACKENDS:
@@ -211,12 +258,19 @@ def spgemm_coo(a: EllRows, b: EllCols, out_cap="auto", *,
             out_cap = out_cap_auto(a, b, exact=True)
     if accumulator == "stream":
         # the point of this backend: the (k_a, n, k_b) stream never exists
-        coo = spgemm_coo_stream(
-            a, b, out_cap,
-            stream_cap=plan.stream_cap if plan is not None else None,
-            group=plan.stream_group if plan is not None else 1)
+        with _obs.span("spgemm.accumulate", backend="stream",
+                       lanes=a.k * a.n_cols * b.k, out_cap=int(out_cap)) as sp:
+            coo = _obs.sync(spgemm_coo_stream(
+                a, b, out_cap,
+                stream_cap=plan.stream_cap if plan is not None else None,
+                group=plan.stream_group if plan is not None else 1))
+        if sp.dur_us is not None:
+            _obs_metrics.record_backend_us(
+                _plan_key(plan, a.n_rows, b.n_cols), "stream", sp.dur_us)
     else:
-        val, row, col = sccp_multiply(a, b)
+        with _obs.span("spgemm.multiply", backend=accumulator, k_a=a.k,
+                       k_b=b.k, n=a.n_cols):
+            val, row, col = _obs.sync(sccp_multiply(a, b))
         coo = accumulate_stream(row, col, val, out_cap, a.n_rows, b.n_cols,
                                 backend=accumulator, tile=tile, plan=plan)
     if check:
@@ -386,15 +440,30 @@ def spgemm_coo_numeric(a: EllRows, b: EllCols, structure, *,
         raise ValueError("batched operands: use spgemm_coo_numeric_batched "
                          "with a structure from make_structure_batched")
     st = structure
-    if st.plan is not None and st.plan.backend == "stream":
-        coo = _numeric_stream(a, b, st.key, st.nnz, out_cap=st.out_cap,
-                              n_rows=st.n_rows, n_cols=st.n_cols,
-                              group=max(1, min(st.plan.stream_group, a.k)))
-    else:
-        val, row, col = sccp_multiply(a, b)
-        coo = _numeric_scatter(row, col, val, st.key, st.nnz,
-                               out_cap=st.out_cap, n_rows=st.n_rows,
-                               n_cols=st.n_cols)
+    backend = st.plan.backend if st.plan is not None else "sort"
+    with _obs.span("spgemm.numeric", backend=backend, out_cap=st.out_cap,
+                   n_rows=st.n_rows, n_cols=st.n_cols) as sp:
+        if backend == "stream":
+            coo = _numeric_stream(a, b, st.key, st.nnz, out_cap=st.out_cap,
+                                  n_rows=st.n_rows, n_cols=st.n_cols,
+                                  group=max(1, min(st.plan.stream_group,
+                                                   a.k)))
+        else:
+            val, row, col = sccp_multiply(a, b)
+            coo = _numeric_scatter(row, col, val, st.key, st.nnz,
+                                   out_cap=st.out_cap, n_rows=st.n_rows,
+                                   n_cols=st.n_cols)
+        if _obs.is_enabled():
+            _obs.sync(coo)
+            ng = int(coo.ngroups)
+            sp.set(nnz=ng)
+            if ng > st.out_cap:
+                # a structure miss: _poison_overflow stamped ngroups
+                _obs_metrics.inc("spgemm.poison_events")
+                _obs.instant("spgemm.poison", backend=backend, ngroups=ng,
+                             cap=int(st.out_cap))
+    if sp.dur_us is not None:
+        _obs_metrics.observe(f"numeric_us.{backend}", sp.dur_us)
     if check:
         coo = check_no_overflow(coo)
     return coo

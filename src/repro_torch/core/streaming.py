@@ -46,6 +46,7 @@ from ..kernels import ops
 from ..kernels.bitonic_merge import bitonic_merge, merge_compact_pair
 from ..kernels.bitonic_merge import coalesce_compact as _coalesce_compact
 from ..kernels.insitu_search import KEY_INVALID, next_pot
+from ..obs import trace as _obs
 from .formats import INVALID, Coo, EllCols, EllRows
 
 
@@ -83,7 +84,8 @@ def _compact_tile(key: torch.Tensor, tot: torch.Tensor, *, stream_cap: int,
     more uniques than the buffer holds), padded to ``buf_cap`` lanes.
     Returns ``(key, tot, count, dropped)``, ``count`` its valid lanes."""
     cap = min(int(stream_cap), buf_cap)
-    k_t, v_t, count, drop_t = _coalesce_compact(key, tot, cap)
+    with _obs.span("stream.compact", cap=cap):
+        k_t, v_t, count, drop_t = _obs.sync(_coalesce_compact(key, tot, cap))
     if cap < buf_cap:                      # the pad keeps the list ascending
         k_t = torch.cat([k_t, k_t.new_full((buf_cap - cap,), KEY_INVALID)])
         v_t = torch.cat([v_t, v_t.new_zeros(buf_cap - cap)])
@@ -96,9 +98,10 @@ def _merge_tile(state: StreamState, key: torch.Tensor, tot: torch.Tensor,
     ``count`` valid lanes) merged into the buffer and compacted back to the
     buffer width in one ``merge_compact_pair``; ``dropped`` is the tile's
     own count of lost uniques."""
-    k_b, v_b, n_b, drop_m = merge_compact_pair(
-        state.key, state.tot, key, tot, cap=state.key.numel(),
-        n_a=state.count, n_b=count)
+    with _obs.span("stream.merge", buf_cap=state.key.numel()):
+        k_b, v_b, n_b, drop_m = _obs.sync(merge_compact_pair(
+            state.key, state.tot, key, tot, cap=state.key.numel(),
+            n_a=state.count, n_b=count))
     return StreamState(key=k_b, tot=v_b, count=n_b,
                        dropped=state.dropped + dropped + drop_m)
 

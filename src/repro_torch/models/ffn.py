@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.formats import EllRows
+from ..obs import trace as _obs
 from .sparse import SparseLinear
 
 
@@ -151,7 +152,9 @@ def moe_apply(p, x: torch.Tensor, cfg, dtype) -> Tuple[torch.Tensor,
             "repro_torch yet: ROADMAP queue 1 item 10 (LM stack); "
             "dispatch='spmm' is")
     x_grp = x.reshape(1, b * s, d)          # one group without a mesh
-    y, aux = _moe_spmm(p, x_grp, cfg, dtype)
+    with _obs.span("moe.dispatch", strategy=cfg.moe.dispatch, tokens=b * s,
+                   experts=cfg.moe.n_experts):
+        y, aux = _obs.sync(_moe_spmm(p, x_grp, cfg, dtype))
     if cfg.moe.n_shared:
         y = y + swiglu_apply(p["shared"], x_grp, dtype)
     return y.reshape(b, s, d), aux
@@ -177,7 +180,9 @@ class SparseMLP:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Dense activations: x @ W_in → GELU (tanh form, ``jax.nn.gelu``'s
         default) → @ W_out (structured SpMMs)."""
-        return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+        with _obs.span("sparse_mlp.apply"):
+            return _obs.sync(self.fc_out(F.gelu(self.fc_in(x),
+                                                approximate="tanh")))
 
     def cache_stats(self):
         """Hit/miss/eviction counters of the shared structure cache."""

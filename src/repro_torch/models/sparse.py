@@ -19,6 +19,8 @@ from ..core.formats import EllCols, as_tensor, ell_cols_from_dense
 from ..core.nm import NmWeights, nm_from_dense
 from ..core.spgemm import spmm_dense_ell
 from ..kernels.nm_spmm import nm_spmm
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs
 
 
 def magnitude_prune(w: torch.Tensor, sparsity: float) -> torch.Tensor:
@@ -148,9 +150,14 @@ class SparseLinear:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Dense activations: y = x @ W_sparse (structured SpMM)."""
+        fmt = "nm" if self.w_nm is not None else "ellpack"
+        _obs_metrics.inc(f"sparse_linear.apply_{fmt}")
         if self.w_nm is not None:
-            return nm_linear_apply(x, self.w_nm)
-        return sparse_linear_apply(x, self.w_ell)
+            with _obs.span("sparse_linear.spmm", fmt="nm",
+                           nm=f"{self.w_nm.n}:{self.w_nm.m}"):
+                return _obs.sync(nm_linear_apply(x, self.w_nm))
+        with _obs.span("sparse_linear.spmm", fmt="ellpack", k=self.w_ell.k):
+            return _obs.sync(sparse_linear_apply(x, self.w_ell))
 
     def matmul_sparse(self, a, **spgemm_kwargs):
         """Sparse activations: C = A · W_sparse as sorted COO, two-phase.
@@ -158,9 +165,11 @@ class SparseLinear:
         ``a`` is a row-wise ELLPACK activation matrix (d_batch rows, d_in
         logical columns). Symbolic work runs once per distinct A pattern;
         repeats are numeric-only. ``spgemm_kwargs`` forward to the structure
-        build on a miss; the port needs a pinned ``backend=`` there, since
-        backend selection is not ported (ROADMAP queue 1 item 3)."""
+        build on a miss (``backend=``, ``out_cap=``, ...); without a
+        ``backend=`` the planner chooses one."""
         from ..core.spgemm import spgemm_coo_numeric
-        structure = self.cache.get(a, self.w_ell, **spgemm_kwargs)
-        # the cache key already proved the fingerprint matches
-        return spgemm_coo_numeric(a, self.w_ell, structure, validate=False)
+        with _obs.span("sparse_linear.matmul_sparse", k=self.w_ell.k):
+            structure = self.cache.get(a, self.w_ell, **spgemm_kwargs)
+            # the cache key already proved the fingerprint matches
+            return spgemm_coo_numeric(a, self.w_ell, structure,
+                                      validate=False)

@@ -1,8 +1,9 @@
-"""SpGEMM planning, ported so far: the symbolic nnz(C) sizing behind
-``out_cap="auto"`` (``symbolic``), the pinned-backend ``Plan`` sizing
-(``planner``), the symbolic phase as a frozen ``SpgemmStructure`` with the
-operands' sparsity fingerprint (``structure``), the fingerprint-keyed
-``StructureCache`` (``cache``), and the SpMM format choice
+"""SpGEMM planning: the symbolic nnz(C) sizing behind ``out_cap="auto"``
+(``symbolic``), ``Plan`` sizing and backend selection (``planner``: the
+cost model in per-device units, behind ``accumulator='auto'``), the symbolic
+phase as a frozen ``SpgemmStructure`` with the operands' sparsity
+fingerprint (``structure``), the fingerprint-keyed ``StructureCache`` with
+its measured autotune (``cache``), and the SpMM format choice
 (``planner.plan_spmm_format``)."""
 from . import cache, planner, structure, symbolic
 from .cache import StructureCache

@@ -40,6 +40,7 @@ import torch
 
 from ..core.formats import EllCols, EllRows
 from ..kernels.insitu_search import KEY_INVALID
+from ..obs import trace as _obs
 from . import symbolic
 
 _DISTRIBUTED = "ROADMAP queue 1 item 9 (distributed SpGEMM)"
@@ -51,11 +52,22 @@ def _dtype_str(dtype: torch.dtype) -> str:
 
 def fingerprint(a: EllRows, b: EllCols) -> str:
     """Sparsity fingerprint of an operand pair (sha1 hex digest)."""
+    return _digest(_index_planes(a, b), a, b)
+
+
+def _index_planes(a: EllRows, b: EllCols):
+    """What ``fingerprint`` hashes of the operands' values on the device:
+    each index plane copied to the host, with its logical extent."""
+    return [(np.ascontiguousarray(idx.cpu().numpy()), int(logical))
+            for idx, logical in ((a.idx, a.n_rows), (b.idx, b.n_cols))]
+
+
+def _digest(planes, a: EllRows, b: EllCols) -> str:
+    """The fingerprint of ``_index_planes(a, b)`` (host work only)."""
     h = hashlib.sha1()
-    for idx, logical in ((a.idx, a.n_rows), (b.idx, b.n_cols)):
-        arr = np.ascontiguousarray(idx.cpu().numpy())
-        h.update(repr((arr.shape, int(logical), arr.dtype.str)).encode())
-        h.update(arr.tobytes())
+    for arr, logical in planes:
+        h.update(repr((arr.shape, logical, arr.dtype.str)).encode())
+        h.update(arr)
     h.update(repr((_dtype_str(a.val.dtype), _dtype_str(b.val.dtype))).encode())
     return h.hexdigest()
 
@@ -148,10 +160,10 @@ def make_structure(a: EllRows, b: EllCols, *, out_cap: Optional[int] = None,
                    plan=None) -> SpgemmStructure:
     """Run the symbolic phase once on concrete operands → ``SpgemmStructure``.
 
-    ``plan=`` supplies a prebuilt ``Plan`` (of either package); otherwise
-    ``make_plan`` runs with ``out_cap``/``backend``/``tile``/``slack`` (a
-    pinned backend: ``backend=None`` raises until backend selection is
-    ported). The plan's backend decides the numeric realization: ``'stream'``
+    ``plan=`` supplies a prebuilt ``Plan`` (of either package, e.g. an
+    autotuned winner); otherwise ``make_plan`` runs with
+    ``out_cap``/``backend``/``tile``/``slack`` (``backend=None`` lets it
+    choose). The plan's backend decides the numeric realization: ``'stream'``
     goes by slab groups, every other one multiplies the whole stream. The
     result fits any operand pair with the same sparsity pattern, whatever
     the values. ``n_dev``/``schedules`` raise until the distributed slice.
@@ -164,8 +176,10 @@ def make_structure(a: EllRows, b: EllCols, *, out_cap: Optional[int] = None,
         plan = make_plan(a, b, out_cap=out_cap, backend=backend, tile=tile,
                          slack=slack)
     out_cap = plan.out_cap
-    key, row_nnz, seg, nnz = _structure_arrays(
-        a.idx, b.idx, n_rows=a.n_rows, n_cols=b.n_cols, out_cap=out_cap)
+    with _obs.span("structure.build", fp=fp[:12], out_cap=out_cap,
+                   backend=plan.backend):
+        key, row_nnz, seg, nnz = _obs.sync(_structure_arrays(
+            a.idx, b.idx, n_rows=a.n_rows, n_cols=b.n_cols, out_cap=out_cap))
     if int(nnz) > out_cap:
         raise ValueError(
             f"out_cap={out_cap} smaller than nnz(C)={int(nnz)} — a structure "

@@ -259,21 +259,6 @@ def test_fingerprint_matches_reference_and_stale_plans_raise():
               spgemm_coo(ea2, eb2, plan=loose))
 
 
-def test_selection_is_not_ported():
-    (_, _), (ta, tb) = _pair(*ZOO["dup_heavy"][:2])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        make_plan(ta, tb)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
-        rt.spgemm(ta, tb, accumulator="auto")
-    plan = make_plan(ta, tb, backend="bucket")
-    # with a plan, 'auto' means the plan's backend
-    _same_coo(rt.spgemm(ta, tb, accumulator="auto", plan=plan),
-              tsp.spgemm_coo(ta, tb, out_cap=plan.out_cap,
-                             accumulator="sort"))
-    with pytest.raises(ValueError, match="unknown backend"):
-        make_plan(ta, tb, backend="nope")
-
-
 # ---------------------------------------------------------------------------
 # The accumulations' building blocks
 # ---------------------------------------------------------------------------

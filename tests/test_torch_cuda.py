@@ -1120,3 +1120,87 @@ def test_moe_apply_on_card(cuda):
                               torch.from_numpy(x), cfg, torch.float32)
     torch.testing.assert_close(y.cpu(), y_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(aux.cpu(), aux_c, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Backend selection and the obs layer on the card
+# ---------------------------------------------------------------------------
+
+# the kernels each accumulator's cold path launches on CUDA operands
+BACKEND_KERNELS = {
+    "sort": ("sccp_multiply",),
+    "search": ("sccp_multiply", "emit_sort", "align_product_keys"),
+    "tiled": ("sccp_multiply", "sort_tiles", "merge_runs"),
+    "bucket": ("sccp_multiply", "bin_ranks", "sort_tiles"),
+    "hash": ("sccp_multiply", "sort_tiles"),
+    "stream": ("fused_slab_sort", "merge_runs"),
+}
+
+
+def _mid_operands(cuda, n=3000, density=0.004, seed=8):
+    """A with integer values (every float32 sum exact), times Aᵀ."""
+    rng = np.random.default_rng(seed)
+    a = ((rng.random((n, n)) < density)
+         * rng.integers(-4, 5, (n, n))).astype(np.float32)
+    k = int((a != 0).sum(0).max())
+    return (rt.ell_rows_from_dense(a, k, device=cuda),
+            rt.ell_cols_from_dense(a.T.copy(), k, device=cuda))
+
+
+def test_auto_equals_sort_and_runs_its_backend(cuda):
+    a, b = _mid_operands(cuda)
+    plan = rt.make_plan(a, b)
+    assert plan.backend in BACKEND_KERNELS and plan.stats is not None
+    kernels.reset_launch_counts()
+    got = rt.spgemm(a, b, accumulator="auto", check=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for kname in BACKEND_KERNELS[plan.backend]:
+        assert counts[kname] > 0, (plan.backend, kname)
+    want = rt.spgemm(a, b, check=True)
+    for f in ("row", "col", "val", "ngroups"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_autotune_runs_each_candidates_kernels(cuda):
+    a, b = _mid_operands(cuda)
+    cache = rt.StructureCache(autotune=True, probe_iters=2)
+    kernels.reset_launch_counts()
+    st = cache.get(a, b)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert set(st.plan.est["autotune_us"]) == set(BACKEND_KERNELS)
+    assert cache.stats()["autotuned"] == 1
+    for bk, knames in BACKEND_KERNELS.items():
+        for kname in knames:
+            assert counts[kname] > 0, (bk, kname)
+    want = rt.spgemm(a, b, check=True)
+    got = rt.spgemm(a, b, structure=st, check=True)
+    for f in ("row", "col", "val", "ngroups"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_sync_waits_once_for_a_cuda_tensor(cuda, monkeypatch):
+    from repro_torch import obs
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: (calls.append(a), real(*a))[1])
+    x = torch.ones(8, device=cuda)
+    obs.disable()
+    assert obs.sync(x) is x and calls == []
+    obs.enable(reset=True)
+    try:
+        assert obs.sync((x, [x], {"k": x}, torch.ones(2))) is not None
+    finally:
+        obs.disable()
+        obs.reset()
+    assert len(calls) == 1 and calls[0][0] == x.device
+
+
+def test_reference_bw_under_the_hbm_peak(cuda):
+    from repro_torch.obs.roofline import measure_reference_bw
+    bw = measure_reference_bw(device=cuda)
+    assert 1e11 < bw < 3.35e12
+    # with no device the anchor measures the card, not the host
+    assert 1e11 < measure_reference_bw() < 3.35e12

@@ -106,8 +106,10 @@ def test_scipy_constructors_and_numpy_carry_over(k):
 
 
 PORTED_MODULES = {"configs": "repro_torch.configs", "core": "repro_torch.core",
+                  "hwmodel": "repro_torch.core.hwmodel",
                   "kernels": "repro_torch.kernels",
-                  "models": "repro_torch.models", "plan": "repro_torch.plan",
+                  "models": "repro_torch.models", "obs": "repro_torch.obs",
+                  "plan": "repro_torch.plan",
                   "sccp": "repro_torch.core.sccp"}
 
 
@@ -118,7 +120,7 @@ def test_reference_modules_resolve_in_a_fresh_process(name):
     ``repro_torch.<name>`` right after ``import repro_torch``, in a process
     that imported nothing else; the unported ones stay absent."""
     import repro
-    unported = {"hwmodel", "hybrid", "serve", "obs"}
+    unported = {"hybrid", "serve"}
     assert set(repro._MODULES) == set(PORTED_MODULES) | unported
     assert repro._MODULES[name].replace("repro.", "repro_torch.", 1) \
         == PORTED_MODULES[name]

@@ -396,9 +396,12 @@ def test_matmul_sparse_sort_matches_reference_and_hits_cache():
         assert coo.shape == tuple(want.shape)
     assert got.cache.stats()["hits"] == ref.cache.stats()["hits"] == 1
     assert got.cache.stats()["misses"] == 1
-    # without a pinned backend the port's structure build raises
-    with pytest.raises(NotImplementedError):
-        rt.SparseLinear(w, 0.6, nm=None, device="cpu").matmul_sparse(ta)
+    # without a pinned backend both packages plan one, on a fresh cache
+    coo = rt.SparseLinear(w, 0.6, nm=None, device="cpu").matmul_sparse(ta)
+    want = ref_sparse.SparseLinear(jnp.asarray(w), 0.6,
+                                   nm=None).matmul_sparse(ra)
+    for f in ("row", "col", "val", "ngroups"):
+        _eq(getattr(coo, f), getattr(want, f))
 
 
 

@@ -257,22 +257,17 @@ def test_poison_overflow_matches_reference():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(call="StructureCache", autotune=True), dict(accumulator="auto"),
     dict(call="make_structure", backend="sort", n_dev=2),
     dict(mesh=object(), axis="x"),
-    dict(call="make_structure", backend=None),
 ])
 def test_unported_routes_raise(kwargs):
     """Options whose slices are not ported raise, naming their ROADMAP item:
-    ``spgemm`` kwargs, and (``call``) the structure builder and cache."""
+    ``spgemm`` kwargs, and (``call``) the structure builder's."""
     (_, _), (ta, tb) = _pair(*ZOO["dup_heavy"][:2])
     kwargs = dict(kwargs)
     call = kwargs.pop("call", "spgemm")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        if call == "StructureCache":
-            rt.StructureCache(**kwargs)
-        else:
-            getattr(rt, call)(ta, tb, **kwargs)
+        getattr(rt, call)(ta, tb, **kwargs)
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -342,7 +337,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.kernels.radix_bucket, "
             "repro_torch.kernels.hash_accum, "
             "repro_torch.kernels.fused_sccp_stream, "
-            "repro_torch.core.streaming, repro_torch.plan.cache, chip_smoke\n"
+            "repro_torch.core.streaming, repro_torch.plan.cache, "
+            "repro_torch.core.hwmodel, repro_torch.obs.roofline, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\nprint('clean')")

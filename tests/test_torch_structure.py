@@ -214,12 +214,12 @@ def test_cache_hit_on_value_only_change_and_miss_on_pattern_change():
     st2 = cache.get(ta2, tb, backend="sort")
     assert st2 is not st
     assert cache.stats() == dict(hits=1, misses=2, evictions=0, disk_hits=0,
-                                 size=2)
+                                 autotuned=0, size=2)
     _same_coo(rt.spgemm(ta2, tb, structure=st2),
               rt.spgemm(ta2, tb, out_cap=st2.out_cap))
     cache.clear()
     assert cache.stats() == dict(hits=0, misses=0, evictions=0, disk_hits=0,
-                                 size=0)
+                                 autotuned=0, size=0)
 
 
 def test_cache_lru_eviction_order():
@@ -252,7 +252,7 @@ def test_cache_disk_round_trip(tmp_path):
     c2 = StructureCache(capacity=4, cache_dir=str(tmp_path))
     st2 = c2.get(ta, tb)
     assert c2.stats() == dict(hits=0, misses=0, evictions=0, disk_hits=1,
-                              size=1)
+                              autotuned=0, size=1)
     for f in ("key", "row_nnz", "seg", "nnz"):
         assert torch.equal(getattr(st1, f), getattr(st2, f))
     assert st2.plan == st1.plan and st2.plan.backend == "stream"
