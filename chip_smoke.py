@@ -8,8 +8,10 @@ single-device SpGEMM, cold through all six ported accumulators ('sort',
 'search', 'tiled', 'bucket', 'hash', 'stream') and the planner's choice among
 them (``accumulator='auto'``, and the measured autotune), warm through the
 numeric phase on a 'sort' and a 'stream' structure, and its SpMM side (MoE with
-``dispatch='spmm'``, ``SparseMLP``/``SparseLinear``), at a real size: C = A·Aᵀ
-for the paper's Table-I
+``dispatch='spmm'``, ``SparseMLP``/``SparseLinear``), then the serving
+engine's SpGEMM lane (``ServingEngine.submit_spgemm``/``flush_spgemm``) and
+the hybrid ELLPACK + COO format (``hybrid_spgemm_dense``), at a real size:
+C = A·Aᵀ for the paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
 this script keeps its own copy and imports nothing of the JAX package).
@@ -118,6 +120,34 @@ Phases (any failure exits non-zero before the last line):
    six backends' planned calls on ``matmul_sparse``'s activation operand,
    a shape the cost table was not fitted on (``held_out_selection``: the
    backend ``matmul_sparse`` planned within 10% of the fastest).
+6b. The serving engine's SpGEMM lane (``serve_phase``) on bcsstk32 A·Aᵀ
+   at A's ELLPACK width: ``ServingEngine(None, None,
+   ServeConfig(max_batch=8))`` with ``repro_torch.obs`` enabled (so each
+   wave's latency is device time), three patterns of one shape (A, and A
+   less 0.5% and 1% of its non-zeros, drawn from ``--seed``: other
+   fingerprints, other ``out_cap``s) and the 5,625-column cut (a shape of
+   its own). Round 1: 16 requests cycling the patterns plus one on the
+   cut, then ``flush_spgemm()``; round 2: 13 more. Every request has fresh
+   integer values. The counters zeroed around each round; its misses,
+   waves, batched waves and ``spgemm_occupancy_sum`` required exactly;
+   each wave's ms, K1 and K3 launches (K1 once a slot) and peak over the
+   resident; each miss's ms and each hit's (the fingerprint); every result
+   equal to its own ``spgemm_coo_numeric(..., validate=False)`` bit for
+   bit, one request of each pattern and the cut's equal to scipy, and
+   ``eng.spgemm`` equal to its queued twin; ``eng.stats()``, round 2's
+   requests/s.
+6c. The hybrid ELLPACK + COO format (``hybrid_phase``) on A = Mᵀ, M
+   bcsstk32 as generated, so A's column counts are Table I's row
+   statistics: both dense operands (7.54 GiB each) built on the card from
+   M's CSR arrays, one at a time; ``split_rows_hybrid`` and
+   ``split_cols_hybrid`` at ``ell_width_rule``'s width with the COO cap the
+   overflow count rounded up to 1,024 (each COO holding exactly the
+   overflow, each ``to_dense()`` equal to its input);
+   ``hybrid_spgemm_dense`` (K1 once a call), three calls and each of its
+   terms alone, equal to scipy's Mᵀ·M bit for bit (compared on the card,
+   4,096 rows at a time) and to ``spgemm_dense`` at the full ELLPACK width,
+   whose multiply is timed alone too (the rest of that call is
+   ``scatter_dense``; at the hybrid's width it is timed alone).
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries), the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -1979,6 +2009,384 @@ def spmm_slice(seed: int):
     return rows, counts, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6b: the serving engine's SpGEMM lane at full width
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 8                   # ServeConfig(max_batch=...): slots a wave
+SERVE_ROUNDS = (16, 13)           # requests on the three patterns a round
+SERVE_DROP = (0.0, 0.005, 0.01)   # share of A's non-zeros a pattern lacks
+# (misses, waves, batched waves, spgemm_occupancy_sum after the round)
+SERVE_EXPECT = ((4, 3, 2, 2.0), (0, 2, 2, 3.625))
+
+
+def timed_peak(fn):
+    """``fn()``, its host-clock ms (synchronised before and after) and its
+    peak device memory (``peak_of``'s dict)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    top = torch.cuda.max_memory_allocated()
+    return out, ms, dict(peak_gib=top / 2**30, call_gib=(top - base) / 2**30)
+
+
+def same_prefix(name: str, got, want) -> None:
+    """Two sorted-COO results hold the same groups: equal ``ngroups`` and
+    equal row, col and val over the first ``ngroups`` slots (their caps may
+    differ: a wave pads to its widest structure)."""
+    n = int(want.ngroups)
+    require(int(got.ngroups) == n,
+            f"{name}: ngroups {int(got.ngroups)} != {n}")
+    for f in ("row", "col", "val"):
+        same(f"{name} .{f}", getattr(got, f)[:n], getattr(want, f)[:n])
+
+
+def serve_phase(A, seed: int):
+    """The engine's SpGEMM lane on bcsstk32 A·Aᵀ (k = A's ELLPACK width)
+    and A's first 1/CUT_PART columns times their transpose: two rounds of
+    requests with fresh integer values through ``submit_spgemm`` and
+    ``flush_spgemm``, the tracer on. Returns ({path: counts}, summary)."""
+    import scipy.sparse as sp
+    import torch
+    import repro_torch
+    from repro_torch import kernels, obs
+    from repro_torch.core.formats import np_ell_rows_from_scipy
+    from repro_torch.core.spgemm import spgemm_coo_numeric
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 23)
+    A_csc = A.tocsc()
+    n = A.shape[0]
+    k = int(np.diff(A_csc.indptr).max())
+    pats = []                                 # (name, idx plane, contraction)
+    for i, drop in enumerate(SERVE_DROP):
+        P = A_csc.copy()
+        if drop:
+            P.data[rng.choice(P.nnz, int(round(drop * P.nnz)),
+                              replace=False)] = 0
+            P.eliminate_zeros()
+        pats.append((f"P{i}", torch.from_numpy(
+            np_ell_rows_from_scipy(P, k)[1]).to(dev), n))
+    cols = A.shape[1] // CUT_PART
+    A8 = A_csc[:, :cols]
+    cut = ("cut", torch.from_numpy(np_ell_rows_from_scipy(
+        A8, int(np.diff(A8.indptr).max()))[1]).to(dev), cols)
+
+    def request(pat):
+        """X on pattern ``pat`` with fresh values; C = X·Xᵀ, B's planes
+        being A's transposed."""
+        name, idx, _ = pat
+        v = (rng.integers(1, 5, idx.shape)
+             * rng.choice(np.array([-1, 1]), idx.shape)).astype(np.float32)
+        val = torch.where(idx >= 0, torch.from_numpy(v).to(dev), 0)
+        return (name, repro_torch.EllRows(val=val, idx=idx, n_rows=n),
+                repro_torch.EllCols(val=val.T.contiguous(),
+                                    idx=idx.T.contiguous(), n_cols=n))
+
+    def scipy_ref(a):
+        ok = (a.idx >= 0).cpu().numpy()
+        r = a.idx.cpu().numpy()[ok]
+        c = np.broadcast_to(np.arange(a.n_cols), a.idx.shape)[ok]
+        x = sp.csr_matrix((a.val.cpu().numpy()[ok].astype(np.float64),
+                           (r, c)), shape=(a.n_rows, a.n_cols))
+        x_abs = abs(x)
+        return (x @ x.T).tocsr(), int((x_abs @ x_abs.T).nnz)
+
+    eng = repro_torch.ServingEngine(None, None, repro_torch.ServeConfig(
+        max_batch=SERVE_BATCH))
+    cache, batcher = eng.structure_cache, eng.sparse_batcher
+    lookup, run_wave = cache.get, batcher._run_wave
+    gets, waves = [], []
+
+    def timed_get(a, b, **kw):            # each lookup: its ms, hit or miss
+        torch.cuda.synchronize()
+        misses = cache.stats()["misses"]
+        t0 = time.perf_counter()
+        st = lookup(a, b, **kw)
+        torch.cuda.synchronize()
+        gets.append(((time.perf_counter() - t0) * 1e3,
+                     cache.stats()["misses"] > misses, a.n_cols))
+        return st
+
+    def timed_wave(wave, wsts, out):      # each wave: ms, launches, peak
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_wave(wave, wsts, out)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        waves.append(dict(
+            real=len(wave), cap=max(st.out_cap for st in wsts),
+            backend=wsts[0].plan.backend,
+            ms=(time.perf_counter() - t0) * 1e3,
+            launches={kn: after[kn] - before[kn] for kn in (
+                "sccp_multiply", "align_product_keys", "align_keys")},
+            peak_over_resident_gib=(torch.cuda.max_memory_allocated()
+                                    - base) / 2**30))
+
+    cache.get, batcher._run_wave = timed_get, timed_wave
+    counts, rounds = {}, []
+    obs.enable(reset=True)
+    try:
+        for rnd, n_req in enumerate(SERVE_ROUNDS, 1):
+            reqs = [request(pats[i % len(pats)]) for i in range(n_req)]
+            if rnd == 1:
+                reqs.append(request(cut))
+            before = dict(eng.stats)
+            misses, n_waves, n_gets = cache.stats()["misses"], len(waves), \
+                len(gets)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rids = [eng.submit_spgemm(a, b) for _, a, b in reqs]
+            res = eng.flush_spgemm()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts[f"serve_round{rnd}"] = kernels.launch_counts()
+            got = (cache.stats()["misses"] - misses,
+                   eng.stats["spgemm_waves"] - before["spgemm_waves"],
+                   eng.stats["spgemm_batched_waves"]
+                   - before["spgemm_batched_waves"],
+                   eng.stats["spgemm_occupancy_sum"])
+            require(got == SERVE_EXPECT[rnd - 1],
+                    f"serve round {rnd}: (misses, waves, batched waves, "
+                    f"occupancy sum) {got} != {SERVE_EXPECT[rnd - 1]}")
+            for w in waves[n_waves:]:
+                require(w["launches"]["sccp_multiply"] >= 1
+                        and w["launches"]["align_product_keys"]
+                        + w["launches"]["align_keys"] > 0,
+                        f"serve round {rnd}: a wave skipped K1 or K3: {w}")
+                require(w["real"] == 1
+                        or w["launches"]["sccp_multiply"] == w["real"],
+                        f"serve round {rnd}: a batched wave's K1 launches "
+                        f"{w['launches']} for {w['real']} slots")
+            # every result is its own lone numeric call, bit for bit
+            for (name, a, b), rid in zip(reqs, rids):
+                same_prefix(f"serve round {rnd} request {rid} ({name})",
+                            res[rid], spgemm_coo_numeric(
+                                a, b, lookup(a, b), validate=False))
+            sampled = {}
+            if rnd == 1:                  # one request a pattern, and the cut
+                for (name, a, b), rid in zip(reqs, rids):
+                    if name not in sampled:
+                        c_ref, nnz_ref = scipy_ref(a)
+                        check_against_scipy(f"serve {name}", res[rid], c_ref,
+                                            nnz_ref)
+                        sampled[name] = dict(nnz_c=nnz_ref,
+                                             out_cap=lookup(a, b).out_cap,
+                                             wave_cap=res[rid].cap)
+                caps = [sampled[p[0]]["out_cap"] for p in pats]
+                require(len(set(caps)) == len(pats),
+                        f"serve: the patterns' out_caps {caps} are not "
+                        "distinct (the wave's KEY_INVALID padding unused)")
+            else:                         # the one-shot path, a cache hit
+                name, a, b = reqs[0]
+                kernels.reset_launch_counts()
+                one = eng.spgemm(a, b)
+                torch.cuda.synchronize()
+                counts["serve_spgemm"] = kernels.launch_counts()
+                same_prefix("eng.spgemm vs its queued twin", one, res[rids[0]])
+                del one
+            flush_gets = gets[n_gets:]
+            rounds.append(dict(
+                round=rnd, requests=len(reqs), flush_ms=sec * 1e3,
+                requests_per_s=len(reqs) / sec,
+                miss_ms=[ms for ms, miss, _ in flush_gets if miss],
+                hit_ms=[ms for ms, miss, _ in flush_gets if not miss],
+                waves=waves[n_waves:], scipy=sampled))
+            also = (f"{', '.join(sampled)} == scipy" if sampled
+                    else "eng.spgemm == its queued twin")
+            print(f"[serve] round {rnd}: {len(reqs)} requests in "
+                  f"{sec * 1e3:.1f} ms ({len(reqs) / sec:.2f} requests/s), "
+                  f"(misses, waves, batched, occupancy sum) {got}; every "
+                  f"result == its lone numeric call; {also}", flush=True)
+            del res, reqs
+        snap = eng.stats()
+        spans = [e["dur_us"] / 1e3
+                 for e in obs.get_tracer().spans("serve.spgemm_wave")]
+        metrics = obs.metrics.snapshot()
+    finally:
+        obs.disable()
+        obs.reset()
+    hit_ms = [ms for r in rounds for ms in r["hit_ms"]]
+    summary = dict(
+        operand=BCSSTK32[1], k=k, lanes=k * n * k, cut_cols=cols,
+        max_batch=SERVE_BATCH, rounds=rounds, wave_span_ms=spans,
+        fingerprint_ms_per_request=median(hit_ms), stats=snap,
+        metrics={kind: {m: x for m, x in metrics[kind].items()
+                        if m.startswith("serve.")}
+                 for kind in ("counters", "gauges", "histograms")})
+    print(f"[serve] {json.dumps(summary)}", flush=True)
+    del eng, pats, cut
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: the hybrid ELLPACK + COO format at full width
+# ---------------------------------------------------------------------------
+
+HYBRID_COO_ROUND = 1024           # coo_cap: the overflow count rounded up
+ROW_BLOCK = 4096                  # rows of C compared on the card at a time
+
+
+def hybrid_phase(M):
+    """Paper §III-C on bcsstk32: A = Mᵀ, whose column counts are Table I's
+    row statistics, split at ``ell_width_rule``'s width, and C = A·Aᵀ =
+    Mᵀ·M through ``hybrid_spgemm_dense``, against scipy and against
+    ``spgemm_dense`` at the full ELLPACK width. Returns ({path: counts},
+    summary)."""
+    import torch
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core import hybrid
+    from repro_torch.core.accumulate import scatter_dense
+    from repro_torch.core.formats import from_numpy, np_ell_rows_from_scipy
+    from repro_torch.core.sccp import sccp_multiply
+    dev = torch.device("cuda")
+    n = M.shape[0]
+    line = np.diff(M.indptr)                  # A's column counts, B's rows
+    k = hybrid.ell_width_rule(line)
+    n_coo = int(np.maximum(line - k, 0).sum())
+    coo_cap = -(-n_coo // HYBRID_COO_ROUND) * HYBRID_COO_ROUND
+    r, c, v = (torch.from_numpy(x).to(dev) for x in (
+        np.repeat(np.arange(n), line), M.indices.astype(np.int64),
+        M.data.astype(np.float32)))
+
+    def dense(transposed: bool):
+        """M (or Mᵀ) dense on the card, from its CSR arrays."""
+        d = torch.zeros((n, n), dtype=torch.float32, device=dev)
+        d[(c, r) if transposed else (r, c)] = v
+        return d
+
+    splits, split_ms, split_peak = {}, {}, {}
+    for side, transposed, split in (
+            ("rows", True, hybrid.split_rows_hybrid),
+            ("cols", False, hybrid.split_cols_hybrid)):
+        x = dense(transposed)
+        h, split_ms[side], split_peak[side] = timed_peak(
+            lambda: split(x, k, coo_cap, device=dev))
+        require(int(h.coo.ngroups) == n_coo and h.coo.cap == coo_cap,
+                f"hybrid split {side}: COO holds {int(h.coo.ngroups)} of "
+                f"cap {h.coo.cap}, not {n_coo} of {coo_cap}")
+        require(torch.equal(h.to_dense(), x),
+                f"hybrid split {side}: to_dense() differs from its input")
+        splits[side] = h
+        del x
+    ha, hb = splits["rows"], splits["cols"]
+    cnt = torch.from_numpy(line).to(dev)
+    coo_terms = int(cnt[ha.coo.col[ha.coo.row >= 0].long()].sum()
+                    + cnt[hb.coo.row[hb.coo.row >= 0].long()].clamp(
+                        max=k).sum())
+    ell_products = int(repro_torch.count_products(ha.ell, hb.ell))
+    print(f"[hybrid] A = {BCSSTK32[1]}ᵀ: k {k} (max {int(line.max())}), "
+          f"COO {n_coo} of cap {coo_cap} each; ELL products {ell_products} "
+          f"of {k * n * k} lanes, COO terms {coo_terms}; split ms "
+          f"{json.dumps(split_ms)}; each split == its input", flush=True)
+
+    kernels.reset_launch_counts()
+    c_h, ms, peak = timed_peak(lambda: hybrid.hybrid_spgemm_dense(ha, hb))
+    counts = {"hybrid": kernels.launch_counts()}
+    require(counts["hybrid"]["sccp_multiply"] == 1,
+            f"hybrid_spgemm_dense launched {counts['hybrid']} (K1 once)")
+    calls_ms = [ms] + [timed_peak(lambda: hybrid.hybrid_spgemm_dense(
+        ha, hb))[1] for _ in range(2)]
+    # each term alone, as hybrid_spgemm_dense runs them
+    terms = {}
+    (val, row, col), terms["sccp_multiply"] = timed_ms(
+        lambda: sccp_multiply(ha.ell, hb.ell))
+    t, terms["scatter_dense"] = timed_ms(
+        lambda: scatter_dense(row, col, val, n, n))
+    # the same put over the valid lanes alone: scatter_dense parks every
+    # dead lane at (n, 0), one long run of one index for index_put_
+    ok = row.reshape(-1) >= 0
+    t_ok, terms["probe_scatter_dense_valid_lanes"] = timed_ms(
+        lambda: scatter_dense(row.reshape(-1)[ok], col.reshape(-1)[ok],
+                              val.reshape(-1)[ok], n, n))
+    require(torch.equal(t_ok, t), "hybrid: scatter_dense over the valid "
+            "lanes differs from the whole stream's")
+    dead_lanes = int((~ok).sum())
+    del val, row, col, t, t_ok, ok
+    other, terms["b_to_dense"] = timed_ms(hb.to_dense)
+    t, terms["coo_a_times_b"] = timed_ms(
+        lambda: hybrid._coo_matmul_dense(ha.coo, other, left=True))
+    del other, t
+    other, terms["a_ell_to_dense"] = timed_ms(ha.ell.to_dense)
+    t, terms["ell_a_times_coo_b"] = timed_ms(
+        lambda: hybrid._coo_matmul_dense(hb.coo, other, left=False))
+    del other, t
+
+    # C against scipy's Mᵀ·M, a block of rows at a time on the card
+    t0 = time.perf_counter()
+    M64 = M.astype(np.float64)
+    c_ref = (M64.T @ M64).tocsr()
+    ref_s = time.perf_counter() - t0
+    for lo in range(0, n, ROW_BLOCK):
+        blk = c_ref[lo:lo + ROW_BLOCK].tocoo()
+        want = torch.zeros((blk.shape[0], n), dtype=torch.float32,
+                           device=dev)
+        want[torch.from_numpy(blk.row.astype(np.int64)).to(dev),
+             torch.from_numpy(blk.col.astype(np.int64)).to(dev)] = \
+            torch.from_numpy(blk.data.astype(np.float32)).to(dev)
+        require(torch.equal(c_h[lo:lo + ROW_BLOCK], want),
+                f"hybrid: rows {lo}.. differ from scipy's Mᵀ·M")
+        del want
+    nnz_c = int((c_h != 0).sum())
+    require(nnz_c == c_ref.nnz, f"hybrid: {nnz_c} non-zeros, scipy "
+            f"{c_ref.nnz}")
+    del c_ref
+    print(f"[check] hybrid_spgemm_dense == scipy Mᵀ·M bit for bit "
+          f"({nnz_c} non-zeros)", flush=True)
+
+    # the same product at the full ELLPACK width; C waits on the host
+    c_host = c_h.cpu()
+    del c_h
+    k_full = int(line.max())
+    a_full = from_numpy(*np_ell_rows_from_scipy(M.T.tocsc(), k_full),
+                        n_rows=n, device=dev)
+    b_full = repro_torch.EllCols(val=a_full.val.T.contiguous(),
+                                 idx=a_full.idx.T.contiguous(), n_cols=n)
+    kernels.reset_launch_counts()
+    c_full, full_ms, full_peak = timed_peak(
+        lambda: repro_torch.spgemm_dense(a_full, b_full))
+    counts["dense_full_width"] = kernels.launch_counts()
+    for lo in range(0, n, ROW_BLOCK):
+        require(torch.equal(c_full[lo:lo + ROW_BLOCK],
+                            c_host[lo:lo + ROW_BLOCK].to(dev)),
+                f"hybrid: rows {lo}.. differ from spgemm_dense at width "
+                f"{k_full}")
+    del c_full, c_host
+    # K1 alone; the rest of the call is scatter_dense (timing it alone too
+    # would cost another call of about a minute)
+    planes, k1_ms = timed_ms(lambda: sccp_multiply(a_full, b_full))
+    full_terms = dict(sccp_multiply=k1_ms, scatter_dense=full_ms - k1_ms)
+    del planes, a_full, b_full
+    print(f"[check] hybrid_spgemm_dense == spgemm_dense at width {k_full} "
+          "bit for bit", flush=True)
+    summary = dict(
+        operand=f"{BCSSTK32[1]}^T", k=k, k_full=k_full, coo=n_coo,
+        coo_cap=coo_cap, ell_lanes=k * n * k, ell_products=ell_products,
+        coo_terms=coo_terms, ell_dead_lanes=dead_lanes,
+        full_lanes=k_full * n * k_full, nnz_c=nnz_c,
+        split_ms=split_ms, split_peak=split_peak, hybrid_ms=calls_ms,
+        hybrid_median_ms=median(calls_ms), hybrid_peak=peak,
+        hybrid_terms_ms=terms, dense_full_width_ms=full_ms,
+        dense_full_width_peak=full_peak,
+        dense_full_width_terms_ms=full_terms, scipy_ref_s=ref_s,
+        k1_launches={p: x["sccp_multiply"] for p, x in counts.items()})
+    print(f"[hybrid] {json.dumps(summary)}", flush=True)
+    del splits, ha, hb, r, c, v, cnt
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2192,10 +2600,20 @@ def main(argv=None) -> int:
         check_selection(summary)
 
     # -- phases 5-6: the SpMM slice ---------------------------------------------
+    del a, b, a_cut, b_cut, a8, b8, x, y, st, structures, c_ref
+    torch.cuda.empty_cache()
     spmm_rows, spmm_counts, spmm_summary = spmm_slice(args.seed)
     rows += spmm_rows
     counts.update(spmm_counts)
     print(json.dumps(spmm_summary), flush=True)
+
+    # -- phase 6b: the serving engine's SpGEMM lane ----------------------------
+    serve_counts, _ = serve_phase(A, args.seed)
+    counts.update(serve_counts)
+
+    # -- phase 6c: the hybrid ELLPACK + COO format ------------------------------
+    hybrid_counts, _ = hybrid_phase(A)
+    counts.update(hybrid_counts)
 
     # -- phase 7: the kernels line and the result ------------------------------
     for r in rows:

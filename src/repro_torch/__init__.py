@@ -22,14 +22,23 @@ ELLPACK matrix:
     mlp = repro_torch.SparseMLP(w_in, w_out, 0.5, nm=(2, 4))
     y, aux = repro_torch.moe_apply(p, x, cfg, torch.float32)  # K9 twice
 
+the hybrid ELLPACK + COO format (``repro_torch.hybrid``:
+``split_rows_hybrid``, ``split_cols_hybrid``, ``hybrid_spgemm_dense``),
+and the serving engine's SpGEMM lane:
+
+    eng = repro_torch.ServingEngine(None, None, repro_torch.ServeConfig())
+    rid = eng.submit_spgemm(a, b)                      # queued request
+    c = eng.flush_spgemm()[rid]                        # waves of slots
+    eng.stats()                                        # occupancy, latency
+
 Constructors default to ``default_device()`` (CUDA, or an error); pass
 ``device="cpu"`` to run the kernels' plain torch versions on the CPU. The
 CUDA kernels build from ``src/repro_torch/csrc`` on first use.
 ``repro_torch.obs.enable()`` turns on the spans and counters the entry points
 report through (``obs.export_chrome(path)`` writes a Chrome trace).
 """
-from . import configs, core, kernels, models, obs, plan
-from .core import hwmodel, sccp
+from . import configs, core, kernels, models, obs, plan, serve
+from .core import hwmodel, hybrid, sccp
 from .core.accumulate import AccumulatorOverflow, check_no_overflow
 from .core.api import spgemm
 from .core.formats import (Coo, EllCols, EllRows, coo_from_dense,
@@ -46,17 +55,18 @@ from .models import (SparseLinear, SparseMLP, magnitude_prune,
 from .plan import (Plan, SpgemmStructure, StructureCache, fingerprint,
                    make_plan, make_structure, make_structure_batched,
                    plan_spmm_format)
+from .serve import ServeConfig, ServingEngine, SparseGemmBatcher
 
-# the reference's submodules reachable as repro_torch.<name>, for the ones
-# ported so far ('hybrid' and 'serve' are not)
-_MODULES = ("configs", "core", "hwmodel", "kernels", "models", "obs", "plan",
-            "sccp")
+# the reference's submodules reachable as repro_torch.<name>
+_MODULES = ("configs", "core", "hwmodel", "hybrid", "kernels", "models",
+            "obs", "plan", "sccp", "serve")
 
 __all__ = [
     *_MODULES, "AccumulatorOverflow", "Coo", "EllCols", "EllRows",
-    "NmWeights", "Plan", "SparseLinear", "SparseMLP", "SpgemmStructure",
-    "StructureCache", "check_no_overflow", "coo_from_dense",
-    "count_products", "default_device", "detect_nm", "ell_cols_from_dense",
+    "NmWeights", "Plan", "ServeConfig", "ServingEngine", "SparseGemmBatcher",
+    "SparseLinear", "SparseMLP", "SpgemmStructure", "StructureCache",
+    "check_no_overflow", "coo_from_dense", "count_products",
+    "default_device", "detect_nm", "ell_cols_from_dense",
     "ell_rows_from_dense", "fingerprint", "from_numpy", "magnitude_prune",
     "magnitude_prune_nm", "make_plan", "make_structure",
     "make_structure_batched", "moe_apply", "nm_from_dense", "nm_from_numpy",

@@ -4,17 +4,23 @@
   formats    — COO / ELLPACK containers, converters, numpy carry-over
   hwmodel    — the paper's analytical PUM latency/energy model (Table II)
                and the planner's ``MatrixStats``
+  hybrid     — the hybrid ELLPACK + COO format and its dense-output
+               SpGEMM (paper §III-C)
   sccp       — Structured Condensing Computation Paradigm multiply
   accumulate — the sort-and-segment-sum accumulation, overflow contract
   spgemm     — end-to-end spgemm / spmm entry points, the warm numeric
                phase
   streaming  — the slab-group streaming engine ('stream')
 """
-from . import accumulate, api, formats, hwmodel, sccp, spgemm, streaming
+from . import (accumulate, api, formats, hwmodel, hybrid, sccp, spgemm,
+               streaming)
 from .accumulate import AccumulatorOverflow, accumulate_checked, check_no_overflow
 from .formats import (Coo, EllCols, EllRows, coo_from_dense, default_device,
                       ell_cols_from_dense, ell_rows_from_dense, from_numpy,
                       to_numpy)
+from .hybrid import (HybridCols, HybridRows, ell_width_rule,
+                     hybrid_from_numpy, hybrid_spgemm_dense,
+                     split_cols_hybrid, split_rows_hybrid)
 from .spgemm import (accumulate_stream, spgemm_coo, spgemm_coo_batched,
                      spgemm_coo_numeric, spgemm_coo_numeric_batched,
                      spgemm_dense, spgemm_dense_batched, spgemm_from_dense,
@@ -22,8 +28,10 @@ from .spgemm import (accumulate_stream, spgemm_coo, spgemm_coo_batched,
 from .streaming import spgemm_coo_stream, spgemm_coo_stream_numeric
 
 __all__ = [
-    "accumulate", "api", "formats", "hwmodel", "sccp", "spgemm",
+    "accumulate", "api", "formats", "hwmodel", "hybrid", "sccp", "spgemm",
     "streaming",
+    "HybridCols", "HybridRows", "ell_width_rule", "hybrid_from_numpy",
+    "hybrid_spgemm_dense", "split_cols_hybrid", "split_rows_hybrid",
     "AccumulatorOverflow", "accumulate_checked", "check_no_overflow",
     "Coo", "EllCols", "EllRows", "coo_from_dense", "default_device",
     "ell_cols_from_dense", "ell_rows_from_dense", "from_numpy", "to_numpy",

@@ -161,15 +161,23 @@ class Coo:
 # Dense -> format converters
 # ---------------------------------------------------------------------------
 
-def _condense(mask: torch.Tensor, k: int):
-    """Stable-sort a boolean mask along axis 0 so True entries pack first.
-    Returns (perm, keep): ``perm[s, c]`` = source row of slot s in column c,
-    ``keep`` marks slots that actually hold a non-zero."""
-    perm = torch.argsort((~mask).to(torch.int8), dim=0, stable=True)
-    counts = mask.sum(dim=0)
-    slot = torch.arange(k, device=mask.device)[:, None]
-    keep = slot < counts[None, :]
-    return perm[:k], keep
+def _slots(a: torch.Tensor, k: int, by_col: bool):
+    """The non-zeros of dense ``a`` that fill a width-``k`` ELLPACK:
+    ``(line, pos, slot)``, each one's column and row when ``by_col`` (its
+    row and column otherwise) and its place in that line, the line's first
+    ``k`` in ascending order of ``pos``. Only the non-zeros' coordinates
+    are formed, never an index per entry of ``a``, so a dense operand of
+    ~2³¹ entries converts in the memory of its non-zeros."""
+    nz = torch.nonzero(a)                    # row-major (row, col) pairs
+    line, pos = nz[:, 1 if by_col else 0], nz[:, 0 if by_col else 1]
+    if by_col:                               # stable: rows stay ascending
+        order = torch.sort(line, stable=True).indices
+        line, pos = line[order], pos[order]
+    counts = torch.bincount(line, minlength=a.shape[1 if by_col else 0])
+    start = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(line.numel(), device=a.device) - start[line]
+    keep = slot < k
+    return line[keep], pos[keep], slot[keep]
 
 
 def ell_rows_from_dense(a, k: int, *, device=None) -> EllRows:
@@ -177,10 +185,11 @@ def ell_rows_from_dense(a, k: int, *, device=None) -> EllRows:
     Entries beyond slot ``k`` in a column are dropped."""
     a = torch.as_tensor(a, device=resolve_device(device))
     m, n = a.shape
-    perm, keep = _condense(a != 0, k)
-    cols = torch.arange(n, device=a.device).expand(k, n)
-    val = torch.where(keep, a[perm, cols], 0).to(a.dtype)
-    idx = torch.where(keep, perm.to(torch.int32), INVALID)
+    col, row, slot = _slots(a, k, by_col=True)
+    val = torch.zeros((k, n), dtype=a.dtype, device=a.device)
+    idx = torch.full((k, n), INVALID, dtype=torch.int32, device=a.device)
+    val[slot, col] = a[row, col]
+    idx[slot, col] = row.to(torch.int32)
     return EllRows(val=val, idx=idx, n_rows=m)
 
 
@@ -188,26 +197,29 @@ def ell_cols_from_dense(b, k: int, *, device=None) -> EllCols:
     """Column-wise ELLPACK (condense each *row* leftward) of right matrix B."""
     b = torch.as_tensor(b, device=resolve_device(device))
     m, n = b.shape
-    perm, keep = _condense((b != 0).T, k)            # (k, m)
-    rows = torch.arange(m, device=b.device).expand(k, m)
-    val = torch.where(keep, b.T[perm, rows], 0).to(b.dtype)
-    idx = torch.where(keep, perm.to(torch.int32), INVALID)
-    return EllCols(val=val.T.contiguous(), idx=idx.T.contiguous(), n_cols=n)
+    row, col, slot = _slots(b, k, by_col=False)
+    val = torch.zeros((m, k), dtype=b.dtype, device=b.device)
+    idx = torch.full((m, k), INVALID, dtype=torch.int32, device=b.device)
+    val[row, slot] = b[row, col]
+    idx[row, slot] = col.to(torch.int32)
+    return EllCols(val=val, idx=idx, n_cols=n)
 
 
 def coo_from_dense(a, cap: int, *, device=None) -> Coo:
     """Dense -> padded COO (row-major order) with static cap."""
     a = torch.as_tensor(a, device=resolve_device(device))
     m, n = a.shape
-    mask = (a != 0).reshape(-1)
-    order = torch.argsort((~mask).to(torch.int8), stable=True)[:cap]
-    total = mask.sum()
-    keep = torch.arange(cap, device=a.device) < total
-    row = torch.where(keep, (order // n).to(torch.int32), INVALID)
-    col = torch.where(keep, (order % n).to(torch.int32), INVALID)
-    val = torch.where(keep, a.reshape(-1)[order], 0)
+    nz = torch.nonzero(a)                    # row-major (row, col) pairs
+    r, c = nz[:cap, 0], nz[:cap, 1]
+    row = torch.full((cap,), INVALID, dtype=torch.int32, device=a.device)
+    col = torch.full((cap,), INVALID, dtype=torch.int32, device=a.device)
+    val = torch.zeros((cap,), dtype=a.dtype, device=a.device)
+    row[:r.numel()] = r.to(torch.int32)
+    col[:c.numel()] = c.to(torch.int32)
+    val[:r.numel()] = a[r, c]
     return Coo(row=row, col=col, val=val, shape=(m, n),
-               ngroups=total.to(torch.int32))
+               ngroups=torch.tensor(nz.shape[0], dtype=torch.int32,
+                                    device=a.device))
 
 
 # ---------------------------------------------------------------------------

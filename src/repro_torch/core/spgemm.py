@@ -54,6 +54,7 @@ KEY_SPACE = 2 ** 31 - 1     # packed int32 keys span n_rows·n_cols below this
 BACKENDS = ("sort", "tiled", "bucket", "hash", "stream", "search")
 _LATER = {
     "mesh": "ROADMAP queue 1 item 9 (distributed SpGEMM)",
+    "lm": "ROADMAP queue 1 item 10 (LM stack)",
 }
 
 

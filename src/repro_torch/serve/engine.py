@@ -1,0 +1,309 @@
+"""The engine's SpGEMM serving lane, mirroring ``src/repro/serve/engine.py``.
+
+:class:`SparseGemmBatcher` packs heterogeneous per-request SpGEMMs that
+share shapes onto ``spgemm_coo_numeric_batched`` slots (structures recycled
+through the engine-level ``StructureCache``; fingerprints may differ within
+one wave — each slot carries its own key plane), reporting slot occupancy
+and per-request latency through :class:`EngineStats`.
+
+:class:`ServingEngine` serves these sparse requests. Its token path
+(``generate_batch``: prefill, decode, continuous batching over a model)
+needs the LM stack and raises ``NotImplementedError`` until that is ported.
+
+Latencies are host-clock seconds around each wave. A wave ends in
+``obs.sync``, which waits for the device only while ``repro_torch.obs`` is
+enabled: with tracing off on CUDA operands, ``spgemm_compute_s`` times the
+launches, not the work.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.formats import Coo, EllCols, EllRows
+from ..core.spgemm import (_not_ported, spgemm_coo_numeric,
+                           spgemm_coo_numeric_batched)
+from ..kernels.insitu_search import KEY_INVALID
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs
+from ..plan.cache import StructureCache
+from ..plan.structure import SpgemmStructure
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8
+    max_prompt: int = 64
+    max_new_tokens: int = 32
+    s_max: int = 128
+    eos_id: int = 2
+    greedy: bool = True
+    temperature: float = 1.0
+    seed: int = 0
+    # engine-level SpGEMM structure cache (plan.cache.StructureCache): one
+    # symbolic phase per sparsity pattern across ALL requests; on-disk
+    # persistence warm-starts restarted replicas; autotune replaces the cost
+    # model's backend pick with a measured winner on first use.
+    structure_cache_size: int = 64
+    structure_cache_dir: Optional[str] = None
+    structure_autotune: bool = False
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    t_enq: float = 0.0          # wall-clock at admission
+    t_done: float = 0.0         # wall-clock at completion
+
+
+class EngineStats(dict):
+    """Engine counters: a plain dict (``eng.stats["spgemm_waves"]`` keeps
+    working) that is also callable — ``eng.stats()`` returns a full snapshot
+    joining the counters with per-request latency aggregates, mean batch
+    occupancy (decode slots and SpGEMM slots), and the structure cache's
+    own counters. The token counters stay zero until token serving is
+    ported; the snapshot has the reference's keys all the same."""
+
+    def __init__(self, engine: "ServingEngine"):
+        super().__init__(requests=0, tokens=0, decode_s=0.0, prefill_s=0.0,
+                         queue_s=0.0, compute_s=0.0, decode_steps=0,
+                         occupancy_sum=0.0, spgemm_requests=0,
+                         spgemm_waves=0, spgemm_batched_waves=0,
+                         spgemm_occupancy_sum=0.0, spgemm_queue_s=0.0,
+                         spgemm_compute_s=0.0)
+        self._engine = engine
+
+    def __call__(self) -> Dict:
+        snap = {k: v for k, v in self.items()}
+        steps = snap.pop("decode_steps")
+        occ = snap.pop("occupancy_sum")
+        n = max(1, snap["requests"])
+        snap["decode_steps"] = steps
+        snap["batch_occupancy"] = occ / steps if steps else 0.0
+        snap["queue_s_per_request"] = snap["queue_s"] / n
+        snap["compute_s_per_request"] = snap["compute_s"] / n
+        bw = snap.get("spgemm_batched_waves", 0)
+        socc = snap.pop("spgemm_occupancy_sum", 0.0)
+        snap["spgemm_occupancy"] = socc / bw if bw else 0.0
+        ns = max(1, snap.get("spgemm_requests", 0))
+        snap["spgemm_latency_s_per_request"] = (
+            snap.get("spgemm_queue_s", 0.0)
+            + snap.get("spgemm_compute_s", 0.0)) / ns
+        snap["structure_cache"] = self._engine.structure_cache.stats()
+        return snap
+
+
+@dataclasses.dataclass
+class SparseGemmRequest:
+    """One pending sparse multiply: ELLPACK operands + timing bookkeeping."""
+    rid: int
+    a: EllRows
+    b: EllCols
+    t_enq: float
+    t_done: float = 0.0
+    result: Optional[Coo] = None
+
+
+class SparseGemmBatcher:
+    """Continuous batching of heterogeneous sparse requests onto SpGEMM slots.
+
+    ``submit`` enqueues one ``C = A·B``; ``flush`` drains the queue: requests
+    are grouped by operand *shape* signature (shapes, value dtypes and
+    device; patterns — fingerprints — may differ freely within a group: each
+    batched slot carries its own structure key plane), their structures come
+    from / return to the shared ``StructureCache`` (one symbolic phase per
+    distinct fingerprint across the whole engine lifetime), and every group
+    runs in waves of ``max_slots`` through ``spgemm_coo_numeric_batched``.
+    Singleton waves skip the batch machinery (``spgemm_coo_numeric``, which
+    honours the structure's plan: a ``'stream'`` structure goes by slab
+    groups).
+
+    A wave stacks only its real requests: the batched numeric phase is a
+    loop over slots, so a padded slot would be a whole multiply for nothing
+    (the reference repeats request 0 into the empty slots to keep its
+    compiled shapes static). Results, ``ngroups``, each result's ``cap``
+    (the wave's widest ``out_cap``) and the counters are the reference's.
+
+    ``stats`` (any dict; the engine passes its :class:`EngineStats`) gains
+    ``spgemm_requests`` / ``spgemm_waves`` / ``spgemm_batched_waves``
+    counters, ``spgemm_occupancy_sum`` (real slots over ``max_slots``, per
+    batched wave) and per-request ``spgemm_queue_s`` / ``spgemm_compute_s``
+    latency totals.
+    """
+
+    _STAT_INTS = ("spgemm_requests", "spgemm_waves", "spgemm_batched_waves")
+    _STAT_FLOATS = ("spgemm_occupancy_sum", "spgemm_queue_s",
+                    "spgemm_compute_s")
+
+    def __init__(self, cache: StructureCache, *, max_slots: int = 8,
+                 stats=None):
+        self.cache = cache
+        self.max_slots = max(1, int(max_slots))
+        self.stats = stats if stats is not None else {}
+        for k in self._STAT_INTS:
+            self.stats.setdefault(k, 0)
+        for k in self._STAT_FLOATS:
+            self.stats.setdefault(k, 0.0)
+        self._pending: List[SparseGemmRequest] = []
+        self._next_rid = 0
+
+    def submit(self, a: EllRows, b: EllCols) -> int:
+        """Enqueue C = A·B (row-wise ELLPACK × col-wise ELLPACK); returns
+        a request id to look the result up with after ``flush``."""
+        rid = self._next_rid
+        self._next_rid += 1
+        self._pending.append(SparseGemmRequest(rid, a, b, time.time()))
+        self.stats["spgemm_requests"] += 1
+        _obs_metrics.inc("serve.spgemm_submits")
+        return rid
+
+    def pending(self) -> int:
+        return len(self._pending)
+
+    def flush(self, **structure_kwargs) -> Dict[int, Coo]:
+        """Run every pending request; returns {rid: sorted-COO result}.
+
+        ``structure_kwargs`` forward to the structure build on a cache miss
+        (``backend=``, ``out_cap=``, ...)."""
+        reqs, self._pending = self._pending, []
+        out: Dict[int, Coo] = {}
+        groups: Dict[tuple, List[SparseGemmRequest]] = {}
+        for r in reqs:
+            sig = (r.a.n_rows, r.a.n_cols, r.a.k, r.b.n_cols, r.b.k,
+                   str(r.a.val.dtype), str(r.b.val.dtype),
+                   str(r.a.val.device))
+            groups.setdefault(sig, []).append(r)
+        for members in groups.values():
+            t0 = time.time()
+            for r in members:
+                self.stats["spgemm_queue_s"] += t0 - r.t_enq
+            # structure recycling: one symbolic phase per fingerprint,
+            # shared across requests/waves/flushes via the engine cache
+            sts = [self.cache.get(r.a, r.b, **structure_kwargs)
+                   for r in members]
+            for lo in range(0, len(members), self.max_slots):
+                self._run_wave(members[lo:lo + self.max_slots],
+                               sts[lo:lo + self.max_slots], out)
+        return out
+
+    def _run_wave(self, wave: List[SparseGemmRequest],
+                  wsts: List[SpgemmStructure], out: Dict[int, Coo]) -> None:
+        t0 = time.time()
+        self.stats["spgemm_waves"] += 1
+        batched = len(wave) > 1
+        with _obs.span("serve.spgemm_wave", real=len(wave),
+                       slots=self.max_slots if batched else 1,
+                       batched=batched):
+            if not batched:
+                r, st = wave[0], wsts[0]
+                # the cache key already proved the fingerprint matches
+                r.result = spgemm_coo_numeric(r.a, r.b, st, validate=False)
+            else:
+                a_b, b_b, st_b = self._pack(wave, wsts)
+                coo = spgemm_coo_numeric_batched(a_b, b_b, st_b,
+                                                 validate=False)
+                for i, r in enumerate(wave):
+                    r.result = Coo(row=coo.row[i], col=coo.col[i],
+                                   val=coo.val[i], shape=coo.shape,
+                                   ngroups=coo.ngroups[i])
+                occ = len(wave) / self.max_slots
+                self.stats["spgemm_batched_waves"] += 1
+                self.stats["spgemm_occupancy_sum"] += occ
+                _obs_metrics.gauge("serve.spgemm_occupancy", occ)
+            _obs.sync(wave[-1].result.val)
+        t1 = time.time()
+        for r in wave:
+            r.t_done = t1
+            self.stats["spgemm_compute_s"] += t1 - t0
+            _obs_metrics.observe("serve.spgemm_request_us",
+                                 (r.t_done - r.t_enq) * 1e6)
+            out[r.rid] = r.result
+
+    @staticmethod
+    def _pack(wave: List[SparseGemmRequest], wsts: List[SpgemmStructure]):
+        """Stack a wave's real requests: operands stacked, per-slot key
+        planes padded to the widest structure's ``out_cap`` with
+        ``KEY_INVALID`` (keys stay ascending, so the numeric search is
+        unaffected)."""
+        cap = max(st.out_cap for st in wsts)
+
+        def pad_key(k):
+            if k.shape[0] == cap:
+                return k
+            return torch.cat([k, k.new_full((cap - k.shape[0],),
+                                            KEY_INVALID)])
+
+        a0, b0 = wave[0].a, wave[0].b
+        a_b = EllRows(val=torch.stack([r.a.val for r in wave]),
+                      idx=torch.stack([r.a.idx for r in wave]),
+                      n_rows=a0.n_rows)
+        b_b = EllCols(val=torch.stack([r.b.val for r in wave]),
+                      idx=torch.stack([r.b.idx for r in wave]),
+                      n_cols=b0.n_cols)
+        st_b = SpgemmStructure(
+            key=torch.stack([pad_key(st.key) for st in wsts]),
+            row_nnz=torch.stack([st.row_nnz for st in wsts]),
+            seg=torch.stack([st.seg for st in wsts]),
+            nnz=torch.stack([st.nnz for st in wsts]),
+            n_rows=wsts[0].n_rows, n_cols=wsts[0].n_cols, out_cap=cap,
+            fp=None, plan=None)
+        return a_b, b_b, st_b
+
+
+class ServingEngine:
+    """The serving engine's SpGEMM lane over one shared ``StructureCache``.
+    ``model`` and ``params`` are stored for the token path, which is not
+    ported; nothing is compiled."""
+
+    def __init__(self, model, params, cfg: ServeConfig):
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        self.structure_cache = StructureCache(
+            capacity=cfg.structure_cache_size,
+            cache_dir=cfg.structure_cache_dir,
+            autotune=cfg.structure_autotune)
+        self.stats = EngineStats(self)
+        # heterogeneous sparse-request batching over the same cache/stats
+        self.sparse_batcher = SparseGemmBatcher(
+            self.structure_cache, max_slots=cfg.max_batch, stats=self.stats)
+
+    def spgemm(self, a: EllRows, b: EllCols, **structure_kwargs) -> Coo:
+        """Two-phase SpGEMM through the engine's shared structure cache.
+
+        Any sparse multiply issued on behalf of a request lands here: the
+        first request with a given sparsity pattern pays the symbolic phase,
+        every subsequent request — across the whole engine lifetime, and
+        across restarts when ``structure_cache_dir`` is set — runs
+        numeric-only. ``structure_kwargs`` forward to the structure build on
+        a miss."""
+        structure = self.structure_cache.get(a, b, **structure_kwargs)
+        # the cache key already proved the fingerprint matches
+        return spgemm_coo_numeric(a, b, structure, validate=False)
+
+    def submit_spgemm(self, a: EllRows, b: EllCols) -> int:
+        """Enqueue a sparse multiply for slot-batched execution; returns the
+        request id ``flush_spgemm``'s result dict is keyed by."""
+        return self.sparse_batcher.submit(a, b)
+
+    def flush_spgemm(self, **structure_kwargs) -> Dict[int, Coo]:
+        """Drain the sparse-request queue through batched numeric SpGEMM
+        (see :class:`SparseGemmBatcher`); occupancy and latency land in
+        ``self.stats``."""
+        return self.sparse_batcher.flush(**structure_kwargs)
+
+    def cache_stats(self) -> Dict[str, int]:
+        """Structure-cache counters (hits/misses/evictions/disk_hits/size)
+        alongside the serving counters in ``self.stats``."""
+        return self.structure_cache.stats()
+
+    def generate_batch(self, prompts: List[np.ndarray]) -> List[List[int]]:
+        """Token serving: not ported (it needs the LM stack)."""
+        _not_ported("ServingEngine.generate_batch (token serving)", "lm")

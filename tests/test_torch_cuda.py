@@ -1204,3 +1204,148 @@ def test_reference_bw_under_the_hbm_peak(cuda):
     assert 1e11 < bw < 3.35e12
     # with no device the anchor measures the card, not the host
     assert 1e11 < measure_reference_bw() < 3.35e12
+
+
+# ---------------------------------------------------------------------------
+# The dense converters, the hybrid format and the serving lane
+# ---------------------------------------------------------------------------
+
+def _skewed_ints(seed, n, density=0.05, n_hot=3, hot=0.9):
+    """Integer values in [-4, 4] \\ {0}, a few near-dense rows and columns
+    (what the hybrid width rule exists for)."""
+    rng = np.random.default_rng(seed)
+    a = (rng.random((n, n)) < density).astype(np.float32)
+    h = rng.choice(n, n_hot, replace=False)
+    a[h] = rng.random((n_hot, n)) < hot
+    a[:, h] = rng.random((n, n_hot)) < hot
+    sign = rng.choice(np.array([-1, 1], np.float32), (n, n))
+    return a * sign * rng.integers(1, 5, (n, n)).astype(np.float32)
+
+
+def _hybrid_widths(a, b):
+    from repro_torch.core import hybrid as th
+    return (th.ell_width_rule((a != 0).sum(0)),
+            th.ell_width_rule((b != 0).sum(1)),
+            int(max((a != 0).sum(), (b != 0).sum())))
+
+
+def _coo_fields(coo):
+    return [coo.row, coo.col, coo.val, coo.ngroups]
+
+
+@pytest.mark.parametrize("n,k", [(48, 5), (300, 12), (1000, 40)])
+def test_dense_converters_on_card(cuda, n, k):
+    """ELLPACK both ways and COO from a dense operand on the card equal the
+    same calls on the CPU, truncation and padding included."""
+    a = _skewed_ints(n, n)
+    for fn, arg in ((rt.ell_rows_from_dense, k), (rt.ell_cols_from_dense, k),
+                    (rt.coo_from_dense, int((a != 0).sum()) + 7),
+                    (rt.coo_from_dense, int((a != 0).sum()) // 2)):
+        got, want = fn(a, arg, device=cuda), fn(a, arg, device="cpu")
+        fields = (_coo_fields if isinstance(got, rt.Coo)
+                  else lambda e: [e.val, e.idx])
+        for g, w in zip(fields(got), fields(want)):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [64, 700])
+def test_hybrid_on_card(cuda, n):
+    """Both splits and ``hybrid_spgemm_dense`` on the card equal the CPU's,
+    bit for bit on integer values, and the product runs K1 once; the COO
+    term in several chunks equals one chunk."""
+    from repro_torch.core import hybrid as th
+    a, b = _skewed_ints(n, n), _skewed_ints(n + 1, n)
+    k_a, k_b, cap = _hybrid_widths(a, b)
+    splits = {dev: (th.split_rows_hybrid(a, k_a, cap, device=dev),
+                    th.split_cols_hybrid(b, k_b, cap, device=dev))
+              for dev in (cuda, "cpu")}
+    for got, want in zip(splits[cuda], splits["cpu"]):
+        for g, w in zip([got.ell.val, got.ell.idx, *_coo_fields(got.coo)],
+                        [want.ell.val, want.ell.idx, *_coo_fields(want.coo)]):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+        assert int(got.coo.ngroups) > 0
+    ha, hb = splits[cuda]
+    assert torch.equal(ha.to_dense().cpu(), torch.from_numpy(a))
+    before = tsm.sccp_multiply.launches
+    got = th.hybrid_spgemm_dense(ha, hb)
+    torch.cuda.synchronize()
+    assert tsm.sccp_multiply.launches == before + 1
+    assert torch.equal(got.cpu(), th.hybrid_spgemm_dense(*splits["cpu"]))
+    assert torch.equal(got.cpu(), torch.from_numpy(a @ b))
+    for left, coo, other in ((True, ha.coo, hb.to_dense()),
+                             (False, hb.coo, ha.ell.to_dense())):
+        one = th._coo_matmul_dense(coo, other, left)
+        assert torch.equal(th._coo_matmul_dense(coo, other, left, chunk=5),
+                           one)
+
+
+def _serve_requests(n_req, n=400, k=12, seed=30):
+    """Integer operand pairs at one ELLPACK width: three patterns (A, and A
+    less 2% and 4% of its non-zeros), fresh values a request."""
+    rng = np.random.default_rng(seed)
+    base = (rng.random((n, n)) < 0.015).astype(np.float32)
+    base[np.arange(n), np.arange(n)] = 1          # no empty column
+    pats = [base]
+    for frac in (0.02, 0.04):
+        p = base.copy()
+        r, c = np.nonzero(p)
+        drop = rng.choice(r.size, int(frac * r.size), replace=False)
+        p[r[drop], c[drop]] = 0
+        pats.append(p)
+    k = max(k, int(base.sum(0).max()))
+    out = []
+    for i in range(n_req):
+        x = pats[i % 3] * rng.integers(1, 5, (n, n)) \
+            * rng.choice(np.array([-1, 1]), (n, n))
+        out.append((x.astype(np.float32), k))
+    return out
+
+
+def _serve(reqs, device, max_batch=4, **flush_kw):
+    from repro_torch.serve import ServeConfig, ServingEngine
+    eng = ServingEngine(None, None, ServeConfig(max_batch=max_batch))
+    rids = [eng.submit_spgemm(rt.ell_rows_from_dense(x, k, device=device),
+                              rt.ell_cols_from_dense(x.T.copy(), k,
+                                                     device=device))
+            for x, k in reqs]
+    return eng, rids, eng.flush_spgemm(**flush_kw)
+
+
+@pytest.mark.parametrize("n_req,flush_kw", [(7, {}), (1, {}),
+                                            (1, dict(backend="stream")),
+                                            (3, dict(backend="stream"))])
+def test_serving_lane_on_card(cuda, n_req, flush_kw):
+    """The engine's SpGEMM lane on the card equals the same requests on the
+    CPU: every result (its first ngroups entries), the counters and the
+    cache's hits and misses. Waves run K1 and K3: grouped by row of C,
+    but for a singleton on a 'stream' structure (by slab groups, flat)."""
+    reqs = _serve_requests(n_req)
+    kernels.reset_launch_counts()
+    eng, rids, got = _serve(reqs, cuda, **flush_kw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    ceng, _, want = _serve(reqs, "cpu", **flush_kw)
+    for rid in rids:
+        n = int(want[rid].ngroups)
+        assert int(got[rid].ngroups) == n and got[rid].cap == want[rid].cap
+        for f in ("row", "col", "val"):
+            assert torch.equal(getattr(got[rid], f)[:n].cpu(),
+                               getattr(want[rid], f)[:n]), (rid, f)
+    for key in ("spgemm_requests", "spgemm_waves", "spgemm_batched_waves",
+                "spgemm_occupancy_sum"):
+        assert eng.stats[key] == ceng.stats[key], key
+    for key in ("hits", "misses"):
+        assert eng.cache_stats()[key] == ceng.cache_stats()[key], key
+    assert counts["sccp_multiply"] > 0
+    x, k = reqs[0]
+    a, b = (rt.ell_rows_from_dense(x, k, device=cuda),
+            rt.ell_cols_from_dense(x.T.copy(), k, device=cuda))
+    backend = eng.structure_cache.get(a, b).plan.backend
+    assert backend == flush_kw.get("backend", backend)
+    stream_single = n_req == 1 and backend == "stream"
+    assert (counts["align_keys"] > 0) == stream_single
+    assert (counts["align_product_keys"] > 0) != stream_single
+    one = eng.spgemm(a, b)
+    n = int(one.ngroups)
+    for f in ("row", "col", "val"):
+        assert torch.equal(getattr(one, f)[:n], getattr(got[rids[0]], f)[:n])

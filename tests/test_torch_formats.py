@@ -107,10 +107,12 @@ def test_scipy_constructors_and_numpy_carry_over(k):
 
 PORTED_MODULES = {"configs": "repro_torch.configs", "core": "repro_torch.core",
                   "hwmodel": "repro_torch.core.hwmodel",
+                  "hybrid": "repro_torch.core.hybrid",
                   "kernels": "repro_torch.kernels",
                   "models": "repro_torch.models", "obs": "repro_torch.obs",
                   "plan": "repro_torch.plan",
-                  "sccp": "repro_torch.core.sccp"}
+                  "sccp": "repro_torch.core.sccp",
+                  "serve": "repro_torch.serve"}
 
 
 @pytest.mark.parametrize("name", sorted(PORTED_MODULES))
@@ -120,7 +122,7 @@ def test_reference_modules_resolve_in_a_fresh_process(name):
     ``repro_torch.<name>`` right after ``import repro_torch``, in a process
     that imported nothing else; the unported ones stay absent."""
     import repro
-    unported = {"hybrid", "serve"}
+    unported = set()
     assert set(repro._MODULES) == set(PORTED_MODULES) | unported
     assert repro._MODULES[name].replace("repro.", "repro_torch.", 1) \
         == PORTED_MODULES[name]
@@ -151,12 +153,11 @@ def test_coo_overflow_flag():
 
 def test_top_level_names_are_the_references_ported_ones():
     """Every name of the reference's top level is the port's too, but for
-    the five whose slices are not ported (distributed planning, serving);
+    the two whose slice is not ported (distributed planning);
     the port's own extras (device helpers, host constructors, the MoE
     layer) are not the reference's top-level names."""
     import repro
-    unported = {"make_dist_plan", "DistPlan", "ServeConfig", "ServingEngine",
-                "SparseGemmBatcher"}
+    unported = {"make_dist_plan", "DistPlan"}
     ref_names = set(repro._NAMES)
     assert unported <= ref_names
     shared = {n for n in rt.__all__ if n in ref_names}

@@ -338,7 +338,8 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.kernels.hash_accum, "
             "repro_torch.kernels.fused_sccp_stream, "
             "repro_torch.core.streaming, repro_torch.plan.cache, "
-            "repro_torch.core.hwmodel, repro_torch.obs.roofline, chip_smoke\n"
+            "repro_torch.core.hwmodel, repro_torch.obs.roofline, "
+            "repro_torch.core.hybrid, repro_torch.serve.engine, chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\nprint('clean')")
