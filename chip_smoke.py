@@ -9,8 +9,10 @@ single-device SpGEMM, cold through all six ported accumulators ('sort',
 them (``accumulator='auto'``, and the measured autotune), warm through the
 numeric phase on a 'sort' and a 'stream' structure, and its SpMM side (MoE with
 ``dispatch='spmm'``, ``SparseMLP``/``SparseLinear``), then the serving
-engine's SpGEMM lane (``ServingEngine.submit_spgemm``/``flush_spgemm``) and
-the hybrid ELLPACK + COO format (``hybrid_spgemm_dense``), at a real size:
+engine's SpGEMM lane (``ServingEngine.submit_spgemm``/``flush_spgemm``),
+the hybrid ELLPACK + COO format (``hybrid_spgemm_dense``) and the
+distributed SpGEMM on four shards of the card (``spgemm(a, b, mesh=,
+axis=)``), at a real size:
 C = A·Aᵀ for the paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
@@ -148,6 +150,25 @@ Phases (any failure exits non-zero before the last line):
    4,096 rows at a time) and to ``spgemm_dense`` at the full ELLPACK width,
    whose multiply is timed alone too (the rest of that call is
    ``scatter_dense``; at the hybrid's width it is timed alone).
+6d. The distributed SpGEMM (``dist_phase``) on ``make_mesh((4,),
+   ("x",))``, four shards of one card (the exchange device-local copies),
+   bcsstk32 A·Aᵀ uncut: ``make_dist_plan(n_dev=4)`` timed, its schedule,
+   grid, caps and modeled bytes; each of ``'ring'``, ``'cstat'`` and
+   ``'summa'`` with overlap on and off (the counters and the collectives'
+   moved bytes zeroed around the first call; K1 16 / 16 / 8 launches; the
+   median of three calls and the first one's peak over the resident), and
+   ``'ring'`` with ``accumulator='stream'``, each bit-identical to the
+   single-device ``spgemm(a, b, check=True)``, itself equal to scipy's A @
+   Aᵀ; ``make_structure(n_dev=4)`` and the warm ``'ring'`` and
+   ``'summa'`` calls (K1, K3) held the same way; a plan with ``bin_cap``
+   128 poisons ``ngroups`` and raises under ``check=True``, numeric
+   ``'cstat'`` raises ``ValueError``; one traced call (``dist.exchange``,
+   ``plan.dist_decision``, ``dist.calls``, ``dist.comm_bytes.ring``); at
+   the 5,625-column cut (k 70, padded to 72) each schedule, a batch of two
+   with a ``dist_plan`` against each slice's call, and ``ring_spgemm``
+   against ``spgemm_dense``: its dense C a shard is 8.1 GB whatever the
+   operand, and its ``scatter_dense`` pays the dump-row cost at every
+   step, so it runs at the cut only.
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries), the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -2387,6 +2408,255 @@ def hybrid_phase(M):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6d: the distributed SpGEMM on four shards of the card
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 4
+DIST_SCHEDULES = ("ring", "cstat", "summa")
+DIST_NOTE = "4 shards of one card; the exchange is device-local copies"
+
+
+def dist_phase(A, c_ref, nnz_c: int, seed: int):
+    """bcsstk32 A·Aᵀ, uncut, through ``spgemm(a, b, mesh=, axis=)`` on
+    ``make_mesh((4,), ("x",))``: the plan, each schedule cold with overlap
+    on and off, ``'stream'``, warm on a structure with ``n_dev=4``, poison,
+    and at the 5,625-column cut the batched call, ``ring_spgemm`` and the
+    slab pad; one traced call. Returns ({path: counts}, summary)."""
+    import torch
+    import repro_torch
+    from repro_torch import kernels, obs
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.formats import (from_numpy, np_ell_cols_from_scipy,
+                                          np_ell_rows_from_scipy)
+    from repro_torch.parallel import make_mesh
+    from repro_torch.parallel import mesh as pmesh
+    dev = torch.device("cuda")
+    n = A.shape[0]
+    A_csc = A.tocsc()
+    k = int(np.diff(A_csc.indptr).max())
+    a = from_numpy(*np_ell_rows_from_scipy(A_csc, k), n_rows=n, device=dev)
+    b = from_numpy(*np_ell_cols_from_scipy(A.T.tocsr(), k), n_cols=n,
+                   device=dev)
+    mesh = make_mesh((DIST_SHARDS,), ("x",))
+    devices = [str(d) for d in mesh.devices]
+
+    # -- planning ---------------------------------------------------------
+    dp, plan_ms = timed_ms(lambda: repro_torch.make_dist_plan(
+        a, b, n_dev=DIST_SHARDS))
+    backend = dp.base.backend
+    comm = {s: dp.est[f"{s}_comm_bytes"] for s in DIST_SCHEDULES}
+    print(f"[dist] mesh {devices} ({DIST_NOTE}); make_dist_plan "
+          f"{plan_ms:.1f} ms: schedule {dp.schedule}, grid "
+          f"{dp.pr}x{dp.pc}, base {backend}, local_cap {dp.local_cap}, "
+          f"bin_cap {dp.bin_cap}, block_cap {dp.block_cap}, out_cap "
+          f"{dp.out_cap}, modeled comm bytes a device {json.dumps(comm)}, "
+          f"modeled intermediate of the whole stream "
+          f"{dp.base.est.get(f'interm_{backend}', 0.0) / 2**30:.2f} GiB",
+          flush=True)
+    shard_products = [int(x) for x in
+                      repro_torch.plan.symbolic.per_shard_products(
+                          a, b, DIST_SHARDS)]
+    print(f"[dist] products a shard of A's slabs {shard_products}",
+          flush=True)
+    c_one = repro_torch.spgemm(a, b, check=True)
+    check_against_scipy("dist single-device", c_one, c_ref, nnz_c)
+
+    def held(name, got, want=c_one):
+        for f in ("row", "col", "val", "ngroups"):
+            same(f"{name} .{f}", getattr(got, f), getattr(want, f))
+
+    def k1_want(s):
+        return (dp.pr if s == "summa" else DIST_SHARDS) * DIST_SHARDS
+
+    counts, cold = {}, {}
+
+    def run(name, fn, k1):
+        """``fn`` three times: the first with the counters and the moved
+        bytes zeroed around it and its peak; the result held against the
+        single-device call."""
+        kernels.reset_launch_counts()
+        pmesh.reset_moved_bytes()
+        out, ms, peak = timed_peak(fn)
+        counts[name] = kernels.launch_counts()
+        moved = pmesh.moved_bytes()
+        require(counts[name]["sccp_multiply"] == k1,
+                f"{name}: K1 launched {counts[name]['sccp_multiply']} "
+                f"times, not {k1}")
+        held(name, out)
+        del out
+        times = [ms] + [timed_ms(fn)[1] for _ in range(2)]
+        row = dict(ms=times, median_ms=median(times), peak=peak,
+                   moved_bytes_per_shard=moved / DIST_SHARDS,
+                   launches={kk: v for kk, v in counts[name].items() if v})
+        print(f"[dist] {name}: {json.dumps(row)}", flush=True)
+        return row
+
+    for s in DIST_SCHEDULES:
+        dps = dataclasses.replace(dp, schedule=s)
+        for overlap in (True, False):
+            cold[f"{s}_overlap{int(overlap)}"] = run(
+                f"dist_{s}_overlap{int(overlap)}",
+                lambda dps=dps, ov=overlap: repro_torch.spgemm(
+                    a, b, mesh=mesh, axis="x", dist_plan=dps, overlap=ov,
+                    check=True), k1_want(s))
+        cold[f"{s}_overlap1"]["modeled_comm_bytes_per_shard"] = comm[s]
+    print(f"[check] dist: ring, cstat and summa, overlap on and off, == "
+          f"the single-device call bit for bit (== scipy A @ A.T, "
+          f"ngroups {nnz_c})", flush=True)
+    ring = dataclasses.replace(dp, schedule="ring")
+    cold["ring_stream"] = run(
+        "dist_ring_stream", lambda: repro_torch.spgemm(
+            a, b, mesh=mesh, axis="x", dist_plan=ring, accumulator="stream",
+            check=True), k1_want("ring"))
+    require(counts["dist_ring_stream"]["merge_runs"] > 0,
+            "dist 'stream' skipped the merge step")
+
+    # -- warm: a structure with n_dev=4 -----------------------------------
+    st, st_ms = timed_ms(lambda: repro_torch.make_structure(
+        a, b, n_dev=DIST_SHARDS))
+    warm = {}
+    for s in ("ring", "summa"):
+        warm[s] = run(f"dist_numeric_{s}", lambda s=s: repro_torch.spgemm(
+            a, b, mesh=mesh, axis="x", structure=st, schedule=s,
+            check=True), k1_want(s))
+        require(counts[f"dist_numeric_{s}"]["align_product_keys"] > 0,
+                f"dist numeric {s} skipped K3")
+    print(f"[dist] make_structure(n_dev={DIST_SHARDS}) {st_ms:.1f} ms "
+          f"(its plan: {st.dist_plan().schedule}); warm ring and summa == "
+          "the single-device call", flush=True)
+
+    # -- poison, and 'cstat' on the numeric path --------------------------
+    cut = dataclasses.replace(ring, bin_cap=128)
+    bad = repro_torch.spgemm(a, b, mesh=mesh, axis="x", dist_plan=cut)
+    require(int(bad.ngroups) > bad.cap,
+            f"dist: bin_cap 128 not poisoned, ngroups {int(bad.ngroups)}")
+    try:
+        repro_torch.spgemm(a, b, mesh=mesh, axis="x", dist_plan=cut,
+                           check=True)
+        require(False, "dist: check=True did not raise on bin_cap 128")
+    except repro_torch.AccumulatorOverflow:
+        pass
+    try:
+        repro_torch.spgemm(a, b, mesh=mesh, axis="x", structure=st,
+                           schedule="cstat")
+        require(False, "dist: 'cstat' on the numeric path did not raise")
+    except ValueError:
+        pass
+    print(f"[check] dist: bin_cap 128 poisons (ngroups {int(bad.ngroups)} "
+          f"> {bad.cap}) and raises under check=True; numeric 'cstat' "
+          "raises ValueError", flush=True)
+    del bad
+
+    # -- traced calls: the first plans (plan.dist_decision); each call's
+    # stage spans, every one ending in a device sync, split its time
+    stages = {}
+
+    def traced(name, fn):
+        obs.enable(reset=True)
+        try:
+            out, ms = timed_ms(fn)
+            held(f"dist traced {name}", out)
+            evs = obs.get_tracer().snapshot()["events"]
+            ctr = obs.snapshot()["metrics"]["counters"]
+        finally:
+            obs.disable()
+            obs.reset()
+        split = {"call": ms}
+        for e in evs:
+            if e["ph"] == "X" and e["depth"] <= 1:
+                split[e["name"]] = split.get(e["name"], 0.0) + \
+                    e["dur_us"] / 1e3
+        stages[name] = split
+        print(f"[dist] traced {name} ({DIST_NOTE}): ms {json.dumps(split)}",
+              flush=True)
+        return {e["name"] for e in evs}, ctr
+
+    names, ctr = traced("ring_planned", lambda: repro_torch.spgemm(
+        a, b, mesh=mesh, axis="x", schedule="ring"))
+    for want in ("dist.exchange", "plan.dist_decision"):
+        require(want in names, f"dist traced call: no {want}")
+    for want in ("dist.comm_bytes.ring", "dist.calls"):
+        require(ctr.get(want, 0) > 0, f"dist traced call: no {want}")
+    print(f"[dist] traced ring call: dist.exchange, plan.dist_decision; "
+          f"dist.calls {ctr['dist.calls']}, dist.comm_bytes.ring "
+          f"{ctr['dist.comm_bytes.ring']}", flush=True)
+    for s in DIST_SCHEDULES:
+        traced(s, lambda s=s: repro_torch.spgemm(
+            a, b, mesh=mesh, axis="x",
+            dist_plan=dataclasses.replace(dp, schedule=s)))
+    traced("numeric_ring", lambda: repro_torch.spgemm(
+        a, b, mesh=mesh, axis="x", structure=st, schedule="ring"))
+    del a, b, c_one, st
+    torch.cuda.empty_cache()
+
+    # -- the 5,625-column cut: the pad, batched, ring_spgemm ----------------
+    cols = n // CUT_PART
+    A8 = A_csc[:, :cols]
+    k8 = int(np.diff(A8.indptr).max())
+    a8 = from_numpy(*np_ell_rows_from_scipy(A8, k8), n_rows=n, device=dev)
+    b8 = from_numpy(*np_ell_cols_from_scipy(A8.T.tocsr(), k8), n_cols=n,
+                    device=dev)
+    c8 = repro_torch.spgemm(a8, b8, check=True)
+    for s in DIST_SCHEDULES:
+        held(f"dist cut {s}", repro_torch.spgemm(
+            a8, b8, mesh=mesh, axis="x", schedule=s, check=True), c8)
+    rng = np.random.default_rng(seed + 25)
+
+    def fresh(idx):                       # new integer values on a pattern
+        v = (rng.integers(1, 5, idx.shape)
+             * rng.choice(np.array([-1, 1]), idx.shape)).astype(np.float32)
+        return torch.where(idx >= 0, torch.from_numpy(v).to(dev), 0)
+
+    x1 = repro_torch.EllRows(val=fresh(a8.idx), idx=a8.idx, n_rows=n)
+    y1 = repro_torch.EllCols(val=fresh(b8.idx), idx=b8.idx, n_cols=n)
+    ab = repro_torch.EllRows(val=torch.stack([a8.val, x1.val]),
+                             idx=torch.stack([a8.idx, a8.idx]), n_rows=n)
+    bb = repro_torch.EllCols(val=torch.stack([b8.val, y1.val]),
+                             idx=torch.stack([b8.idx, b8.idx]), n_cols=n)
+    dp8 = repro_torch.make_dist_plan(a8, b8, n_dev=DIST_SHARDS)
+    kernels.reset_launch_counts()
+    got, batch_ms = timed_ms(lambda: repro_torch.spgemm(
+        ab, bb, mesh=mesh, axis="x", dist_plan=dp8, check=True))
+    counts["dist_batched_cut"] = kernels.launch_counts()
+    for i, (x, y) in enumerate(((a8, b8), (x1, y1))):
+        want = repro_torch.spgemm(x, y, out_cap=dp8.out_cap, check=True)
+        held(f"dist batched [{i}]", repro_torch.Coo(
+            row=got.row[i], col=got.col[i], val=got.val[i], shape=got.shape,
+            ngroups=got.ngroups[i]), want)
+    del got, ab, bb, x1, y1
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    dense, ring_ms, ring_peak = timed_peak(
+        lambda: dist.ring_spgemm(a8, b8, mesh, "x"))
+    counts["dist_ring_spgemm_cut"] = kernels.launch_counts()
+    ref_dense, dense_ms = timed_ms(lambda: repro_torch.spgemm_dense(a8, b8))
+    same("dist ring_spgemm vs spgemm_dense", dense, ref_dense)
+    del dense, ref_dense
+    torch.cuda.empty_cache()
+    summary = dict(
+        note=DIST_NOTE, operand=BCSSTK32[1], shards=DIST_SHARDS,
+        devices=devices, plan_ms=plan_ms, schedule=dp.schedule,
+        grid=[dp.pr, dp.pc], base_backend=backend, local_cap=dp.local_cap,
+        bin_cap=dp.bin_cap, block_cap=dp.block_cap, out_cap=dp.out_cap,
+        modeled_comm_bytes_per_shard=comm,
+        modeled_interm_gib=dp.base.est.get(f"interm_{backend}", 0.0) / 2**30,
+        launches={kk: sum(c[kk] for c in counts.values())
+                  for kk in kernels.WRAPPERS
+                  if any(c[kk] for c in counts.values())},
+        shard_products=shard_products, cold=cold, make_structure_ms=st_ms,
+        warm=warm, stages_ms=stages,
+        cut=dict(cols=cols, k=k8, batched_two_ms=batch_ms,
+                 ring_spgemm_ms=ring_ms, ring_spgemm_peak=ring_peak,
+                 spgemm_dense_ms=dense_ms))
+    print(f"[check] dist cut ({cols} columns, k {k8} padded to "
+          f"{-(-k8 // DIST_SHARDS) * DIST_SHARDS}): ring, cstat, summa == "
+          "the single-device call; batched (2) == each slice's call; "
+          "ring_spgemm == spgemm_dense", flush=True)
+    print(f"[dist] {json.dumps(summary)}", flush=True)
+    return counts, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2600,7 +2870,7 @@ def main(argv=None) -> int:
         check_selection(summary)
 
     # -- phases 5-6: the SpMM slice ---------------------------------------------
-    del a, b, a_cut, b_cut, a8, b8, x, y, st, structures, c_ref
+    del a, b, a_cut, b_cut, a8, b8, x, y, st, structures
     torch.cuda.empty_cache()
     spmm_rows, spmm_counts, spmm_summary = spmm_slice(args.seed)
     rows += spmm_rows
@@ -2614,6 +2884,11 @@ def main(argv=None) -> int:
     # -- phase 6c: the hybrid ELLPACK + COO format ------------------------------
     hybrid_counts, _ = hybrid_phase(A)
     counts.update(hybrid_counts)
+
+    # -- phase 6d: the distributed SpGEMM on four shards of the card ---------
+    dist_counts, _ = dist_phase(A, c_ref, nnz_c, args.seed)
+    counts.update(dist_counts)
+    del c_ref
 
     # -- phase 7: the kernels line and the result ------------------------------
     for r in rows:

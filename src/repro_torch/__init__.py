@@ -24,6 +24,12 @@ ELLPACK matrix:
 
 the hybrid ELLPACK + COO format (``repro_torch.hybrid``:
 ``split_rows_hybrid``, ``split_cols_hybrid``, ``hybrid_spgemm_dense``),
+the distributed SpGEMM on an in-process device mesh:
+
+    mesh = repro_torch.parallel.make_mesh((4,), ("x",))   # 4 shards, 1 card
+    c = repro_torch.spgemm(a, b, mesh=mesh, axis="x")      # 'ring' | 'cstat'
+    dp = repro_torch.make_dist_plan(a, b, n_dev=4)         #   | 'summa'
+
 and the serving engine's SpGEMM lane:
 
     eng = repro_torch.ServingEngine(None, None, repro_torch.ServeConfig())
@@ -37,7 +43,7 @@ CUDA kernels build from ``src/repro_torch/csrc`` on first use.
 ``repro_torch.obs.enable()`` turns on the spans and counters the entry points
 report through (``obs.export_chrome(path)`` writes a Chrome trace).
 """
-from . import configs, core, kernels, models, obs, plan, serve
+from . import configs, core, kernels, models, obs, parallel, plan, serve
 from .core import hwmodel, hybrid, sccp
 from .core.accumulate import AccumulatorOverflow, check_no_overflow
 from .core.api import spgemm
@@ -52,9 +58,9 @@ from .core.spgemm import spgemm_dense
 from .kernels.nm_spmm import nm_spmm
 from .models import (SparseLinear, SparseMLP, magnitude_prune,
                      magnitude_prune_nm, moe_apply)
-from .plan import (Plan, SpgemmStructure, StructureCache, fingerprint,
-                   make_plan, make_structure, make_structure_batched,
-                   plan_spmm_format)
+from .plan import (DistPlan, Plan, SpgemmStructure, StructureCache,
+                   fingerprint, make_dist_plan, make_plan, make_structure,
+                   make_structure_batched, plan_spmm_format)
 from .serve import ServeConfig, ServingEngine, SparseGemmBatcher
 
 # the reference's submodules reachable as repro_torch.<name>
@@ -62,15 +68,15 @@ _MODULES = ("configs", "core", "hwmodel", "hybrid", "kernels", "models",
             "obs", "plan", "sccp", "serve")
 
 __all__ = [
-    *_MODULES, "AccumulatorOverflow", "Coo", "EllCols", "EllRows",
-    "NmWeights", "Plan", "ServeConfig", "ServingEngine", "SparseGemmBatcher",
+    *_MODULES, "AccumulatorOverflow", "Coo", "DistPlan", "EllCols",
+    "EllRows", "NmWeights", "Plan", "ServeConfig", "ServingEngine", "SparseGemmBatcher",
     "SparseLinear", "SparseMLP", "SpgemmStructure", "StructureCache",
     "check_no_overflow", "coo_from_dense", "count_products",
     "default_device", "detect_nm", "ell_cols_from_dense",
     "ell_rows_from_dense", "fingerprint", "from_numpy", "magnitude_prune",
-    "magnitude_prune_nm", "make_plan", "make_structure",
+    "magnitude_prune_nm", "make_dist_plan", "make_plan", "make_structure",
     "make_structure_batched", "moe_apply", "nm_from_dense", "nm_from_numpy",
     "nm_spmm", "np_ell_cols_from_scipy", "np_ell_rows_from_scipy",
-    "params_from_numpy", "plan_spmm_format", "spgemm", "spgemm_dense",
+    "parallel", "params_from_numpy", "plan_spmm_format", "spgemm", "spgemm_dense",
     "to_numpy",
 ]

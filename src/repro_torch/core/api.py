@@ -1,8 +1,14 @@
 """The SpGEMM front door: ``spgemm(a, b, ...)``, mirroring
-``src/repro/core/api.py`` for the single-device routes.
+``src/repro/core/api.py``.
 
 It dispatches on what it is handed (first match wins):
 
+* ``mesh``/``axis`` set → the sharded paths (``core.distributed``) on a
+  ``parallel.Mesh``: with ``structure`` on unbatched operands the sharded
+  numeric phase (``spgemm_coo_sharded_numeric``); batched operands with a
+  ``dist_plan`` and no structure ``spgemm_coo_sharded_batched``; otherwise
+  the cold ``spgemm_coo_sharded`` (``schedule``/``dist_plan``/``overlap``
+  choose and run the schedule).
 * ``structure`` set → the warm numeric phase (``spgemm_coo_numeric``, or
   ``spgemm_coo_numeric_batched`` for 3-D planes); stream-planned structures
   go by slab groups by themselves. ``validate=False`` skips the structure's
@@ -18,9 +24,9 @@ It dispatches on what it is handed (first match wins):
 tile), ``plan`` (``plan.make_plan``, of either package) and ``check`` mean
 what they mean there. ``schedule``, ``dist_plan`` and ``overlap`` steer only
 the sharded paths; without a mesh they are ignored, whatever their values,
-as the reference ignores them. The sharded paths (a ``mesh=`` and ``axis=``
-pair) raise ``NotImplementedError`` until their slice is ported; one of the
-two without the other raises ``ValueError``, as in the reference.
+as the reference ignores them. One of ``mesh=``/``axis=`` without the other
+raises ``ValueError``, as in the reference; a ``mesh=`` that is not a
+``parallel.Mesh`` raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -42,16 +48,29 @@ def spgemm(a: EllRows, b: EllCols, *, structure=None, mesh=None,
         raise ValueError("axis= requires mesh= (a device mesh)")
     if mesh is not None and axis is None:
         raise ValueError("mesh= requires axis= (the mesh axis name)")
-    if mesh is not None:
-        sp._not_ported("mesh=/axis=", "mesh")
-    del schedule, dist_plan, overlap          # read by the sharded paths only
+    from . import distributed as dist
+    ndim = dist._ndim(a)
     if batched == "auto":
-        is_batched = a.val.ndim == 3
+        is_batched = ndim == 3
     else:
         is_batched = bool(batched)
-        if is_batched and a.val.ndim != 3:
+        if is_batched and ndim != 3:
             raise ValueError("batched=True needs 3-D ELLPACK planes "
-                             f"(got a.val.ndim={a.val.ndim})")
+                             f"(got a.val.ndim={ndim})")
+    if mesh is not None:
+        if structure is not None and not is_batched:
+            return dist.spgemm_coo_sharded_numeric(
+                a, b, mesh, axis, structure, schedule=schedule,
+                overlap=overlap, check=check, validate=validate)
+        if is_batched and structure is None and dist_plan is not None:
+            return dist.spgemm_coo_sharded_batched(
+                a, b, mesh, axis, dist_plan=dist_plan, schedule=schedule,
+                overlap=overlap, check=check)
+        return dist.spgemm_coo_sharded(
+            a, b, mesh, axis, out_cap, accumulator=accumulator or "auto",
+            schedule=schedule, dist_plan=dist_plan, structure=structure,
+            overlap=overlap, check=check)
+    del schedule, dist_plan, overlap          # read by the sharded paths only
     if structure is not None:
         fn = sp.spgemm_coo_numeric_batched if is_batched \
             else sp.spgemm_coo_numeric

@@ -31,7 +31,7 @@ The entry points report through ``repro_torch.obs`` (spans
 ``spgemm.multiply``, ``spgemm.accumulate``, ``spgemm.numeric``; the
 ``spgemm.poison`` event), which costs one flag test while disabled. Options
 that later slices port raise ``NotImplementedError`` naming their ROADMAP
-item.
+item. The sharded paths are ``core.distributed``.
 """
 from __future__ import annotations
 
@@ -53,7 +53,6 @@ from .streaming import (_slab_groups, accumulate_products_stream,
 KEY_SPACE = 2 ** 31 - 1     # packed int32 keys span n_rows·n_cols below this
 BACKENDS = ("sort", "tiled", "bucket", "hash", "stream", "search")
 _LATER = {
-    "mesh": "ROADMAP queue 1 item 9 (distributed SpGEMM)",
     "lm": "ROADMAP queue 1 item 10 (LM stack)",
 }
 

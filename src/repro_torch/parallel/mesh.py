@@ -1,0 +1,232 @@
+"""An in-process device mesh and the collectives the distributed SpGEMM
+schedules use, in place of ``jax.sharding.Mesh``, ``shard_map`` and the
+``jax.lax`` collectives of ``src/repro/core/distributed.py``.
+
+The reference runs one program a device under ``shard_map``. Here one host
+program drives every shard: a sharded value is a list with one tensor a
+device of the mesh axis, and a collective maps such lists to lists:
+
+  * ``ppermute(shards, perm)`` — ``out[dst] = shards[src]`` for each
+    ``(src, dst)`` pair, zeros where nothing arrives. Each arrival is a
+    fresh buffer on its destination (``Tensor.to(..., copy=True)``), so no
+    two shards alias, even when every device of the mesh is ``cuda:0``.
+  * ``ppermute_start(shards, perm)`` — the same copies issued on a side
+    stream of each destination device, after the work already queued on
+    the sources; ``.wait()`` makes the current streams wait for them and
+    returns the shards. It lets a schedule copy the next operand panel
+    while the current panel's products are formed (``overlap=True``).
+  * ``psum(shards)`` — the sum on the first device, added in device
+    order, device 0 first.
+  * ``ring_all_to_all(shards)`` — chunk ``i`` of shard ``d`` ends as chunk
+    ``d`` of shard ``i``, by ``n - 1`` whole-buffer rotations around the
+    ring (the reference's collective of the same name).
+
+A ``Mesh`` is an array of torch devices with axis names; a device may
+repeat, so four shards of one card are ``make_mesh((4,), ("x",))`` on a
+one-card machine. Its ``shape`` maps each axis name to its size, as
+JAX's does. ``make_mesh`` defaults to the CUDA devices; a CPU mesh exists
+only where the caller passes CPU devices.
+
+``moved_bytes()`` reads, and ``reset_moved_bytes()`` zeroes, the bytes the
+collectives have copied between shards (the tensors' sizes: what
+``ppermute`` delivers and what ``psum`` brings to the first device).
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+Shards = List[torch.Tensor]
+
+
+class Mesh:
+    """Devices laid out on named axes: ``Mesh(devices, axis_names)`` with
+    ``devices`` a (nested) sequence of ``torch.device`` or device strings
+    whose nesting depth is the number of axes."""
+
+    def __init__(self, devices, axis_names):
+        if isinstance(axis_names, str):
+            axis_names = (axis_names,)
+        axis_names = tuple(axis_names)
+        given = np.array(devices, dtype=object)
+        arr = np.empty(given.shape, dtype=object)
+        for pos, dev in np.ndenumerate(given):
+            arr[pos] = torch.device(dev)
+        if arr.ndim != len(axis_names) or arr.size == 0:
+            raise ValueError(f"a mesh of shape {arr.shape} needs "
+                             f"{arr.ndim} axis names, got {axis_names}")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"repeated axis name in {axis_names}")
+        if len({d.type for d in arr.reshape(-1)}) != 1:
+            raise ValueError("a mesh's devices must be of one type, got "
+                             f"{sorted({str(d) for d in arr.reshape(-1)})}")
+        self.devices = arr
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, arr.shape))
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices along ``axis`` of a 1-D mesh, in order. The sharded
+        SpGEMM paths take 1-D meshes only; more axes raise ``ValueError``."""
+        if axis not in self.shape:
+            raise ValueError(f"mesh has no axis {axis!r} (axes "
+                             f"{self.axis_names})")
+        if len(self.axis_names) != 1:
+            raise ValueError(
+                f"the sharded paths take a 1-D mesh; this one has axes "
+                f"{self.axis_names} of shape {self.devices.shape}")
+        return list(self.devices)
+
+    def __repr__(self) -> str:
+        return (f"Mesh(shape={self.shape}, "
+                f"devices={[str(d) for d in self.devices.reshape(-1)]})")
+
+
+def make_mesh(shape: Sequence[int], axis_names, devices=None) -> Mesh:
+    """A mesh of ``shape`` over ``devices`` (any sequence of ``prod(shape)``
+    devices, laid out row-major). Without ``devices``: the first
+    ``prod(shape)`` CUDA devices, or that many repeats of ``cuda:0`` on a
+    one-card machine; no CUDA raises ``RuntimeError``."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh defaults to CUDA devices and none "
+                               "is available; pass devices=['cpu'] * n for "
+                               "a mesh of the plain torch versions")
+        count = torch.cuda.device_count()
+        if count >= n:
+            devices = [torch.device("cuda", i) for i in range(n)]
+        elif count == 1:
+            devices = [torch.device("cuda", 0)] * n
+        else:
+            raise ValueError(f"{n} shards over {count} cards: pass devices=")
+    devices = list(devices)
+    if len(devices) != n:
+        raise ValueError(f"mesh shape {shape} needs {n} devices, got "
+                         f"{len(devices)}")
+    arr = np.empty(n, dtype=object)
+    arr[:] = [torch.device(d) for d in devices]
+    return Mesh(arr.reshape(shape), axis_names)
+
+
+_MOVED = [0]
+
+
+def moved_bytes() -> int:
+    """Bytes the collectives have copied since the last reset."""
+    return _MOVED[0]
+
+
+def reset_moved_bytes() -> None:
+    _MOVED[0] = 0
+
+
+def ring_perm(n: int) -> List[Tuple[int, int]]:
+    """Each device to its successor on the ring."""
+    return [(i, (i + 1) % n) for i in range(n)]
+
+
+def _copy(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    _MOVED[0] += x.numel() * x.element_size()
+    return x.to(dev, non_blocking=True, copy=True)
+
+
+def _receivers(shards: Shards, perm):
+    dst_of = {}
+    for src, dst in perm:
+        if dst in dst_of:
+            raise ValueError(f"ppermute: device {dst} receives twice")
+        dst_of[dst] = src
+    return dst_of
+
+
+def ppermute(shards: Shards, perm) -> Shards:
+    """``out[dst] = shards[src]`` for each ``(src, dst)`` in ``perm``, each
+    a fresh copy on ``shards[dst]``'s device; zeros where nothing
+    arrives."""
+    dst_of = _receivers(shards, perm)
+    return [_copy(shards[dst_of[d]], x.device) if d in dst_of
+            else torch.zeros_like(x) for d, x in enumerate(shards)]
+
+
+class Pending:
+    """Copies of a ``ppermute_start`` in flight; ``wait()`` returns them."""
+
+    def __init__(self, shards: Shards, streams):
+        self._shards = shards
+        self._streams = streams
+
+    def wait(self) -> Shards:
+        for dev, side in self._streams:
+            torch.cuda.current_stream(dev).wait_stream(side)
+        return self._shards
+
+
+def ppermute_start(shards: Shards, perm) -> Pending:
+    """``ppermute`` issued on a side stream of each CUDA destination, after
+    the work already queued on the source's current stream. The sources
+    stay valid until the copies end and the arrivals until their readers
+    on the current streams end (``record_stream``). CPU shards are copied
+    at once."""
+    dst_of = _receivers(shards, perm)
+    out, streams = [], []
+    for d, x in enumerate(shards):
+        if d not in dst_of:
+            out.append(torch.zeros_like(x))
+            continue
+        src = shards[dst_of[d]]
+        if x.device.type != "cuda":
+            out.append(_copy(src, x.device))
+            continue
+        ready = torch.cuda.current_stream(src.device).record_event()
+        side = torch.cuda.Stream(device=x.device)
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            got = _copy(src, x.device)
+        src.record_stream(side)
+        got.record_stream(torch.cuda.current_stream(x.device))
+        out.append(got)
+        streams.append((x.device, side))
+    return Pending(out, streams)
+
+
+def psum(shards: Shards) -> torch.Tensor:
+    """The shards' sum on the first shard's device, added in device order
+    (device 0 first), as a new tensor."""
+    acc = shards[0].clone()
+    for x in shards[1:]:
+        if x.device != acc.device:
+            x = _copy(x, acc.device)
+        else:
+            _MOVED[0] += x.numel() * x.element_size()
+        acc += x
+    return acc
+
+
+def ring_all_to_all(shards: Shards) -> Shards:
+    """All-to-all over the ring: shard ``d`` is ``(n, chunk, ...)`` with
+    chunk ``i`` bound for device ``i``; the result's shard ``d`` holds in
+    chunk ``i`` what device ``i`` sent it. Each device keeps its own chunk,
+    then the whole buffers rotate ``n - 1`` times, each device taking its
+    chunk from the buffer visiting it."""
+    n = len(shards)
+    for x in shards:
+        if x.shape[0] != n:
+            raise ValueError(f"ring_all_to_all: {n} shards need a leading "
+                             f"axis of {n}, got {tuple(x.shape)}")
+    out = [torch.empty_like(x) for x in shards]
+    for d in range(n):
+        out[d][d] = shards[d][d]
+    buf, perm = shards, ring_perm(n)
+    for i in range(n - 1):
+        buf = ppermute(buf, perm)
+        for d in range(n):
+            out[d][(d - i - 1) % n] = buf[d][d]
+    return out

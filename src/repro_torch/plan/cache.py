@@ -12,10 +12,9 @@ Optional layers on top of the LRU:
     written as ``<fingerprint>.npz`` (the coordinate arrays plus a JSON
     metadata blob with the plan), so a fresh process warm-starts without the
     symbolic phase. The files are the reference's format version 1, and each
-    package reads the other's: a plan is saved without its ``stats`` and
-    with ``est`` only where it is JSON, as the reference saves it; on load
-    the port drops the reference's distributed plans, which it does not have
-    yet. Writes are atomic (temporary file + rename); a corrupt,
+    package reads the other's: a plan, and each distributed plan with its
+    base plan, is saved without its ``stats`` and with ``est`` only where it
+    is JSON, as the reference saves it. Writes are atomic (temporary file + rename); a corrupt,
     foreign-version or mismatched file is a miss, never an error.
   * **Measured autotune** (``autotune=True``): on a miss each candidate
     backend is planned and timed on the real operands (``probe_iters``
@@ -49,7 +48,7 @@ import torch
 from ..core.formats import EllCols, EllRows
 from ..obs import metrics as _obs_metrics
 from ..obs import trace as _obs
-from .planner import BACKENDS, Plan
+from .planner import BACKENDS, DistPlan, Plan
 from .structure import SpgemmStructure, fingerprint, make_structure
 
 _FORMAT_VERSION = 1
@@ -66,6 +65,26 @@ def _plan_to_dict(plan: Plan) -> dict:
     except (TypeError, ValueError):
         d["est"] = {}
     return d
+
+
+def _dist_plan_to_dict(dp) -> dict:
+    """A distributed plan's fields for the JSON metadata, its base plan as
+    ``_plan_to_dict`` writes one."""
+    d = {f.name: getattr(dp, f.name) for f in dataclasses.fields(dp)}
+    d["base"] = _plan_to_dict(dp.base)
+    try:
+        json.dumps(d["est"])
+    except (TypeError, ValueError):
+        d["est"] = {}
+    return d
+
+
+def _plan_from_dict(d: dict) -> Plan:
+    return Plan(**{k: v for k, v in d.items() if k not in _NOT_SAVED})
+
+
+def _dist_plan_from_dict(d: dict) -> DistPlan:
+    return DistPlan(**{**d, "base": _plan_from_dict(d["base"])})
 
 
 def _device_sync(device) -> None:
@@ -209,7 +228,9 @@ class StructureCache:
     def _save_disk(self, fp: str, st: SpgemmStructure) -> None:
         meta = dict(version=_FORMAT_VERSION, n_rows=st.n_rows,
                     n_cols=st.n_cols, out_cap=st.out_cap, fp=st.fp,
-                    plan=dataclasses.asdict(st.plan), dist_plans=[])
+                    plan=_plan_to_dict(st.plan),
+                    dist_plans=[[s, _dist_plan_to_dict(dp)]
+                                for s, dp in st.dist_plans])
         path = self._path(fp)
         tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
         try:
@@ -244,9 +265,10 @@ class StructureCache:
                     key=arr("key"), row_nnz=arr("row_nnz"), seg=arr("seg"),
                     nnz=arr("nnz"), n_rows=meta["n_rows"],
                     n_cols=meta["n_cols"], out_cap=meta["out_cap"],
-                    fp=meta["fp"],
-                    plan=Plan(**{k: v for k, v in meta["plan"].items()
-                                 if k not in _NOT_SAVED}))
+                    fp=meta["fp"], plan=_plan_from_dict(meta["plan"]),
+                    dist_plans=tuple(
+                        (s, _dist_plan_from_dict(d))
+                        for s, d in meta.get("dist_plans", [])))
         except (OSError, EOFError, ValueError, KeyError, TypeError,
                 zipfile.BadZipFile):
             return None     # corrupt, partial or foreign file: a plain miss

@@ -35,6 +35,10 @@ when the winner's exceeds ``mem_budget`` the planner overrides it with
 ``'stream'``, whose intermediate does not grow with ``k_a``. Output spaces of
 2³¹−1 coordinates or more go to ``'sort'``, the only unpacked-key backend.
 
+``make_dist_plan`` extends a plan across a mesh axis: the distributed
+schedule (``'ring'``, ``'cstat'`` or ``'summa'``, by modeled bytes) and the
+exchange's capacities, as a ``DistPlan``.
+
 ``plan_spmm_format`` routes a pruned weight to its SpMM storage format (N:M
 condensed planes or ELLPACK), the weights-side twin of the backend choice.
 """
@@ -387,6 +391,147 @@ def plan_costs(plan: Plan, k_a: int, n: int, k_b: int,
                                    plan.bucket_cap, plan.n_blocks,
                                    plan.block_cap, plan.out_cap)
     return costs, interm
+
+
+# ---------------------------------------------------------------------------
+# Distributed planning (core/distributed.spgemm_coo_sharded)
+# ---------------------------------------------------------------------------
+
+SCHEDULES = ("ring", "cstat", "summa")
+
+
+def _lane_pad(x: int) -> int:
+    return max(symbolic.LANE, -(-int(x) // symbolic.LANE) * symbolic.LANE)
+
+
+def grid_candidates(n_dev: int):
+    """The ``(pr, pc)`` factorizations of ``n_dev`` with both sides ≥ 2. A
+    side of 1 is a 1-D schedule whose traffic the 2-D model would
+    undercount, so such grids are never ``schedule='auto'`` candidates; an
+    explicit ``'summa'`` on a prime mesh still runs on one
+    (``best_grid(allow_degenerate=True)``), modeled with 1-D bytes."""
+    return [(pr, n_dev // pr) for pr in range(2, n_dev)
+            if n_dev % pr == 0 and n_dev // pr >= 2]
+
+
+def best_grid(n_dev: int, k_a: int, k_b: int, *,
+              allow_degenerate: bool = False):
+    """The ``(pr, pc)`` grid of least operand motion, ``k_a·(pc−1) +
+    k_b·(pr−1)`` slab lanes a device. ``None`` where no grid has both sides
+    ≥ 2, unless ``allow_degenerate``: then the better of ``(n_dev, 1)`` and
+    ``(1, n_dev)``."""
+    cands = grid_candidates(n_dev)
+    if not cands:
+        if not allow_degenerate:
+            return None
+        cands = [(n_dev, 1), (1, n_dev)] if n_dev > 1 else [(1, 1)]
+    return min(cands, key=lambda g: k_a * (g[1] - 1) + k_b * (g[0] - 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class DistPlan:
+    """A static distributed-SpGEMM plan; its capacities come from exact
+    per-shard, per-grid-cell and per-block histograms, so a planned run
+    never drops a partial:
+
+      local_cap — a device's local accumulation width: at least the unique
+                  coordinates of any one device's product stream, under the
+                  1-D shards and every 2-D grid alike (so
+                  ``dataclasses.replace(dp, schedule=...)`` stays safe);
+      bin_cap   — a (device, owner) exchange bin;
+      block_cap — an owner's row block of C.
+
+    ``(pr, pc)`` is the ``'summa'`` grid (``pr·pc == n_dev``), always set.
+    ``base`` is the device-local accumulation's ``Plan``. Equal field by
+    field to the reference's plan for the same operands on the CPU, ``est``
+    (modeled bytes, excluded from equality) included."""
+
+    schedule: str             # 'ring' | 'cstat' | 'summa'
+    n_dev: int
+    rows_per_dev: int         # owner(r) = r // rows_per_dev
+    local_cap: int
+    bin_cap: int
+    block_cap: int
+    out_cap: int              # the global COO capacity
+    base: Plan
+    fp: Optional[str] = None  # the operands' sparsity fingerprint
+    pr: int = 1               # 'summa' grid rows (A panels hop along rows)
+    pc: int = 1               # 'summa' grid columns (B panels along columns)
+    est: Dict[str, float] = dataclasses.field(default_factory=dict,
+                                              compare=False)
+
+
+def make_dist_plan(a: EllRows, b: EllCols, *, n_dev: int,
+                   schedule: Optional[str] = None,
+                   out_cap: Optional[int] = None,
+                   backend: Optional[str] = None,
+                   tile: int = 4096, slack: float = 1.0) -> DistPlan:
+    """The distributed symbolic phase and schedule choice on concrete
+    operands, over a mesh axis of ``n_dev`` devices.
+
+    ``make_plan`` gives the device-local backend and the global ``out_cap``
+    (on CUDA operands with the card's cost table); the per-shard and
+    per-grid-cell product counts and the per-row-block unique counts size
+    the exchange. The schedule is the one of fewest modeled bytes a device
+    (8 B a lane of operand motion, 12 B a COO triple): ``'ring'`` rotates
+    all of B and exchanges the partials by owner, ``'cstat'`` rotates B and
+    replicates A, ``'summa'`` hops A panels along grid rows and B panels
+    along grid columns plus ``'ring'``'s exchange; a mesh with no grid of
+    both sides ≥ 2 models ``'summa'`` as ``'ring'`` and never picks it.
+    ``schedule=`` pins the choice. No card's constants enter the bytes."""
+    if schedule is not None and schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}; expected "
+                         f"{SCHEDULES}")
+    if n_dev < 1:
+        raise ValueError(f"n_dev must be >= 1, got {n_dev}")
+    base = make_plan(a, b, out_cap=out_cap, backend=backend, tile=tile,
+                     slack=slack)
+    n_rows, n = a.n_rows, a.n_cols
+    rpd = -(-n_rows // n_dev)
+    block_uniq = symbolic.per_block_nnz(a, b, n_dev).cpu().numpy()
+    shard_prod = symbolic.per_shard_products(a, b, n_dev).cpu().numpy()
+    pr, pc = best_grid(n_dev, a.k, b.k, allow_degenerate=True)
+    # caps cover every factorization (both degenerate orientations too), so
+    # a plan stays never-drop under dataclasses.replace(dp, pr=, pc=)
+    grid_cell_max = max(
+        int(symbolic.per_grid_products(a, b, gr, gc).max())
+        for gr, gc in grid_candidates(n_dev) + [(1, n_dev)])
+    nnz_c = int(block_uniq.sum())
+    block_cap = _lane_pad(int(block_uniq.max()))
+    local_cap = _lane_pad(min(max(1, nnz_c),
+                              max(int(shard_prod.max()), grid_cell_max)))
+    # device d sends owner o at most min(d's local uniques, o's block nnz)
+    bin_cap = _lane_pad(min(local_cap, block_cap))
+    flops = int(shard_prod.sum())
+    rotate_b = 8.0 * n * b.k
+    exchange = 12.0 * min(nnz_c, max(1, flops // n_dev))
+    ring_bytes = rotate_b + exchange
+    cstat_bytes = rotate_b + 8.0 * n * a.k
+    degenerate = min(pr, pc) < 2
+    if degenerate:
+        summa_bytes = ring_bytes
+    else:
+        summa_bytes = (8.0 * n * (a.k * (pc - 1) + b.k * (pr - 1)) / n_dev
+                       + exchange)
+    est = dict(base.est)
+    est.update({"ring_comm_bytes": ring_bytes,
+                "cstat_comm_bytes": cstat_bytes,
+                "summa_comm_bytes": summa_bytes,
+                "summa_pr": float(pr), "summa_pc": float(pc),
+                "nnz_c": float(nnz_c), "flops": float(flops)})
+    if schedule is None:
+        schedule = "cstat" if cstat_bytes < ring_bytes else "ring"
+        if not degenerate and summa_bytes < est[f"{schedule}_comm_bytes"]:
+            schedule = "summa"
+    if _obs.is_enabled():
+        _obs.instant("plan.dist_decision", schedule=schedule, n_dev=n_dev,
+                     pr=pr, pc=pc, ring_comm_bytes=ring_bytes,
+                     cstat_comm_bytes=cstat_bytes,
+                     summa_comm_bytes=summa_bytes)
+    return DistPlan(schedule=schedule, n_dev=n_dev, rows_per_dev=rpd,
+                    local_cap=local_cap, bin_cap=bin_cap, block_cap=block_cap,
+                    out_cap=base.out_cap, base=base, fp=base.fp,
+                    pr=pr, pc=pc, est=est)
 
 
 def plan_spmm_format(w, candidates=None):

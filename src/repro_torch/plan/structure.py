@@ -23,11 +23,12 @@ A structure holds:
   * ``row_nnz`` — per-row unique counts; ``seg`` their exclusive prefix sum
                   (the CSR ``indptr`` of C);
   * ``nnz``     — the true unique count (the numeric phase's ``ngroups``);
-  * ``plan``    — the single-device ``Plan`` (``planner.make_plan``).
+  * ``plan``    — the single-device ``Plan`` (``planner.make_plan``);
+  * ``dist_plans`` — ``(schedule, DistPlan)`` pairs, built with ``n_dev=``
+                  (``planner.make_dist_plan``), which sharded calls on the
+                  pattern reuse instead of planning again.
 
-The reference's per-schedule distributed plans (``dist_plans``, built with
-``n_dev=``) wait for the distributed slice; here ``dist_plans`` is always
-empty. Packed int32 keys need ``n_rows·n_cols < 2³¹−1``.
+Packed int32 keys need ``n_rows·n_cols < 2³¹−1``.
 """
 from __future__ import annotations
 
@@ -42,8 +43,6 @@ from ..core.formats import EllCols, EllRows
 from ..kernels.insitu_search import KEY_INVALID
 from ..obs import trace as _obs
 from . import symbolic
-
-_DISTRIBUTED = "ROADMAP queue 1 item 9 (distributed SpGEMM)"
 
 
 def _dtype_str(dtype: torch.dtype) -> str:
@@ -94,9 +93,23 @@ class SpgemmStructure:
         return self.key.dim() == 2
 
     def dist_plan(self, schedule: Optional[str] = None):
-        raise NotImplementedError(
-            f"distributed plans are not ported to repro_torch yet: "
-            f"{_DISTRIBUTED}")
+        """The cached ``DistPlan`` for ``schedule`` (``None``: the first
+        one, the planner's pick where it chose). Raises ``ValueError``,
+        with how to rebuild, where the structure holds none for it."""
+        if not self.dist_plans:
+            raise ValueError(
+                "structure holds no distributed plans — rebuild with "
+                "make_structure(..., n_dev=mesh.shape[axis]) (optionally "
+                "schedules=('ring', 'cstat', 'summa')) to cache them")
+        plans = dict(self.dist_plans)
+        if schedule is None:
+            return plans[self.dist_plans[0][0]]
+        if schedule not in plans:
+            raise ValueError(
+                f"structure caches no {schedule!r} DistPlan (has "
+                f"{tuple(plans)}); rebuild with make_structure(..., "
+                f"schedules=({schedule!r},))")
+        return plans[schedule]
 
     def validate(self, a: EllRows, b: EllCols) -> None:
         """Raise ``ValueError`` when ``(a, b)``'s output shape or sparsity
@@ -146,13 +159,6 @@ def _structure_arrays(a_idx: torch.Tensor, b_idx: torch.Tensor, *,
     return uniq[:out_cap], row_nnz, seg, head.sum(dtype=torch.int32)
 
 
-def _no_distributed(n_dev, schedules) -> None:
-    if n_dev is not None or schedules is not None:
-        raise NotImplementedError(
-            "make_structure(n_dev=, schedules=) builds distributed plans, "
-            f"which are not ported to repro_torch yet: {_DISTRIBUTED}")
-
-
 def make_structure(a: EllRows, b: EllCols, *, out_cap: Optional[int] = None,
                    backend: Optional[str] = None, tile: int = 4096,
                    slack: float = 1.0, n_dev: Optional[int] = None,
@@ -166,9 +172,11 @@ def make_structure(a: EllRows, b: EllCols, *, out_cap: Optional[int] = None,
     choose). The plan's backend decides the numeric realization: ``'stream'``
     goes by slab groups, every other one multiplies the whole stream. The
     result fits any operand pair with the same sparsity pattern, whatever
-    the values. ``n_dev``/``schedules`` raise until the distributed slice.
+    the values. With ``n_dev`` a ``DistPlan`` is built for each of
+    ``schedules`` (default: the planner's pick alone) and kept in
+    ``dist_plans``, so sharded calls on the pattern skip
+    ``make_dist_plan``.
     """
-    _no_distributed(n_dev, schedules)
     _check_packable(a.n_rows, b.n_cols)
     fp = fingerprint(a, b)
     if plan is None:
@@ -185,9 +193,24 @@ def make_structure(a: EllRows, b: EllCols, *, out_cap: Optional[int] = None,
             f"out_cap={out_cap} smaller than nnz(C)={int(nnz)} — a structure "
             "must hold every output coordinate (pass a larger out_cap or let "
             "make_plan size it)")
+    dist_plans = ()
+    if n_dev is not None:
+        from .planner import SCHEDULES, make_dist_plan
+        for s in schedules or ():
+            if s not in SCHEDULES:
+                raise ValueError(
+                    f"unknown schedule {s!r}; expected {SCHEDULES}")
+        kw = dict(n_dev=n_dev, out_cap=out_cap, backend=plan.backend,
+                  tile=tile, slack=slack)
+        if schedules is None:
+            dp = make_dist_plan(a, b, **kw)
+            dist_plans = ((dp.schedule, dp),)
+        else:
+            dist_plans = tuple((s, make_dist_plan(a, b, schedule=s, **kw))
+                               for s in schedules)
     return SpgemmStructure(key=key, row_nnz=row_nnz, seg=seg, nnz=nnz,
                            n_rows=a.n_rows, n_cols=b.n_cols, out_cap=out_cap,
-                           fp=fp, plan=plan)
+                           fp=fp, plan=plan, dist_plans=dist_plans)
 
 
 def make_structure_batched(a: EllRows, b: EllCols, *,

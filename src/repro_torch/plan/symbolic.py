@@ -11,7 +11,9 @@
 of ``LANE`` and at least ``LANE`` — with ``exact=True`` the same cap the
 reference planner gives a pinned backend. ``per_row_counts`` and
 ``max_slab_products`` are the planner's histogram inputs
-(``plan.planner.make_plan``).
+(``plan.planner.make_plan``); ``per_shard_products``, ``per_grid_products``
+and ``per_block_nnz`` those of the distributed planner
+(``plan.planner.make_dist_plan``).
 """
 from __future__ import annotations
 
@@ -91,6 +93,60 @@ def max_slab_products(a: EllRows, b: EllCols) -> torch.Tensor:
     """Largest single-slab product count: the streaming engine's per-tile
     compaction bound (``Plan.stream_cap``)."""
     return per_slab_products(a, b).max()
+
+
+def per_shard_products(a: EllRows, b: EllCols, n_shards: int) -> torch.Tensor:
+    """Exact product counts per contiguous A-slab shard: ``k_a`` padded up to
+    a multiple of ``n_shards`` (padding slabs hold no products, as the
+    distributed engine's slab padding), slab counts summed a shard."""
+    per_slab = per_slab_products(a, b)
+    pad = (-per_slab.shape[0]) % n_shards
+    if pad:
+        per_slab = torch.cat([per_slab, per_slab.new_zeros(pad)])
+    return per_slab.reshape(n_shards, -1).sum(dim=1).to(torch.int32)
+
+
+def per_grid_products(a: EllRows, b: EllCols, pr: int,
+                      pc: int) -> torch.Tensor:
+    """Exact product counts per cell of the ``pr × pc`` grid of the 2-D
+    ``'summa'`` schedule, ``(pr, pc)``: cell ``(r, c)`` multiplies A
+    shard-blocks ``[r·pc, (r+1)·pc)`` by B shard-blocks ``{r'·pc + c}``.
+    Both slab axes are padded to a multiple of ``p = pr·pc`` as the engine
+    pads them. ``per_grid_products(a, b, p, 1)[:, 0]`` is
+    ``per_shard_products(a, b, p)``."""
+    p = pr * pc
+    a_valid = (a.idx >= 0).to(torch.int64)                     # (k_a, n)
+    b_valid = b.valid_mask().to(torch.int64)                   # (n, k_b)
+    pad_a = (-a_valid.shape[0]) % p
+    if pad_a:
+        a_valid = torch.cat([a_valid, a_valid.new_zeros(pad_a,
+                                                        a_valid.shape[1])])
+    pad_b = (-b_valid.shape[1]) % p
+    if pad_b:
+        b_valid = torch.cat([b_valid, b_valid.new_zeros(b_valid.shape[0],
+                                                        pad_b)], dim=1)
+    n = a_valid.shape[1]
+    blk_a = a_valid.reshape(p, -1, n).sum(dim=1)               # (p, n)
+    blk_b = b_valid.reshape(n, p, -1).sum(dim=2).T             # (p, n)
+    # an exact integer product on the host: CUDA has no int64 matmul
+    g = blk_a.cpu() @ blk_b.cpu().T                            # (p, p)
+    return (g.reshape(pr, pc, pr, pc).sum(dim=(1, 2)).to(torch.int32)
+            .to(a.idx.device))
+
+
+def per_block_nnz(a: EllRows, b: EllCols, n_blocks: int, *,
+                  exact: bool = True) -> torch.Tensor:
+    """Unique-coordinate counts of C per block of ``ceil(n_rows/n_blocks)``
+    contiguous rows (the C-stationary ownership partition). ``exact=False``
+    puts the clipped row-flop bound in their place, which dominates them."""
+    per_row = (exact_nnz_rows(a, b) if exact
+               else torch.clamp(product_count_rows(a, b),
+                                max=b.n_cols).to(torch.int32))
+    rpb = -(-a.n_rows // n_blocks)
+    pad = n_blocks * rpb - a.n_rows
+    if pad:
+        per_row = torch.cat([per_row, per_row.new_zeros(pad)])
+    return per_row.reshape(n_blocks, rpb).sum(dim=1).to(torch.int32)
 
 
 def per_row_counts(a: EllRows, b: EllCols, *, exact: bool = True):

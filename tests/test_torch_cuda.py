@@ -1349,3 +1349,81 @@ def test_serving_lane_on_card(cuda, n_req, flush_kw):
     n = int(one.ngroups)
     for f in ("row", "col", "val"):
         assert torch.equal(getattr(one, f)[:n], getattr(got[rids[0]], f)[:n])
+
+
+def _dist_operands(n_dev):
+    rng = np.random.default_rng(40 + n_dev)
+    a = ((rng.random((90, 70)) < 0.12)
+         * rng.integers(-4, 5, (90, 70))).astype(np.float32)
+    b = ((rng.random((70, 80)) < 0.15)
+         * rng.integers(-4, 5, (70, 80))).astype(np.float32)
+    ka = max(1, int((a != 0).sum(0).max()))
+    kb = max(1, int((b != 0).sum(1).max()))
+    return [(rt.ell_rows_from_dense(a, ka, device=dev),
+             rt.ell_cols_from_dense(b, kb, device=dev))
+            for dev in ("cuda", "cpu")]
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+@pytest.mark.parametrize("schedule", ["ring", "cstat", "summa"])
+def test_sharded_schedules_on_card(cuda, schedule, n_dev):
+    """Each schedule on a mesh of ``n_dev`` shards of ``cuda:0``, cold with
+    the card's plan (overlap on and off) and warm on a structure, equals
+    the same call on a CPU mesh bit for bit; K1 runs once a (step,
+    shard)."""
+    from repro_torch.parallel import make_mesh
+    (ca, cb), (ha, hb) = _dist_operands(n_dev)
+    on_card = make_mesh((n_dev,), ("x",), devices=[cuda] * n_dev)
+    on_cpu = make_mesh((n_dev,), ("x",), devices=["cpu"] * n_dev)
+    dp = rt.make_dist_plan(ca, cb, n_dev=n_dev, schedule=schedule)
+    steps = dp.pr if schedule == "summa" else n_dev
+    for overlap in (True, False):
+        kernels.reset_launch_counts()
+        got = rt.spgemm(ca, cb, mesh=on_card, axis="x", dist_plan=dp,
+                        overlap=overlap, check=True)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["sccp_multiply"] == steps * n_dev
+        want = rt.spgemm(ha, hb, mesh=on_cpu, axis="x", dist_plan=dp,
+                         overlap=overlap, check=True)
+        for f in ("row", "col", "val", "ngroups"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        single = rt.spgemm(ha, hb, check=True)
+        for f in ("row", "col", "val", "ngroups"):
+            assert torch.equal(getattr(want, f), getattr(single, f)), f
+    st = rt.make_structure(ca, cb, n_dev=n_dev)
+    if schedule == "cstat":
+        with pytest.raises(ValueError, match="cstat"):
+            rt.spgemm(ca, cb, mesh=on_card, axis="x", structure=st,
+                      schedule=schedule)
+        return
+    kernels.reset_launch_counts()
+    got = rt.spgemm(ca, cb, mesh=on_card, axis="x", structure=st,
+                    schedule=schedule, check=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["sccp_multiply"] == steps * n_dev
+    assert counts["align_product_keys"] > 0
+    want = rt.spgemm(ha, hb, mesh=on_cpu, axis="x",
+                     structure=rt.make_structure(ha, hb), schedule=schedule,
+                     check=True)
+    for f in ("row", "col", "val", "ngroups"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def test_rotated_panels_never_share_storage(cuda):
+    """A rotation between shards of one card writes fresh buffers, on the
+    current stream and on the side streams alike."""
+    from repro_torch.parallel import mesh as tmesh
+    shards = [torch.arange(4096, dtype=torch.float32, device=cuda) + d
+              for d in range(4)]
+    perm = tmesh.ring_perm(4)
+    for got in (tmesh.ppermute(shards, perm),
+                tmesh.ppermute_start(shards, perm).wait()):
+        src = {s.untyped_storage().data_ptr() for s in shards}
+        dst = {g.untyped_storage().data_ptr() for g in got}
+        assert not src & dst and len(dst) == 4
+        for d in range(4):
+            assert torch.equal(got[d], shards[(d - 1) % 4])
+        got[0].zero_()
+        assert torch.equal(shards[3], torch.arange(4096, dtype=torch.float32,
+                                                   device=cuda) + 3)

@@ -152,18 +152,17 @@ def test_coo_overflow_flag():
 
 
 def test_top_level_names_are_the_references_ported_ones():
-    """Every name of the reference's top level is the port's too, but for
-    the two whose slice is not ported (distributed planning);
+    """Every name of the reference's top level is the port's too, the
+    distributed planning's (``make_dist_plan``, ``DistPlan``) included;
     the port's own extras (device helpers, host constructors, the MoE
-    layer) are not the reference's top-level names."""
+    layer, ``parallel``) are not the reference's top-level names."""
     import repro
-    unported = {"make_dist_plan", "DistPlan"}
     ref_names = set(repro._NAMES)
-    assert unported <= ref_names
     shared = {n for n in rt.__all__ if n in ref_names}
-    assert shared == ref_names - unported
+    assert shared == ref_names          # nothing of the reference unported
     for name in shared:
         assert getattr(rt, name) is not None
-    assert not unported & set(dir(rt))
     assert rt.nm_spmm is rt.kernels.nm_spmm.nm_spmm
     assert rt.make_plan is rt.plan.make_plan
+    assert rt.make_dist_plan is rt.plan.planner.make_dist_plan
+    assert rt.DistPlan is rt.plan.planner.DistPlan

@@ -258,16 +258,39 @@ def test_poison_overflow_matches_reference():
 
 @pytest.mark.parametrize("kwargs", [
     dict(call="make_structure", backend="sort", n_dev=2),
+    dict(mesh="cpu mesh of 2", axis="x"),
     dict(mesh=object(), axis="x"),
 ])
 def test_unported_routes_raise(kwargs):
-    """Options whose slices are not ported raise, naming their ROADMAP item:
-    ``spgemm`` kwargs, and (``call``) the structure builder's."""
-    (_, _), (ta, tb) = _pair(*ZOO["dup_heavy"][:2])
+    """The two calls that raised until the distributed slice was ported now
+    run, on a CPU mesh of 2: ``make_structure(..., n_dev=2)`` returns a
+    structure whose ``dist_plan()`` equals the reference's
+    ``make_dist_plan(..., n_dev=2)``, and ``spgemm(..., mesh=, axis=)``
+    equals the single-device result. A ``mesh=`` that is not a port
+    ``Mesh`` raises ``TypeError``."""
+    from repro.plan import make_dist_plan as ref_make_dist_plan
+    (ea, eb), (ta, tb) = _pair(*ZOO["dup_heavy"][:2])
     kwargs = dict(kwargs)
-    call = kwargs.pop("call", "spgemm")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        getattr(rt, call)(ta, tb, **kwargs)
+    if kwargs.pop("call", None) == "make_structure":
+        st = rt.make_structure(ta, tb, **kwargs)
+        got = st.dist_plan()
+        want = ref_make_dist_plan(ea, eb, n_dev=2, backend="sort")
+        for f in dataclasses.fields(want):
+            if f.name not in ("base", "est"):
+                assert getattr(got, f.name) == getattr(want, f.name), f.name
+        assert got.base.backend == want.base.backend == "sort"
+        assert got.est == want.est
+        return
+    if not isinstance(kwargs["mesh"], str):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
+            rt.spgemm(ta, tb, **kwargs)
+        return
+    kwargs["mesh"] = rt.parallel.make_mesh((2,), ("x",), devices=["cpu"] * 2)
+    got = rt.spgemm(ta, tb, check=True, **kwargs)
+    want = rt.spgemm(ta, tb, check=True)
+    for f in ("row", "col", "val", "ngroups"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    _same_coo(got, spgemm_coo(ea, eb, out_cap="auto"))
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -276,7 +299,7 @@ def test_unported_routes_raise(kwargs):
 def test_half_given_mesh_raises_value_error(kwargs, match):
     """``mesh=`` without ``axis=``, or ``axis=`` without ``mesh=``, is a
     caller's error (``ValueError``), as the reference raises on the same
-    operands; only a full pair names the unported sharded slice."""
+    operands, before the mesh's type is looked at."""
     from repro.core.api import spgemm as ref_spgemm
     (ea, eb), (ta, tb) = _pair(*ZOO["dup_heavy"][:2])
     with pytest.raises(ValueError, match=match):
@@ -339,7 +362,9 @@ def test_port_and_chip_smoke_import_no_jax():
             "repro_torch.kernels.fused_sccp_stream, "
             "repro_torch.core.streaming, repro_torch.plan.cache, "
             "repro_torch.core.hwmodel, repro_torch.obs.roofline, "
-            "repro_torch.core.hybrid, repro_torch.serve.engine, chip_smoke\n"
+            "repro_torch.core.hybrid, repro_torch.serve.engine, "
+            "repro_torch.core.distributed, repro_torch.parallel.mesh, "
+            "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\nprint('clean')")
