@@ -10,9 +10,10 @@ them (``accumulator='auto'``, and the measured autotune), warm through the
 numeric phase on a 'sort' and a 'stream' structure, and its SpMM side (MoE with
 ``dispatch='spmm'``, ``SparseMLP``/``SparseLinear``), then the serving
 engine's SpGEMM lane (``ServingEngine.submit_spgemm``/``flush_spgemm``),
-the hybrid ELLPACK + COO format (``hybrid_spgemm_dense``) and the
+the hybrid ELLPACK + COO format (``hybrid_spgemm_dense``), the
 distributed SpGEMM on four shards of the card (``spgemm(a, b, mesh=,
-axis=)``), at a real size:
+axis=)``) and token serving on the LM stack (``ServingEngine.generate_batch``
+over deepseek-v2-lite-16b, all 27 layers in bfloat16), at a real size:
 C = A·Aᵀ for the paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
@@ -169,14 +170,52 @@ Phases (any failure exits non-zero before the last line):
    against ``spgemm_dense``: its dense C a shard is 8.1 GB whatever the
    operand, and its ``scatter_dense`` pays the dump-row cost at every
    step, so it runs at the cut only.
-7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries), the
-   card's name and power limit, and as the last line ``{"ok": true,
-   "device": {...}}``.
+6e. Token serving on the LM stack (``lm_phase``): the earlier phases'
+   tensors freed first. Gate (b): deepseek-v2-lite cut to its first 2
+   layers (layer 0 dense, layer 1 MoE, ``'sort'``) at full width in
+   float32, TF32 off, weights drawn on the card and copied to the CPU, on
+   2 x 64 tokens: logits within 1e-3·max|logits| of the CPU's, expert ids
+   equal but at top-k margins below 1e-5 (none decides a tie across
+   devices; counted). Then the whole model at published widths and all 27
+   layers, 15,706,484,224 parameters drawn in bfloat16 on the card from a
+   ``torch.Generator`` seeded by ``--seed`` (29.3 GiB). Gate (a): prefill
+   on 48 tokens of a 96-token prompt, then decode the other 48 one at a
+   time: each step's logits within LM_TOL_A·max|logits| of the full forward's
+   at its position, at capacity factor E/k so that no MoE call drops a
+   pair and the check isolates the caches; two planted decode faults
+   (each step's cache entry moved one slot early; RoPE at the position
+   before) must each read above that limit. Gate (d): the ``'spmm'``,
+   ``'sort'`` and ``'ellpack'`` MoE layers on the model's first MoE layer
+   in bfloat16, on 8 x 64 tokens (capacity 60) and on the decode's 8 x 1
+   (capacity 1, most pairs dropped), the routed experts' sum within
+   LM_TOL_D·max|y| of ``'sort'``'s; ``'spmm'`` with one kept pair dropped
+   must read above it. Then two waves through ``ServingEngine(model, params, ServeConfig(max_batch=8,
+   max_new_tokens=32, s_max=2112))``, greedy, with the config's
+   ``dispatch="sort"``: eight prompts of 64-512 tokens and four of
+   1,025-2,048 (the longest 2,048, so the prefill takes
+   ``_sdpa_chunked`` in 512-token blocks), lengths and tokens drawn from
+   ``--seed``; each wave's prefill ms, decode ms a step, tokens/s, peak
+   memory and ``stats()``, every output in range and stopped only at EOS
+   or the token limit. The first wave again with ``'sort'`` (the share of
+   greedy tokens equal to its first run), then with ``dispatch="spmm"``, its
+   counters zeroed just before and read just after: K9's bfloat16 entry
+   launched exactly twice a MoE layer a forward (its grids counted), and
+   the share of greedy tokens equal to ``'sort'``'s. Gate (c): K9's
+   bfloat16 entry against its plain twin at both waves' prefill and
+   decode dispatch and combine shapes (dispatch bit for bit, combine
+   within one bfloat16 rounding of the float32 sum plus twice its
+   summation-order error), timed beside the twin, ``torch.sparse.mm`` of
+   the CSR operand and its bytes bound (6 bytes a lane of planes, 2 a
+   value of X read and C written).
+7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries, K9 with
+   its bfloat16 shapes), the card's name and power limit, and as the last
+   line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -1776,7 +1815,9 @@ def check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed: int) -> list:
         nm[-1].update(nm_normal_error(what, xx.shape, wn, seed))
     torch.cuda.empty_cache()
     return [kernel_row("ell_spmm", "src/repro_torch/csrc/ell_spmm.cu",
-                       "src/repro/kernels/ell_spmm.py:33", ell),
+                       "src/repro/kernels/ell_spmm.py:33", ell,
+                       entries={"float32": "ell_spmm_f32",
+                                "bfloat16": "ell_spmm_bf16"}),
             kernel_row("nm_spmm", "src/repro_torch/csrc/nm_spmm.cu",
                        "src/repro/kernels/nm_spmm.py:41", nm)]
 
@@ -2657,6 +2698,496 @@ def dist_phase(A, c_ref, nnz_c: int, seed: int):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6e: token serving on the LM stack at deepseek-v2-lite's full size
+# ---------------------------------------------------------------------------
+
+LM_SERVE = dict(max_batch=8, max_new_tokens=32, s_max=2112)
+LM_WAVES = ((8, 64, 512), (4, 1025, 2048))   # prompts, shortest, longest
+LM_GATE_A = (96, 48)          # gate (a): prompt tokens, prefill on the first
+LM_GATE_B = (2, 64)           # gate (b): prompts x tokens on the 2-layer cut
+LM_GATE_D = ((8, 64), (8, 1))  # gate (d): tokens through one MoE layer
+LM_PLANTS_A = ("cache slot early", "rope pos-1")   # gate (a)'s planted faults
+LM_TOL_A = 5e-2               # gate (a): |decode - full| <= tol·max|full|
+LM_TOL_B = 1e-3               # gate (b): |card - CPU| <= tol·max|CPU|
+LM_TOL_D = 2e-2               # gate (d): |other - sort| <= tol·max|sort|
+LM_NEAR_TIE = 1e-5            # gate (b): a top-k margin below this decides
+                              # nothing across devices
+
+
+def lm_config(dispatch: str = "sort", **over):
+    from repro_torch.configs import deepseek_v2_lite
+    base = deepseek_v2_lite.CONFIG
+    return dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dispatch=dispatch), **over)
+
+
+def lm_prompts(seed: int, vocab: int):
+    """The two waves' prompts: lengths and tokens drawn from ``seed``;
+    wave 2's longest is exactly its upper end, so its padded length is
+    that and ``_sdpa_chunked`` cuts it into 512-token blocks."""
+    rng = np.random.default_rng(seed + 26)
+    waves = []
+    for n, lo, hi in LM_WAVES:
+        lens = rng.integers(lo, hi + 1, n)
+        lens[int(np.argmax(lens))] = hi
+        waves.append([rng.integers(3, vocab, int(s)).astype(np.int32)
+                      for s in lens])
+    return waves
+
+
+def routing_recorder():
+    """Wrap ``models.ffn._topk_routing`` so every MoE layer's router logits
+    and expert ids are kept; returns (list of (logits, ids), restore)."""
+    from repro_torch.models import ffn
+    orig, seen = ffn._topk_routing, []
+
+    def rec(logits, k):
+        w, ids = orig(logits, k)
+        seen.append((logits, ids))
+        return w, ids
+    ffn._topk_routing = rec
+    return seen, (lambda: setattr(ffn, "_topk_routing", orig))
+
+
+def lm_gate_b(seed: int) -> dict:
+    """Gate (b): the model cut to its first 2 layers (layer 0 dense, layer 1
+    MoE with 'sort') at full width in float32, TF32 off, weights drawn on
+    the card and copied to the CPU; two prompts of 64 tokens. The logits
+    within LM_TOL_B·max|logits|, and the expert ids equal but where the
+    CPU's own margin between its k-th and (k+1)-th routing probability is
+    below LM_NEAR_TIE (no device decides such a tie; counted, printed)."""
+    import torch
+    from repro_torch.models import build_model, transformer
+    from repro_torch.models.params import tree_map
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = lm_config(n_layers=2, param_dtype="float32",
+                    compute_dtype="float32")
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(seed + 2))
+    b, s = LM_GATE_B
+    toks = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        3, cfg.vocab, (b, s)).astype(np.int32))
+    out = {}
+    for where in ("card", "cpu"):
+        p = params if where == "card" else tree_map(lambda a: a.cpu(), params)
+        seen, restore = routing_recorder()
+        t0 = time.perf_counter()
+        try:
+            with torch.inference_mode():
+                logits = transformer.decoder_forward(
+                    p, toks.to(dev) if where == "card" else toks, cfg)[0]
+                logits = logits.float().cpu()
+        finally:
+            restore()
+        out[where] = (logits, [(r.float().cpu(), i.cpu()) for r, i in seen],
+                      time.perf_counter() - t0)
+        del p, seen
+    del params
+    torch.cuda.empty_cache()
+    (lc, rc, t_card), (lh, rh, t_cpu) = out["card"], out["cpu"]
+    require(lc.shape == (b, s, cfg.vocab) and bool(torch.isfinite(lc).all()),
+            "gate (b): card logits misshapen or not finite")
+    require(len(rc) == len(rh) == 1, f"gate (b): the MoE layer routed "
+            f"{len(rc)}/{len(rh)} times, not once")
+    err = float((lc - lh).abs().max())
+    tol = LM_TOL_B * float(lh.abs().max())
+    k = cfg.moe.top_k
+    probs = torch.softmax(rh[0][0], -1).sort(-1, descending=True).values
+    margin = (probs[..., k - 1] - probs[..., k]).reshape(-1)
+    differ = (rc[0][1] != rh[0][1]).any(-1).reshape(-1)
+    res = dict(logits_err=err, tol=tol, max_abs_logit=float(lh.abs().max()),
+               tokens=b * s, routing_differs=int(differ.sum()),
+               min_topk_margin=float(margin.min()), card_s=t_card,
+               cpu_s=t_cpu)
+    print(f"[lm] gate (b) 2-layer cut, float32, card vs CPU: "
+          f"{json.dumps(res)}", flush=True)
+    require(err <= tol, f"gate (b): logits off by {err} > {tol}")
+    far = margin[differ & (margin >= LM_NEAR_TIE)]
+    require(far.numel() == 0, f"gate (b): expert ids differ on {far.numel()}"
+            " tokens whose CPU top-k margin is no tie")
+    return res
+
+
+def plant_a(fault: str):
+    """Plant one decode fault for gate (a) to read it; returns restore.
+    'cache slot early': after each MLA decode step its latent and k_rope
+    move one slot early and its own slot is zeroed, so later steps read
+    token t at slot t-1. 'rope pos-1': the decode step's q and k RoPE
+    angles are those of the position before it."""
+    from repro_torch.models import attention as attn
+    if fault == "cache slot early":
+        orig = attn.mla_decode
+
+        def bad(p, x, cfg, dtype, cache_latent, cache_krope, pos):
+            out = orig(p, x, cfg, dtype, cache_latent, cache_krope, pos)
+            for c in (cache_latent, cache_krope):
+                c[:, pos - 1] = c[:, pos]
+                c[:, pos] = 0
+            return out
+        attn.mla_decode = bad
+        return lambda: setattr(attn, "mla_decode", orig)
+    assert fault == "rope pos-1", fault
+    orig = attn._pos_tensor
+    attn._pos_tensor = lambda pos, device: orig(pos - 1, device)
+    return lambda: setattr(attn, "_pos_tensor", orig)
+
+
+def lm_gate_a(model, params) -> dict:
+    """Gate (a): prefill on the first half of one prompt, then decode the
+    rest a token at a time; each step's logits against the full forward's
+    at its position, within LM_TOL_A·max|full| there. Run with capacity
+    factor E/k, under which no MoE call drops a pair (the full forward's
+    capacity is then its token count), so the check isolates the caches.
+    Each planted fault of LM_PLANTS_A (``plant_a``) must read above the
+    limit, so the limit is shown to fail a wrong cache."""
+    import torch
+    from repro_torch.models import build_model, transformer
+    cfg = model.cfg
+    m = cfg.moe
+    cfg_a = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    ma = build_model(cfg_a)
+    dev = torch.device("cuda")
+    s, s0 = LM_GATE_A
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        3, cfg.vocab, (1, s)).astype(np.int32)).to(dev)
+
+    def rel(logits, t):
+        return float((logits[0].float() - full[t]).abs().max()) \
+            / float(full[t].abs().max())
+
+    def decode_errs():
+        logits, cache = ma.prefill(params, {"tokens": toks[:, :s0]}, s)
+        errs = [rel(logits, s0 - 1)]
+        for t in range(s0, s):
+            logits, cache = ma.decode_step(params, cache, toks[:, t:t + 1])
+            errs.append(rel(logits, t))
+        return errs
+
+    with torch.inference_mode():
+        full = transformer.decoder_forward(params, toks, cfg_a)[0][0].float()
+        errs = decode_errs()
+        planted = {}
+        for fault in LM_PLANTS_A:
+            restore = plant_a(fault)
+            try:
+                planted[fault] = max(decode_errs())
+            finally:
+                restore()
+    del full
+    res = dict(positions=len(errs), max_rel_err=max(errs),
+               mean_rel_err=sum(errs) / len(errs), tol=LM_TOL_A,
+               planted_max_rel_err=planted)
+    print(f"[lm] gate (a) prefill {s0} + decode {s - s0} vs full forward of "
+          f"{s}, bf16: {json.dumps(res)}", flush=True)
+    require(max(errs) <= LM_TOL_A, f"gate (a): decode off the full forward "
+            f"by {max(errs)} of max|logits| > {LM_TOL_A}")
+    for fault, err in planted.items():
+        require(err > LM_TOL_A, f"gate (a): the planted fault '{fault}' "
+                f"reads {err}, within the limit {LM_TOL_A}")
+    return res
+
+
+def k9_bf16_shape(what: str, cfg, t: int, g) -> dict:
+    """Gate (c) at one MoE call's shapes on ``t`` tokens: K9's bfloat16
+    entry against its plain twin on the routing planes of random logits of
+    that shape and random bfloat16 X; dispatch bit for bit, combine within
+    one bfloat16 rounding (2⁻⁸·|y|) of the float32 sum plus twice its
+    summation-order error. Times the kernel, the twin and
+    ``torch.sparse.mm`` of A as a CSR tensor (None where torch has no
+    bfloat16 CSR product on the card); bytes bound the kernel."""
+    import torch
+    from repro_torch.kernels import ell_spmm as k9
+    from repro_torch.models import ffn
+    dev = torch.device("cuda")
+    e, d = cfg.moe.n_experts, cfg.d_model
+    w, _, _, kept, slot = ffn._spmm_route(
+        torch.randn((1, t, e), generator=g, device=dev), cfg)
+    n_slots = e * ffn.moe_capacity(t, cfg)
+    out = []
+    for part, a, n_rows, rows_in in (
+            ("dispatch", ffn.dispatch_planes(kept[0], slot[0], n_slots,
+                                             torch.bfloat16), n_slots, t),
+            ("combine", ffn.combine_planes(kept[0], slot[0], w[0], n_slots,
+                                           torch.bfloat16), t, n_slots)):
+        x = torch.randn((rows_in, d), generator=g, device=dev) \
+            .to(torch.bfloat16)
+        val, idx = a.val, a.idx
+        got = k9.ell_spmm(val, idx, x, n_rows)
+        want = k9.ell_spmm_plain(val, idx, x, n_rows)
+        f32 = k9.ell_spmm_plain(val.float(), idx, x.float(), n_rows)
+        valid = (idx >= 0) & (idx < n_rows)
+        terms = torch.bincount(idx[valid].long(), minlength=n_rows)
+        mag = k9.ell_spmm_plain(val.float().abs(), idx, x.float().abs(),
+                                n_rows)
+        tol = 2.0 ** -8 * f32.abs() \
+            + 2 * (terms - 1).clamp(min=0)[:, None] * 2.0 ** -24 * mag
+        err = float((got.float() - want.float()).abs().max())
+        shape = (f"{what} {part}: ({a.val.shape[0]},{a.val.shape[1]}) x "
+                 f"({rows_in},{d}) -> ({n_rows},{d}) bf16, "
+                 f"{int(valid.sum())} valid lanes")
+        if part == "dispatch":
+            same(f"ell_spmm bf16 {shape}", got, want)
+        require(bool(((got.float() - f32).abs() <= tol).all()),
+                f"ell_spmm bf16 {shape}: off the float32 sum by more than "
+                "one bfloat16 rounding")
+        n_used = int(valid.any(0).sum())
+        t_b, by = bound(6 * val.numel() + 2 * n_used * d + 2 * n_rows * d,
+                        2 * int(valid.sum()) * d)
+        a_csr = sparse_rows(val, idx, n_rows)
+        try:
+            torch.sparse.mm(a_csr, x)
+            lib = cuda_ms(lambda: torch.sparse.mm(a_csr, x), 3)
+        except RuntimeError as exc:
+            print(f"[lm] torch.sparse.mm has no bfloat16 CSR product here: "
+                  f"{str(exc).splitlines()[0]}", flush=True)
+            lib = None
+        r = dict(shape=shape, dtype="bfloat16", max_abs_err=err,
+                 ms=cuda_ms(lambda: k9.ell_spmm(val, idx, x, n_rows), 5),
+                 plain_ms=cuda_ms(lambda: k9.ell_spmm_plain(val, idx, x,
+                                                            n_rows), 3),
+                 library_ms=lib, bound_ms=t_b, bound_by=by,
+                 grids=k9.grids(*val.shape, n_rows, d))
+        print(f"[kernel] ell_spmm bf16 {shape}: {json.dumps(r)}", flush=True)
+        out.append(r)
+        del a_csr, got, want, f32, mag, x
+    return out
+
+
+def plant_d():
+    """Plant one dispatch fault for gate (d): the 'spmm' route drops its
+    first kept (token, expert) pair from its capacity slot; returns
+    restore."""
+    from repro_torch.models import ffn
+    orig = ffn._spmm_route
+
+    def bad(logits, cfg):
+        w, ids, onehot, kept, slot = orig(logits, cfg)
+        kept = kept.clone()
+        kept.view(-1)[int(kept.reshape(-1).nonzero()[0])] = False
+        return w, ids, onehot, kept, slot
+    ffn._spmm_route = bad
+    return lambda: setattr(ffn, "_spmm_route", orig)
+
+
+def lm_gate_d(params, seed: int) -> dict:
+    """Gate (d): the 'spmm', 'sort' and 'ellpack' MoE layers on the model's
+    first MoE layer in bfloat16, at each token shape of LM_GATE_D (the
+    prefill's 8 x 64, capacity 60, and the decode's 8 x 1, capacity 1,
+    where most pairs drop and every dispatch must drop the same ones),
+    within LM_TOL_D·max|y| of 'sort' (each rounds its expert and combine
+    products to bfloat16 at other points). y is the routed experts' sum
+    alone: the shared experts are one code path in all three, and at the
+    init's scale (fan-in over the stacked expert dims) they outweigh the
+    routed sum by the printed ``shared_over_routed``, which would hide a
+    dispatch fault. 'spmm' with
+    one capacity slot dropped (``plant_d``) must read above the limit at
+    each shape."""
+    import torch
+    from repro_torch.models import ffn
+    from repro_torch.models.params import tree_map
+    dev = torch.device("cuda")
+    p = tree_map(lambda a: a[0], params["segments"][1])["u0"]["ffn"]
+    shared = p["shared"]
+    p = {k: v for k, v in p.items() if k != "shared"}
+
+    def routed(dispatch):
+        c = lm_config(dispatch)
+        return dataclasses.replace(c, moe=dataclasses.replace(c.moe,
+                                                              n_shared=0))
+    cfg = routed("sort")
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    out = {}
+    for b, t in LM_GATE_D:
+        x = torch.randn((b, t, cfg.d_model), generator=g, device=dev) \
+            .to(torch.bfloat16)
+        ys = {}
+        with torch.inference_mode():
+            for dispatch in ("sort", "spmm", "ellpack"):
+                ys[dispatch] = ffn.moe_apply(p, x, routed(dispatch),
+                                             torch.bfloat16)[0].float()
+            restore = plant_d()
+            try:
+                ys["spmm, a slot dropped"] = ffn.moe_apply(
+                    p, x, routed("spmm"), torch.bfloat16)[0].float()
+            finally:
+                restore()
+        scale = float(ys["sort"].abs().max())
+        errs = {k: float((y - ys["sort"]).abs().max()) / scale
+                for k, y in ys.items() if k != "sort"}
+        errs["capacity"] = ffn.moe_capacity(b * t, cfg)
+        with torch.inference_mode():
+            errs["shared_over_routed"] = float(ffn.swiglu_apply(
+                shared, x, torch.bfloat16).float().abs().max()) / scale
+        out[f"{b}x{t}"] = errs
+    print(f"[lm] gate (d) dispatches, bf16, max|y - y_sort| / max|y_sort| "
+          f"(tol {LM_TOL_D}): {json.dumps(out)}", flush=True)
+    for shape, errs in out.items():
+        for k in ("spmm", "ellpack"):
+            require(errs[k] <= LM_TOL_D,
+                    f"gate (d) {shape}: {k} off 'sort' by {errs[k]}")
+        require(errs["spmm, a slot dropped"] > LM_TOL_D,
+                f"gate (d) {shape}: a dropped slot reads "
+                f"{errs['spmm, a slot dropped']}, within {LM_TOL_D}")
+    return out
+
+
+def serve_wave(model, params, prompts, name: str) -> dict:
+    """One wave through ``ServingEngine.generate_batch`` (greedy,
+    ``LM_SERVE``), the launch counters zeroed just before and read just
+    after: its outputs, the engine's stats, ms and peak."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serve import ServeConfig, ServingEngine
+    eng = ServingEngine(model, params, ServeConfig(**LM_SERVE))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.generate_batch(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    st = eng.stats()
+    vocab = model.cfg.vocab
+    for o in outs:
+        require(1 <= len(o) <= LM_SERVE["max_new_tokens"]
+                and all(0 <= t < vocab for t in o),
+                f"{name}: a request's tokens are out of range or count")
+        require(len(o) == LM_SERVE["max_new_tokens"]
+                or o[-1] == ServeConfig().eos_id,
+                f"{name}: a request stopped early without EOS")
+    require(st["requests"] == len(prompts)
+            and st["tokens"] == sum(len(o) for o in outs),
+            f"{name}: stats {st}")
+    steps = st["decode_steps"]
+    res = dict(requests=len(prompts), prompt_lens=[len(p) for p in prompts],
+               padded_len=max(len(p) for p in prompts),
+               prefill_ms=st["prefill_s"] * 1e3,
+               decode_ms_per_step=st["decode_s"] * 1e3 / max(1, steps),
+               decode_steps=steps, tokens=st["tokens"],
+               tokens_per_s=st["tokens"] / (st["prefill_s"] + st["decode_s"]),
+               decode_tokens_per_s=st["tokens"] / max(st["decode_s"], 1e-9),
+               wall_s=wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={k: v for k, v in counts.items() if v},
+               stats={k: v for k, v in st.items()
+                      if not k.startswith("spgemm")
+                      and k != "structure_cache"})
+    print(f"[lm] {name}: {json.dumps(res)}", flush=True)
+    return dict(res, outs=outs, counts=counts)
+
+
+def lm_prefill_gap(model, model_spmm, params, prompts) -> dict:
+    """Wave 1's prefill (the engine's left-padded batch) through 'sort' and
+    'spmm': the last position's logits apart, as a share of max|logits|;
+    the requests whose greedy first token differs; and 'sort''s top-1 over
+    top-2 logit margin, the same share, there and its median over the wave.
+    Greedy tokens part where the gap exceeds the margin."""
+    import torch
+    from repro_torch.serve import ServeConfig
+    plen = max(len(q) for q in prompts)
+    toks = np.full((len(prompts), plen), ServeConfig().eos_id, np.int32)
+    for i, q in enumerate(prompts):
+        toks[i, plen - len(q):] = q
+    batch = {"tokens": torch.from_numpy(toks).to("cuda")}
+    with torch.inference_mode():
+        ls = model.prefill(params, batch, LM_SERVE["s_max"])[0].float()
+        lp = model_spmm.prefill(params, batch, LM_SERVE["s_max"])[0].float()
+    scale = float(ls.abs().max())
+    top2 = ls.topk(2, -1).values
+    margin = (top2[:, 0] - top2[:, 1]) / scale
+    differ = ls.argmax(-1) != lp.argmax(-1)
+    res = dict(rel_logit_gap=float((ls - lp).abs().max()) / scale,
+               first_tokens_differ=int(differ.sum()),
+               sort_margin_where_differ=margin[differ].tolist(),
+               sort_margin_median=float(margin.median()))
+    print(f"[lm] wave 1 prefill, 'spmm' against 'sort': {json.dumps(res)}",
+          flush=True)
+    return res
+
+
+def lm_phase(seed: int):
+    """deepseek-v2-lite-16b at published widths and all 27 layers, bfloat16
+    on the card (see the module docstring, phase 6e). Returns (K9's
+    bfloat16 shape entries, {path: counts}, summary)."""
+    import torch
+    from repro_torch.models import build_model
+    dev = torch.device("cuda")
+    summary = {"gate_b": lm_gate_b(seed)}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = lm_config()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    summary["init_s"] = time.perf_counter() - t0
+    summary["n_params"] = model.n_params()
+    summary["weights_gib"] = torch.cuda.memory_allocated() / 2**30
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+          f"{summary['n_params']} parameters drawn in bf16 in "
+          f"{summary['init_s']:.1f} s, {summary['weights_gib']:.2f} GiB "
+          "on the card", flush=True)
+    summary["gate_a"] = lm_gate_a(model, params)
+    summary["gate_d"] = lm_gate_d(params, seed)
+    waves = lm_prompts(seed, cfg.vocab)
+    summary["waves"], counts = {}, {}
+    for i, prompts in enumerate(waves):
+        r = serve_wave(model, params, prompts, f"wave {i + 1} sort")
+        summary["waves"][f"wave{i + 1}_sort"] = {
+            k: v for k, v in r.items() if k not in ("outs", "counts")}
+        counts[f"lm_wave{i + 1}_sort"] = r["counts"]
+        if i == 0:
+            sort_outs = r["outs"]
+    # 'sort' against itself: the yardstick of 'spmm''s agreement below
+    r = serve_wave(model, params, waves[0], "wave 1 sort again")
+    summary["waves"]["wave1_sort_again"] = {
+        k: v for k, v in r.items() if k not in ("outs", "counts")}
+    same_sort = sum(x == y for o, q in zip(sort_outs, r["outs"])
+                    for x, y in zip(o, q))
+    summary["wave1_sort_again_tokens_equal"] = [
+        same_sort, sum(len(o) for o in sort_outs)]
+    model_spmm = build_model(lm_config("spmm"))
+    r = serve_wave(model_spmm, params, waves[0], "wave 1 spmm")
+    summary["waves"]["wave1_spmm"] = {
+        k: v for k, v in r.items() if k not in ("outs", "counts")}
+    counts["lm_wave1_spmm"] = r["counts"]
+    # K9 twice a MoE layer a step: the prefill's T = B·S tokens, then T = B
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    b, plen = len(waves[0]), max(len(p) for p in waves[0])
+    steps = r["decode_steps"]
+    want = n_moe * (k9_grids(cfg, b * plen) + steps * k9_grids(cfg, b))
+    require(r["counts"]["ell_spmm"] == want,
+            f"wave 1 spmm launched K9's grids {r['counts']['ell_spmm']} "
+            f"times, not {want} ({n_moe} MoE layers, {steps} decode steps)")
+    summary["wave1_prefill_spmm_vs_sort"] = lm_prefill_gap(
+        model, model_spmm, params, waves[0])
+    same_tok = sum(x == y for o, q in zip(sort_outs, r["outs"])
+                   for x, y in zip(o, q))
+    summary["wave1_spmm_vs_sort_tokens_equal"] = [
+        same_tok, sum(len(o) for o in sort_outs)]
+    print(f"[lm] wave 1: 'spmm' launched K9 {r['counts']['ell_spmm']} grids "
+          f"({n_moe} MoE layers x (prefill + {steps} steps) x 2 calls); its "
+          f"greedy tokens equal 'sort''s at {same_tok} of "
+          f"{sum(len(o) for o in sort_outs)}; 'sort' again equals its "
+          f"first run at {same_sort}", flush=True)
+    # gate (c): K9 bf16 at both waves' prefill and decode shapes
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    shapes = []
+    for i, prompts in enumerate(waves):
+        b, plen = len(prompts), max(len(p) for p in prompts)
+        shapes += k9_bf16_shape(f"wave {i + 1} prefill T={b * plen}", cfg,
+                                b * plen, g)
+        shapes += k9_bf16_shape(f"wave {i + 1} decode T={b}", cfg, b, g)
+    del params
+    torch.cuda.empty_cache()
+    return shapes, counts, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2888,14 +3419,24 @@ def main(argv=None) -> int:
     # -- phase 6d: the distributed SpGEMM on four shards of the card ---------
     dist_counts, _ = dist_phase(A, c_ref, nnz_c, args.seed)
     counts.update(dist_counts)
-    del c_ref
+    del c_ref, A, A_csc, A_cut, A64, pattern
+
+    # -- phase 6e: token serving on the LM stack ------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm] resident before the phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    lm_shapes, lm_counts, lm_summary = lm_phase(args.seed)
+    counts.update(lm_counts)
+    next(r for r in rows if r["name"] == "ell_spmm")["shapes"] += lm_shapes
+    print(json.dumps({"lm": lm_summary}), flush=True)
 
     # -- phase 7: the kernels line and the result ------------------------------
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "grids", "shapes", "tree_ms")
+            "grids", "shapes", "tree_ms", "entries")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}), flush=True)
     print(gpu_line(), flush=True)

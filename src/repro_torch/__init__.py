@@ -30,12 +30,20 @@ the distributed SpGEMM on an in-process device mesh:
     c = repro_torch.spgemm(a, b, mesh=mesh, axis="x")      # 'ring' | 'cstat'
     dp = repro_torch.make_dist_plan(a, b, n_dev=4)         #   | 'summa'
 
-and the serving engine's SpGEMM lane:
+the serving engine's SpGEMM lane:
 
     eng = repro_torch.ServingEngine(None, None, repro_torch.ServeConfig())
     rid = eng.submit_spgemm(a, b)                      # queued request
     c = eng.flush_spgemm()[rid]                        # waves of slots
     eng.stats()                                        # occupancy, latency
+
+and the LM stack's token serving (the decoder families built on attention;
+``python -m repro_torch.launch.serve --arch <id>`` runs it):
+
+    model = repro_torch.build_model(repro_torch.configs.get_config(arch))
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    eng = repro_torch.ServingEngine(model, params, repro_torch.ServeConfig())
+    outs = eng.generate_batch(prompts)                 # prefill + decode
 
 Constructors default to ``default_device()`` (CUDA, or an error); pass
 ``device="cpu"`` to run the kernels' plain torch versions on the CPU. The
@@ -43,7 +51,8 @@ CUDA kernels build from ``src/repro_torch/csrc`` on first use.
 ``repro_torch.obs.enable()`` turns on the spans and counters the entry points
 report through (``obs.export_chrome(path)`` writes a Chrome trace).
 """
-from . import configs, core, kernels, models, obs, parallel, plan, serve
+from . import configs, core, kernels, launch, models, obs, parallel, plan, \
+    serve
 from .core import hwmodel, hybrid, sccp
 from .core.accumulate import AccumulatorOverflow, check_no_overflow
 from .core.api import spgemm
@@ -56,8 +65,8 @@ from .core.nm import NmWeights, detect_nm, nm_from_dense
 from .core.sccp import count_products
 from .core.spgemm import spgemm_dense
 from .kernels.nm_spmm import nm_spmm
-from .models import (SparseLinear, SparseMLP, magnitude_prune,
-                     magnitude_prune_nm, moe_apply)
+from .models import (Model, SparseLinear, SparseMLP, build_model,
+                     magnitude_prune, magnitude_prune_nm, moe_apply)
 from .plan import (DistPlan, Plan, SpgemmStructure, StructureCache,
                    fingerprint, make_dist_plan, make_plan, make_structure,
                    make_structure_batched, plan_spmm_format)
@@ -69,9 +78,9 @@ _MODULES = ("configs", "core", "hwmodel", "hybrid", "kernels", "models",
 
 __all__ = [
     *_MODULES, "AccumulatorOverflow", "Coo", "DistPlan", "EllCols",
-    "EllRows", "NmWeights", "Plan", "ServeConfig", "ServingEngine", "SparseGemmBatcher",
+    "EllRows", "Model", "NmWeights", "Plan", "ServeConfig", "ServingEngine", "SparseGemmBatcher",
     "SparseLinear", "SparseMLP", "SpgemmStructure", "StructureCache",
-    "check_no_overflow", "coo_from_dense", "count_products",
+    "build_model", "check_no_overflow", "coo_from_dense", "launch", "count_products",
     "default_device", "detect_nm", "ell_cols_from_dense",
     "ell_rows_from_dense", "fingerprint", "from_numpy", "magnitude_prune",
     "magnitude_prune_nm", "make_dist_plan", "make_plan", "make_structure",

@@ -1,0 +1,19 @@
+"""mistral-large-123b [dense] — hf:mistralai/Mistral-Large-Instruct-2407.
+
+88L d_model=12288 96H (GQA kv=8) d_ff=28672 vocab=32768, head_dim=128.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-large-123b",
+    family="dense",
+    n_layers=88,
+    d_model=12288,
+    n_heads=96,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=28672,
+    vocab=32768,
+    rope_theta=1e6,
+    remat="full",
+)

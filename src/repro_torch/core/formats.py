@@ -291,19 +291,25 @@ def nm_from_numpy(val, off, *, n: int, m: int, d_in: int, device=None):
 
 
 def params_from_numpy(params, *, device=None, dtype=None):
-    """A nested dict of arrays (the reference's parameter pytree as numpy,
-    e.g. the MoE layer's ``router``, ``w_gate``, ``w_up``, ``w_down`` and
-    nested ``shared``, in ``models/ffn.py``'s layouts) as the same dict of
-    tensors on ``device``, cast to ``dtype`` when one is given."""
+    """The reference's parameter tree (nested dicts and lists of arrays, as
+    numpy, or JAX arrays, e.g. ``repro.models.Model.init``'s) as the same
+    tree of tensors on ``device``, cast to ``dtype`` when one is given.
+    bfloat16 arrays (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    does not take) pass through float32, which holds every bfloat16 value,
+    and stay bfloat16 unless ``dtype`` says otherwise."""
     dev = resolve_device(device)
-    out = {}
-    for name, v in params.items():
-        if isinstance(v, dict):
-            out[name] = params_from_numpy(v, device=dev, dtype=dtype)
-        else:
-            t = torch.from_numpy(np.array(v)).to(dev)
-            out[name] = t if dtype is None else t.to(dtype)
-    return out
+    if isinstance(params, dict):
+        return {k: params_from_numpy(v, device=dev, dtype=dtype)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_from_numpy(v, device=dev, dtype=dtype)
+                            for v in params)
+    a = np.array(params)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return (t if dtype is None else t.to(dtype)).to(dev)
 
 
 def to_numpy(coo: Coo):

@@ -29,9 +29,8 @@ mirroring the single-device subset of ``src/repro/core/spgemm.py``.
 
 The entry points report through ``repro_torch.obs`` (spans
 ``spgemm.multiply``, ``spgemm.accumulate``, ``spgemm.numeric``; the
-``spgemm.poison`` event), which costs one flag test while disabled. Options
-that later slices port raise ``NotImplementedError`` naming their ROADMAP
-item. The sharded paths are ``core.distributed``.
+``spgemm.poison`` event), which costs one flag test while disabled. The
+sharded paths are ``core.distributed``.
 """
 from __future__ import annotations
 
@@ -52,16 +51,6 @@ from .streaming import (_slab_groups, accumulate_products_stream,
 
 KEY_SPACE = 2 ** 31 - 1     # packed int32 keys span n_rows·n_cols below this
 BACKENDS = ("sort", "tiled", "bucket", "hash", "stream", "search")
-_LATER = {
-    "lm": "ROADMAP queue 1 item 10 (LM stack)",
-}
-
-
-def _not_ported(what: str, key: str):
-    raise NotImplementedError(f"{what} is not ported to repro_torch yet: "
-                              f"{_LATER[key]}")
-
-
 def _plan_key(plan, n_rows: int, n_cols: int) -> str:
     """Metrics-ledger key for est-vs-measured joins: the plan fingerprint
     when there is one, else a shape tag."""

@@ -11,12 +11,20 @@ sorted stably by their row (the LSD radix sort of ``csrc/radix_sort.cuh``
 over the digits ``n_rows`` needs, ``transpose_passes``), each row's first
 sorted lane found, and one warp a row of C sums its sources in lane order
 in registers and writes the row once: no memset of C, no atomics on it.
-It is bound by bytes: the planes (8 a lane), X read at the columns with a
-valid lane and C written once. Each term is one rounded product and one rounded
-add in lane order, the order of the plain twin's ``index_add_`` on the CPU,
-so results are deterministic; on the card the twin sums with atomics in
-another order, so float operands agree within float32 summation order
-(integer-valued ones bit for bit).
+It is bound by bytes: the planes (4 bytes an index and the value's
+bytes a lane), X read at the columns with a valid lane and C written once.
+Each term is one rounded product and one rounded add in lane order, the
+order of the plain twin's ``index_add_`` on the CPU, so results are
+deterministic; on the card the twin sums with atomics in another order, so
+float operands agree within float32 summation order (integer-valued ones
+bit for bit).
+
+Two dtypes: float32 (``ell_spmm_f32``) and bfloat16 (``ell_spmm_bf16``:
+``val`` and ``x`` bfloat16, each row summed in float32 registers and
+rounded to bfloat16 once, to nearest even), the reference's float32
+accumulator with its output in ``x.dtype``. The plain twin sums in float32
+and casts to ``x.dtype`` too. Any other dtype pair raises ``TypeError`` on
+the card.
 
 ``ell_spmm`` launches the kernel for CUDA tensors and runs ``ell_spmm_plain``
 (the reference oracle ``kernels/ref.py:ell_spmm_ref``, i.e.
@@ -74,11 +82,16 @@ def scratch_ints(k: int, n: int, n_rows: int) -> int:
 def ell_spmm_plain(a_val: torch.Tensor, a_idx: torch.Tensor, x: torch.Tensor,
                    n_rows: int) -> torch.Tensor:
     """The kernel's function in torch ops: a segment sum of every lane's
-    ``val·X[c, :]`` by row index, in ``x.dtype``."""
+    ``val·X[c, :]`` by row index in float32 (float64 stays float64), cast to
+    ``x.dtype``."""
     from ..core.formats import EllRows
     from ..core.spgemm import spmm_ell_dense
-    return spmm_ell_dense(EllRows(val=a_val, idx=a_idx, n_rows=n_rows),
-                          x).to(x.dtype)
+    acc = torch.promote_types(torch.float32, x.dtype)
+    return spmm_ell_dense(EllRows(val=a_val.to(acc), idx=a_idx,
+                                  n_rows=n_rows), x.to(acc)).to(x.dtype)
+
+
+_ENTRIES = {torch.float32: "ell_spmm_f32", torch.bfloat16: "ell_spmm_bf16"}
 
 
 def ell_spmm(a_val: torch.Tensor, a_idx: torch.Tensor, x: torch.Tensor,
@@ -97,9 +110,10 @@ def ell_spmm(a_val: torch.Tensor, a_idx: torch.Tensor, x: torch.Tensor,
         return ell_spmm_plain(a_val, a_idx, x, n_rows)
     if dev.type != "cuda":
         raise ValueError(f"ell_spmm: no kernel for device {dev}")
-    if a_val.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError("ell_spmm kernel takes float32 values and x, got "
-                        f"{a_val.dtype}/{x.dtype}")
+    entry = _ENTRIES.get(x.dtype)
+    if entry is None or a_val.dtype != x.dtype:
+        raise TypeError("ell_spmm kernel takes float32 or bfloat16 values "
+                        f"and x of one dtype, got {a_val.dtype}/{x.dtype}")
     if a_idx.dtype != torch.int32:
         raise TypeError(f"ell_spmm kernel takes int32 indices, got "
                         f"{a_idx.dtype}")
@@ -108,15 +122,15 @@ def ell_spmm(a_val: torch.Tensor, a_idx: torch.Tensor, x: torch.Tensor,
     if k * n >= 1 << 31:
         raise ValueError(f"ell_spmm kernel: {k}x{n} lanes exceed int32 ids")
     d = x.shape[1]
-    out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    out = torch.empty((n_rows, d), dtype=x.dtype, device=dev)
     scratch = torch.empty(scratch_ints(k, n, n_rows), dtype=torch.int32,
                           device=dev)
-    lib, fns = _build.bind(_LIB, {"ell_spmm_f32": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 5
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])})
+    sig = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 5
+           + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    lib, fns = _build.bind(_LIB, {name: sig for name in _ENTRIES.values()})
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = fns["ell_spmm_f32"](
+        err = fns[entry](
             a_val.data_ptr(), a_idx.data_ptr(), x.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), scratch.numel(), k, n, d, n_rows,
             ctypes.byref(launched),

@@ -1,16 +1,24 @@
-"""Model layers of the port, so far the SpMM slice's:
+"""Model layers of the port, mirroring ``repro.models``:
 
-  sparse — ``SparseLinear`` (pruned weights as N:M planes or ELLPACK), the
-           prunes and the apply functions
-  ffn    — ``SparseMLP``, SwiGLU and the MoE layer with ``dispatch='spmm'``
+  params      — ``Spec`` trees, ``init_params``, ``abstract_params``
+  common      — norms, RoPE, embeddings, losses
+  attention   — GQA (full, windowed, chunked, cached decode, ring decode)
+                and MLA (full, absorbed decode)
+  ffn         — SwiGLU, GELU MLP, ``SparseMLP`` and the MoE layer with the
+                ``'ellpack'``, ``'sort'`` and ``'spmm'`` dispatches
+  transformer — segment plans, blocks, decoder forward / prefill / decode
+  api         — the ``Model`` facade and ``build_model``
+  sparse      — ``SparseLinear`` (pruned weights as N:M planes or ELLPACK)
 """
-from . import ffn, sparse
+from . import attention, common, ffn, params, sparse, transformer
+from .api import Model, build_model
 from .ffn import SparseMLP, moe_apply, swiglu_apply
 from .sparse import (SparseLinear, ell_from_pruned, magnitude_prune,
                      magnitude_prune_nm, nm_linear_apply,
                      sparse_linear_apply, sparsify_linear)
 
-__all__ = ["SparseLinear", "SparseMLP", "ell_from_pruned", "ffn",
-           "magnitude_prune", "magnitude_prune_nm", "moe_apply",
-           "nm_linear_apply", "sparse", "sparse_linear_apply",
-           "sparsify_linear", "swiglu_apply"]
+__all__ = ["Model", "SparseLinear", "SparseMLP", "attention", "build_model",
+           "common", "ell_from_pruned", "ffn", "magnitude_prune",
+           "magnitude_prune_nm", "moe_apply", "nm_linear_apply", "params",
+           "sparse", "sparse_linear_apply", "sparsify_linear",
+           "swiglu_apply", "transformer"]

@@ -1,0 +1,103 @@
+"""Model facade, mirroring ``src/repro/models/api.py``: one object per
+architecture with uniform step functions.
+
+  model.init(generator, device)             -> params (real tensors)
+  model.abstract_params()                   -> tensors on the meta device
+  model.loss(params, batch)                 -> scalar (forward only)
+  model.prefill(params, batch, s_max)       -> (last_logits, cache)
+  model.decode_step(params, cache, tokens)  -> (logits, cache)
+  model.input_specs(shape_case)             -> {name: (torch.Size, dtype)}
+  model.cache_zeros(batch, s_max)           -> decode cache
+
+``batch`` is a dict: always "tokens" (B,S); plus "patches" for the VLM
+stub. The audio family (whisper) waits for ROADMAP queue 1 item 12.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..configs.base import ModelConfig, ShapeCase
+from . import transformer
+from .params import abstract_params, count_params, init_params, torch_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def _decoder(self):
+        if self.cfg.family == "audio":
+            transformer.not_ported(f"{self.cfg.name} (family 'audio')",
+                                   "audio")
+
+    # -- parameters ---------------------------------------------------------
+    def specs(self):
+        self._decoder()
+        return transformer.decoder_specs(self.cfg)
+
+    def init(self, generator: Optional[torch.Generator] = None,
+             device=None) -> Any:
+        """Weights drawn from ``generator`` (a seeded ``torch.Generator`` on
+        ``device``) in ``param_dtype`` on ``device`` (default: the card)."""
+        return init_params(self.specs(), generator,
+                           torch_dtype(self.cfg.param_dtype), device)
+
+    def abstract_params(self):
+        return abstract_params(self.specs(), torch_dtype(self.cfg.param_dtype))
+
+    def n_params(self) -> int:
+        return count_params(self.specs())
+
+    # -- steps ---------------------------------------------------------------
+    def _prefix(self, batch):
+        return batch.get("patches") if self.cfg.family == "vlm" else None
+
+    def loss(self, params, batch) -> torch.Tensor:
+        self._decoder()
+        return transformer.decoder_loss(params, batch["tokens"], self.cfg,
+                                        prefix_embed=self._prefix(batch))
+
+    def prefill(self, params, batch, s_max: int):
+        self._decoder()
+        return transformer.decoder_prefill(params, batch["tokens"], self.cfg,
+                                           s_max,
+                                           prefix_embed=self._prefix(batch))
+
+    def decode_step(self, params, cache, tokens):
+        self._decoder()
+        return transformer.decoder_decode_step(params, cache, tokens,
+                                               self.cfg)
+
+    def cache_zeros(self, batch: int, s_max: int, device=None):
+        from ..core.formats import resolve_device
+        self._decoder()
+        return transformer.decoder_cache_zeros(self.cfg, batch, s_max,
+                                               resolve_device(device))
+
+    # -- shape stand-ins ------------------------------------------------------
+    def input_specs(self, case: ShapeCase) -> Dict[str, tuple]:
+        """(torch.Size, dtype) stand-ins for one shape cell. For decode
+        cells "tokens" is the one-step (B, 1) batch."""
+        cfg = self.cfg
+        b, s = case.global_batch, case.seq_len
+        if case.kind == "decode":
+            return {"tokens": (torch.Size((b, 1)), torch.int32)}
+        specs = {"tokens": (torch.Size((b, s)), torch.int32)}
+        dt = torch_dtype(cfg.compute_dtype)
+        if cfg.family == "audio":
+            specs["frames"] = (torch.Size((b, cfg.encoder_seq, cfg.d_model)),
+                               dt)
+        if cfg.family == "vlm" and cfg.n_vision_tokens:
+            specs["patches"] = (torch.Size((b, cfg.n_vision_tokens,
+                                            cfg.d_model)), dt)
+            # text shrinks so the total positions equal the cell's seq_len
+            specs["tokens"] = (torch.Size((b, s - cfg.n_vision_tokens)),
+                               torch.int32)
+        return specs
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

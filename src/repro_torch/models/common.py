@@ -1,0 +1,132 @@
+"""Shared layers: norms, RoPE, embeddings, losses, mirroring
+``src/repro/models/common.py``.
+
+The casts come in the reference's order, which is what keeps bfloat16
+results alongside its: ``rmsnorm`` reduces in float32 and multiplies in
+``x.dtype``, RoPE rotates in float32 and casts back, the losses work in
+float32. The reference's ``maybe_shard`` annotations do nothing without a
+mesh, and the port has none here.
+"""
+from __future__ import annotations
+
+import torch
+
+from .params import Spec
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Variance in float32, the scale multiply in ``x.dtype``."""
+    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * w.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * w.to(torch.float32) + b.to(torch.float32)).to(dt)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (...,) int -> cos/sin (..., head_dim/2), float32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); cos/sin: (B, S, D/2) or (S, D/2)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 2:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    else:
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dt)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# --- embeddings -------------------------------------------------------------
+
+def embed_specs(cfg) -> dict:
+    s = {"tok": Spec((cfg.vocab, cfg.d_model), ("vocab", "fsdp"),
+                     scale=cfg.d_model ** -0.5)}
+    if not cfg.tie_embeddings:
+        s["out"] = Spec((cfg.d_model, cfg.vocab), ("fsdp", "vocab"))
+    return s
+
+
+def embed_lookup(params: dict, tokens: torch.Tensor,
+                 compute_dtype) -> torch.Tensor:
+    return params["tok"].to(compute_dtype)[tokens.long()]
+
+
+def unembed(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    if "out" in params:
+        w = params["out"].to(compute_dtype)
+    else:
+        w = params["tok"].to(compute_dtype).T
+    return x @ w
+
+
+# --- losses -----------------------------------------------------------------
+
+def _lse_gold(logits: torch.Tensor, targets: torch.Tensor):
+    """log-sum-exp over the vocab and the target's logit (0 where the
+    target is outside it, as the reference's iota compare gives)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.sum(torch.where(iota == targets[..., None].long(), logits,
+                                 0.0), dim=-1)
+    return lse, gold
+
+
+def sharded_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
+                         tokens: torch.Tensor,
+                         z_loss: float = 1e-4) -> torch.Tensor:
+    """The LM loss from the final hidden ``x`` (B, S, d): targets rolled by
+    one, the final position masked out."""
+    b = x.shape[0]
+    targets = torch.cat([tokens[:, 1:], torch.full((b, 1), -1,
+                                                   dtype=tokens.dtype,
+                                                   device=tokens.device)],
+                        dim=1)
+    logits = (x @ w_out).to(torch.float32)             # (B, S, V)
+    lse, gold = _lse_gold(logits, targets)
+    valid = (targets >= 0).to(torch.float32)
+    cnt = torch.sum(valid)
+    loss = torch.sum((lse - gold) * valid) / cnt
+    if z_loss:
+        loss = loss + z_loss * torch.sum(torch.square(lse) * valid) / cnt
+    return loss
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    z_loss: float = 1e-4) -> torch.Tensor:
+    """Causal LM loss: logits (B, S, V) predict tokens shifted by one."""
+    logits = logits[:, :-1].to(torch.float32)
+    lse, gold = _lse_gold(logits, tokens[:, 1:])
+    loss = torch.mean(lse - gold)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss

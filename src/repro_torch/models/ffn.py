@@ -1,18 +1,25 @@
-"""FFN pieces of the SpMM slice: SwiGLU, the pruned ``SparseMLP``, and the
-MoE layer with the reference's ``dispatch='spmm'``, mirroring
+"""FFN variants: SwiGLU, GELU MLP, the pruned ``SparseMLP``, and the MoE
+layer with the reference's three dispatches, mirroring
 ``src/repro/models/ffn.py``.
 
 A top-k routing matrix **is** a row-wise ELLPACK matrix: every token row has
-exactly ``k`` slots. Dispatch (``Xᵉ = Rᵀ·X``) and combine (``Y = R·E(Xᵉ)``)
-run as two ELLPACK × dense SpMMs through ``kernels.ops.ell_spmm`` (K9) on
-the card, and through its plain twin ``spmm_ell_dense`` on the CPU; the
-expert and shared-expert products are plain batched matmuls, as the
-reference leaves them to XLA.
+exactly ``k`` slots. The dispatches (``cfg.moe.dispatch``):
 
-Without a mesh the reference takes one token group (``axis_size("batch")``
-is 1) and its ``maybe_shard`` does nothing; the port has no mesh yet, so it
-keeps one group. The ``'ellpack'`` and ``'sort'`` dispatches run no TPU
-kernel and come with the LM stack.
+  * ``'ellpack'`` — one-hot dispatch / combine einsums over a (T, E, C)
+    tensor (GShard-style, the baseline).
+  * ``'sort'``    — (token, slot) pairs sorted stably by expert id, ranked
+    within their expert's run, gathered into the capacity buffers and
+    summed back: no (T, E, C) tensor.
+  * ``'spmm'``    — dispatch (``Xᵉ = Rᵀ·X``) and combine (``Y = R·E(Xᵉ)``)
+    as two ELLPACK × dense SpMMs through ``kernels.ops.ell_spmm`` (K9) on
+    the card, and through its plain twin on the CPU.
+
+The expert and shared-expert products are plain batched matmuls, as the
+reference leaves them to XLA; ``'ellpack'`` and ``'sort'`` run no TPU
+kernel. Without a mesh the reference takes one token group
+(``axis_size("batch")`` is 1), its ``'sort'`` body has no expert offset and
+no ``psum``, and its ``maybe_shard`` does nothing; the port has no mesh
+here, so it keeps one group.
 
 Parameters are dicts of tensors in the reference's layouts
 (``core.formats.params_from_numpy`` carries the reference's over):
@@ -22,19 +29,69 @@ with shared experts, ``shared`` = {``w_gate``, ``w_up`` (d, n_shared·f),
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..core.formats import EllRows
 from ..obs import trace as _obs
+from .params import Spec
 from .sparse import SparseLinear
+
+
+# ---------------------------------------------------------------------------
+# Dense FFNs
+# ---------------------------------------------------------------------------
+
+def swiglu_specs(cfg, d_ff: Optional[int] = None) -> dict:
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    return {
+        "w_gate": Spec((d, f), ("fsdp", "ff")),
+        "w_up": Spec((d, f), ("fsdp", "ff")),
+        "w_down": Spec((f, d), ("ff", "fsdp")),
+    }
 
 
 def swiglu_apply(p, x: torch.Tensor, dtype) -> torch.Tensor:
     h = F.silu(x @ p["w_gate"].to(dtype)) * (x @ p["w_up"].to(dtype))
     return h @ p["w_down"].to(dtype)
+
+
+def gelu_mlp_specs(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_in": Spec((d, f), ("fsdp", "ff")),
+        "b_in": Spec((f,), ("ff",), init="zeros"),
+        "w_out": Spec((f, d), ("ff", "fsdp")),
+        "b_out": Spec((d,), (None,), init="zeros"),
+    }
+
+
+def gelu_mlp_apply(p, x: torch.Tensor, dtype) -> torch.Tensor:
+    """GELU in its tanh form, ``jax.nn.gelu``'s default."""
+    h = F.gelu(x @ p["w_in"].to(dtype) + p["b_in"].to(dtype),
+               approximate="tanh")
+    return h @ p["w_out"].to(dtype) + p["b_out"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg) -> dict:
+    m = cfg.moe
+    d, fe = cfg.d_model, m.d_ff_expert
+    s = {
+        "router": Spec((d, m.n_experts), (None, "expert")),
+        "w_gate": Spec((m.n_experts, d, fe), ("expert", None, "expert_ff")),
+        "w_up": Spec((m.n_experts, d, fe), ("expert", None, "expert_ff")),
+        "w_down": Spec((m.n_experts, fe, d), ("expert", "expert_ff", None)),
+    }
+    if m.n_shared:
+        s["shared"] = swiglu_specs(cfg, d_ff=m.n_shared * fe)
+    return s
 
 
 def _topk_routing(logits: torch.Tensor, k: int
@@ -49,6 +106,14 @@ def _topk_routing(logits: torch.Tensor, k: int
     w, ids = w[..., :k], ids[..., :k]
     w = w / w.sum(dim=-1, keepdim=True)
     return w, ids.to(torch.int32)
+
+
+def _aux_loss(logits: torch.Tensor, onehot: torch.Tensor, e: int):
+    """Switch load-balancing loss: mean routed share × mean probability an
+    expert, times E."""
+    me = onehot.sum(2).mean(dim=(0, 1))
+    pe = torch.softmax(logits.to(torch.float32), -1).mean(dim=(0, 1))
+    return e * torch.sum(me * pe)
 
 
 def _spmm_ell_auto(a: EllRows, x: torch.Tensor) -> torch.Tensor:
@@ -135,26 +200,103 @@ def _moe_spmm(p, x_grp: torch.Tensor, cfg, dtype):
             .reshape(e * cap, d)
         comb = combine_planes(kept[i], slot[i], w[i], e * cap, dtype)
         ys.append(_spmm_ell_auto(comb, ye))                 # (Tg, d)
-    y = torch.stack(ys)
-    me = onehot.sum(2).mean(dim=(0, 1))
-    pe = torch.softmax(logits.to(torch.float32), -1).mean(dim=(0, 1))
-    aux = e * torch.sum(me * pe)
-    return y, aux
+    return torch.stack(ys), _aux_loss(logits, onehot, e)
+
+
+def _moe_ellpack(p, x_grp: torch.Tensor, cfg, dtype):
+    """One-hot (ELLPACK) dispatch: GShard-style capacity-bounded einsums over
+    x_grp (G, T_g, d), through a (G, T_g, E, C) dispatch tensor."""
+    m = cfg.moe
+    g, tg, d = x_grp.shape
+    e, k = m.n_experts, m.top_k
+    cap = moe_capacity(tg, cfg)
+    logits = x_grp @ p["router"].to(dtype)                  # (G,Tg,E)
+    w, ids = _topk_routing(logits, k)                       # ELLPACK planes
+    onehot = F.one_hot(ids.long(), e).to(torch.float32)     # (G,Tg,k,E)
+    # position of each (token, slot) within its expert's capacity buffer
+    pos = torch.cumsum(onehot.reshape(g, tg * k, e), dim=1).reshape(
+        g, tg, k, e) - 1.0
+    keep = (pos < cap) & (onehot > 0)
+    pos = torch.where(keep, pos, 0).to(torch.int64)
+    disp = (keep.to(torch.float32)[..., None]
+            * F.one_hot(pos, cap).to(torch.float32))        # (G,Tg,k,E,C)
+    comb = disp * w[..., None, None]
+    disp = disp.sum(2)                                      # (G,Tg,E,C)
+    comb = comb.sum(2)
+    xe = torch.einsum("gtec,gtd->gecd", disp.to(dtype), x_grp)
+    h = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dtype))
+    u = torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dtype))
+    ye = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dtype))
+    y = torch.einsum("gtec,gecd->gtd", comb.to(dtype), ye)
+    return y, _aux_loss(logits, onehot, e)
+
+
+def _moe_sort(p, x_grp: torch.Tensor, cfg, dtype):
+    """Sorted dispatch (the in-situ-search dual: equal coordinates grouped
+    by sorting). Every group sorts its (token, slot) pairs by expert id,
+    stably; a pair's rank in its expert's run (a running max of the run
+    starts) decides whether it fits the capacity; kept tokens are gathered
+    into the (E·C) capacity rows, the expert products run, and the rows
+    come back scaled by their routing weights and summed into their tokens
+    (``index_add_``, one extra row taking the dropped pairs). This is the
+    reference's ``_moe_sort_body`` on one device: every expert local, no
+    expert offset, no ``psum``."""
+    m = cfg.moe
+    g, tg, d = x_grp.shape
+    e, k = m.n_experts, m.top_k
+    cap = moe_capacity(tg, cfg)
+    dev = x_grp.device
+    logits = x_grp @ p["router"].to(dtype)                  # (G,Tg,E)
+    w, ids = _topk_routing(logits, k)
+    npg = tg * k                                             # pairs a group
+    tok_of = torch.arange(tg, dtype=torch.int64, device=dev) \
+        .repeat_interleave(k)[None].expand(g, npg)
+    s_ids, perm = torch.sort(ids.reshape(g, npg), dim=1, stable=True)
+    s_tok = tok_of.gather(1, perm)
+    s_w = w.reshape(g, npg).gather(1, perm)
+    # rank within each (group, expert) run
+    idx = torch.arange(npg, device=dev)[None].expand(g, npg)
+    start = torch.ones((g, npg), dtype=torch.bool, device=dev)
+    start[:, 1:] = s_ids[:, 1:] != s_ids[:, :-1]
+    run_start = torch.cummax(torch.where(start, idx, 0), dim=1).values
+    rank = idx - run_start
+    keep = rank < cap
+    slot = s_ids.to(torch.int64) * cap + torch.where(keep, rank, 0)
+    goff_t = (torch.arange(g, device=dev) * tg)[:, None]
+    tok_flat = (s_tok + goff_t).reshape(-1)
+    gathered = x_grp.reshape(g * tg, d)[tok_flat].reshape(g, npg, d) \
+        * keep[..., None].to(dtype)
+    goff_s = (torch.arange(g, device=dev) * (e * cap))[:, None]
+    flat_slot = torch.where(keep, slot + goff_s, g * e * cap).reshape(-1)
+    xe = torch.zeros((g * e * cap + 1, d), dtype=dtype, device=dev)
+    xe.index_add_(0, flat_slot, gathered.reshape(g * npg, d))
+    xe = xe[:-1].reshape(g, e, cap, d)
+    del gathered
+    h = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dtype))
+    u = torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dtype))
+    ye = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dtype))
+    del h, u
+    back = ye.reshape(g * e * cap, d)[(slot + goff_s).reshape(-1)] \
+        .reshape(g, npg, d) * (s_w * keep).to(dtype)[..., None]
+    y = torch.zeros((g * tg, d), dtype=dtype, device=dev)
+    y.index_add_(0, tok_flat, back.reshape(g * npg, d))
+    onehot = F.one_hot(ids.long(), e).to(torch.float32)
+    return y.reshape(g, tg, d), _aux_loss(logits, onehot, e)
+
+
+_DISPATCH = {"ellpack": _moe_ellpack, "sort": _moe_sort, "spmm": _moe_spmm}
 
 
 def moe_apply(p, x: torch.Tensor, cfg, dtype) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:
-    """x: (B, S, d) → (y, aux_loss), ``cfg.moe.dispatch`` = ``'spmm'``."""
+    """x: (B, S, d) → (y, aux_loss) through ``cfg.moe.dispatch``
+    (``'ellpack'``, ``'sort'`` or ``'spmm'``)."""
     b, s, d = x.shape
-    if cfg.moe.dispatch != "spmm":
-        raise NotImplementedError(
-            f"moe_apply(dispatch={cfg.moe.dispatch!r}) is not ported to "
-            "repro_torch yet: ROADMAP queue 1 item 10 (LM stack); "
-            "dispatch='spmm' is")
     x_grp = x.reshape(1, b * s, d)          # one group without a mesh
+    run = _DISPATCH.get(cfg.moe.dispatch, _moe_ellpack)
     with _obs.span("moe.dispatch", strategy=cfg.moe.dispatch, tokens=b * s,
                    experts=cfg.moe.n_experts):
-        y, aux = _obs.sync(_moe_spmm(p, x_grp, cfg, dtype))
+        y, aux = _obs.sync(run(p, x_grp, cfg, dtype))
     if cfg.moe.n_shared:
         y = y + swiglu_apply(p["shared"], x_grp, dtype)
     return y.reshape(b, s, d), aux

@@ -1,0 +1,337 @@
+"""Generic decoder-only LM, mirroring ``src/repro/models/transformer.py``.
+
+An architecture is a *segment plan*: a list of (unit, repeats) where a unit
+is a tuple of block kinds. A segment of several repeats keeps its
+parameters stacked on a leading layer dim, as the reference's do, and runs
+as a Python loop over that dim (the reference scans it). The same plan
+drives parameter construction, the forward and loss, prefill, and cached
+decode.
+
+Block kinds ported:
+  attn       full-attention GQA + SwiGLU          (dense archs)
+  attn_moe   GQA + MoE                            (granite)
+  local      windowed GQA + SwiGLU                (recurrentgemma 1-in-3)
+  mla_dense  MLA + SwiGLU                         (deepseek layer 0)
+  mla_moe    MLA + MoE(+shared)                   (deepseek)
+The kinds ``mamba`` (falcon-mamba) and ``rec`` (recurrentgemma) raise
+``NotImplementedError`` naming their ROADMAP item.
+
+Caches are preallocated at ``s_max`` (``decoder_cache_zeros``) and written
+in place: prefill fills them, every decode step writes its token's entries
+and returns the same tensors. ``pos`` is a Python int.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from . import attention as attn
+from . import ffn
+from .common import (embed_lookup, embed_specs, rmsnorm,
+                     sharded_softmax_xent, unembed)
+from .params import Spec, stack, torch_dtype, tree_map
+
+_LATER = {
+    "mamba": "ROADMAP queue 1 item 12 (the ssm, rglru and encdec families)",
+    "rec": "ROADMAP queue 1 item 12 (the ssm, rglru and encdec families)",
+    "audio": "ROADMAP queue 1 item 12 (the ssm, rglru and encdec families)",
+}
+
+
+def not_ported(what: str, key: str):
+    raise NotImplementedError(f"{what} is not ported to repro_torch yet: "
+                              f"{_LATER[key]}")
+
+
+# ---------------------------------------------------------------------------
+# Segment planning
+# ---------------------------------------------------------------------------
+
+def segment_plan(cfg) -> List[Tuple[Tuple[str, ...], int]]:
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return [(("mamba",), L)]
+    if cfg.family == "hybrid":
+        unit = tuple("local" if k == "attn" else k for k in cfg.griffin.pattern)
+        reps, rem = divmod(L, len(unit))
+        plan = [(unit, reps)]
+        if rem:
+            plan.append((unit[:rem], 1))
+        return plan
+    if cfg.moe is not None and cfg.mla is not None:
+        fd = cfg.moe.first_dense_layers
+        plan = []
+        if fd:
+            plan.append((("mla_dense",), fd))
+        plan.append((("mla_moe",), L - fd))
+        return plan
+    if cfg.moe is not None:
+        return [(("attn_moe",), L)]
+    return [(("attn",), L)]
+
+
+# ---------------------------------------------------------------------------
+# Block specs / apply / cache
+# ---------------------------------------------------------------------------
+
+def _norm_spec(cfg):
+    return Spec((cfg.d_model,), (None,), init="ones")
+
+
+def block_specs(cfg, kind: str) -> Dict[str, Any]:
+    s: Dict[str, Any] = {"ln1": _norm_spec(cfg)}
+    if kind in ("attn", "attn_moe", "local"):
+        s["attn"] = attn.gqa_specs(cfg)
+        s["ln2"] = _norm_spec(cfg)
+        s["ffn"] = ffn.moe_specs(cfg) if kind == "attn_moe" \
+            else ffn.swiglu_specs(cfg)
+    elif kind in ("mla_dense", "mla_moe"):
+        s["attn"] = attn.mla_specs(cfg)
+        s["ln2"] = _norm_spec(cfg)
+        s["ffn"] = ffn.moe_specs(cfg) if kind == "mla_moe" \
+            else ffn.swiglu_specs(cfg)
+    elif kind in _LATER:
+        not_ported(f"block kind {kind!r}", kind)
+    else:
+        raise ValueError(kind)
+    return s
+
+
+def _ffn_apply(p, x, cfg, kind, dtype):
+    if kind in ("attn_moe", "mla_moe"):
+        return ffn.moe_apply(p, x, cfg, dtype)
+    return ffn.swiglu_apply(p, x, dtype), torch.zeros((), device=x.device)
+
+
+def _ring_layout(k, v, s: int, w: int):
+    """The prefill's last ``w`` keys/values laid out as decode's ``pos % w``
+    ring indexing expects, with each slot's absolute position (-1 empty)."""
+    dev = k.device
+    if s >= w:
+        shift = s % w
+        k = torch.roll(k[:, -w:], shift, dims=1)
+        v = torch.roll(v[:, -w:], shift, dims=1)
+        slot_pos = torch.roll(torch.arange(s - w, s, dtype=torch.int32,
+                                           device=dev), shift)
+        return k, v, slot_pos
+    slot_pos = torch.full((w,), -1, dtype=torch.int32, device=dev)
+    slot_pos[:s] = torch.arange(s, dtype=torch.int32, device=dev)
+    return k, v, slot_pos
+
+
+def block_apply_full(p, x, cfg, kind: str, dtype, want_cache: bool,
+                     s_max: int = 0, cache=None):
+    """Full-seq path. Returns (x, aux_loss, cache or None). With
+    ``want_cache`` the block's keys/values (or latent) are written into
+    ``cache`` (``block_cache_zeros``' layout; allocated here when None)."""
+    aux = torch.zeros((), device=x.device)
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    s = x.shape[1]
+    if want_cache and cache is None:
+        cache = block_cache_zeros(cfg, kind, x.shape[0], s_max or s, dtype,
+                                  x.device)
+    if kind in ("attn", "attn_moe", "local"):
+        window = cfg.griffin.window if kind == "local" else cfg.attn_window
+        out, kv = attn.gqa_full(p["attn"], h, cfg, dtype, window=window,
+                                return_kv=want_cache)
+        x = x + out
+        h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        y, aux = _ffn_apply(p["ffn"], h2, cfg, kind, dtype)
+        x = x + y
+        if want_cache:
+            k, v = kv
+            if kind == "local":
+                k, v, slot_pos = _ring_layout(k, v, s, cfg.griffin.window)
+                n = k.shape[1]
+            else:
+                n = s
+                slot_pos = torch.arange(cache["slot_pos"].shape[0],
+                                        dtype=torch.int32, device=x.device)
+                slot_pos = torch.where(slot_pos < s, slot_pos, -1)
+            cache["k"][:, :n] = k
+            cache["v"][:, :n] = v
+            cache["slot_pos"].copy_(slot_pos)
+    elif kind in ("mla_dense", "mla_moe"):
+        out, kv = attn.mla_full(p["attn"], h, cfg, dtype, return_kv=want_cache)
+        x = x + out
+        h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        y, aux = _ffn_apply(p["ffn"], h2, cfg, kind, dtype)
+        x = x + y
+        if want_cache:
+            latent, krope = kv
+            cache["latent"][:, :s] = latent
+            cache["krope"][:, :s] = krope
+    elif kind in _LATER:
+        not_ported(f"block kind {kind!r}", kind)
+    else:
+        raise ValueError(kind)
+    return x, aux, (cache if want_cache else None)
+
+
+def block_cache_zeros(cfg, kind: str, batch: int, s_max: int, dtype,
+                      device=None):
+    hd, kv = cfg.head_dim, cfg.n_kv_heads
+    zeros = (lambda *shape: torch.zeros(shape, dtype=dtype, device=device))
+    if kind in ("attn", "attn_moe", "local"):
+        n = cfg.griffin.window if kind == "local" else s_max
+        return {"k": zeros(batch, n, kv, hd), "v": zeros(batch, n, kv, hd),
+                "slot_pos": torch.full((n,), -1, dtype=torch.int32,
+                                       device=device)}
+    if kind in ("mla_dense", "mla_moe"):
+        m = cfg.mla
+        return {"latent": zeros(batch, s_max, m.kv_lora_rank),
+                "krope": zeros(batch, s_max, m.rope_head_dim)}
+    if kind in _LATER:
+        not_ported(f"block kind {kind!r}", kind)
+    raise ValueError(kind)
+
+
+def block_apply_decode(p, x, cfg, kind: str, dtype, cache, pos: int):
+    """One-token path; ``cache`` is written in place. Returns (x, cache)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind in ("attn", "attn_moe", "local"):
+        if kind == "local":
+            w = cfg.griffin.window
+            out, _, _ = attn.gqa_decode_ring(
+                p["attn"], h, cfg, dtype, cache["k"], cache["v"],
+                cache["slot_pos"], pos, pos % w, w)
+        else:
+            out, _, _ = attn.gqa_decode(p["attn"], h, cfg, dtype,
+                                        cache["k"], cache["v"], pos)
+            cache["slot_pos"][pos] = pos
+        x = x + out
+    elif kind in ("mla_dense", "mla_moe"):
+        out, _, _ = attn.mla_decode(p["attn"], h, cfg, dtype,
+                                    cache["latent"], cache["krope"], pos)
+        x = x + out
+    elif kind in _LATER:
+        not_ported(f"block kind {kind!r}", kind)
+    else:
+        raise ValueError(kind)
+    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    y, _ = _ffn_apply(p["ffn"], h2, cfg, kind, dtype)
+    return x + y, cache
+
+
+# ---------------------------------------------------------------------------
+# Whole-model spec / apply
+# ---------------------------------------------------------------------------
+
+def decoder_specs(cfg) -> Dict[str, Any]:
+    segs = []
+    for unit, reps in segment_plan(cfg):
+        unit_specs = {f"u{i}": block_specs(cfg, kind)
+                      for i, kind in enumerate(unit)}
+        segs.append(stack(unit_specs, reps) if reps > 1 else unit_specs)
+    return {
+        "embed": embed_specs(cfg),
+        "segments": segs,
+        "ln_f": _norm_spec(cfg),
+    }
+
+
+def _layers(seg, reps: int):
+    """The per-layer slices of a segment's (stacked when reps > 1) tree."""
+    if reps == 1:
+        yield seg
+        return
+    for i in range(reps):
+        yield tree_map(lambda a: a[i], seg)
+
+
+def decoder_forward(params, tokens, cfg, *, prefix_embed=None,
+                    want_cache: bool = False, s_max: int = 0,
+                    return_hidden: bool = False):
+    """Full-seq forward. tokens: (B,S) int. prefix_embed: optional (B,P,d)
+    continuous prefix (the VLM patch-embedding stub).
+
+    Returns (logits, aux_loss, cache layers or None)."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = embed_lookup(params["embed"], tokens, dtype)
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(dtype), x], dim=1)
+    s_max = s_max or x.shape[1]
+    aux_total = torch.zeros((), device=x.device)
+    caches = decoder_cache_zeros(cfg, x.shape[0], s_max,
+                                 device=x.device)["layers"] \
+        if want_cache else None
+    for j, (seg_params, (unit, reps)) in enumerate(
+            zip(params["segments"], segment_plan(cfg))):
+        seg_cache = _layers(caches[j], reps) if want_cache \
+            else itertools.repeat(None)
+        for p_slice, c_slice in zip(_layers(seg_params, reps), seg_cache):
+            for i, kind in enumerate(unit):
+                x, aux, _ = block_apply_full(
+                    p_slice[f"u{i}"], x, cfg, kind, dtype, want_cache, s_max,
+                    cache=c_slice[f"u{i}"] if want_cache else None)
+                aux_total = aux_total + aux
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    if return_hidden:
+        return x, aux_total, caches
+    return unembed(params["embed"], x, dtype), aux_total, caches
+
+
+def decoder_loss(params, tokens, cfg, prefix_embed=None) -> torch.Tensor:
+    """LM loss (forward only) through ``sharded_softmax_xent``."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    hidden, aux, _ = decoder_forward(params, tokens, cfg,
+                                     prefix_embed=prefix_embed,
+                                     return_hidden=True)
+    if prefix_embed is not None:
+        hidden = hidden[:, prefix_embed.shape[1]:]
+    if "out" in params["embed"]:
+        w_out = params["embed"]["out"].to(dtype)
+    else:
+        w_out = params["embed"]["tok"].to(dtype).T
+    return sharded_softmax_xent(hidden, w_out, tokens) + 0.01 * aux
+
+
+def decoder_prefill(params, tokens, cfg, s_max: int, prefix_embed=None):
+    """Prefill: the cache filled at ``s_max`` and the logits of the final
+    position only (full-sequence logits would be (B·S, V))."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    hidden, _, caches = decoder_forward(params, tokens, cfg,
+                                        prefix_embed=prefix_embed,
+                                        want_cache=True, s_max=s_max,
+                                        return_hidden=True)
+    logits = unembed(params["embed"], hidden[:, -1:], dtype)
+    pos = tokens.shape[1] + (prefix_embed.shape[1]
+                             if prefix_embed is not None else 0)
+    return logits[:, 0], {"layers": caches, "pos": pos}
+
+
+def decoder_cache_zeros(cfg, batch: int, s_max: int, device=None):
+    """The decode cache, zeros at ``s_max``: a segment of several repeats
+    keeps its per-layer caches stacked on a leading dim, as its
+    parameters are."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    caches = []
+    for unit, reps in segment_plan(cfg):
+        cache_u = {f"u{i}": block_cache_zeros(cfg, kind, batch, s_max, dtype,
+                                              device)
+                   for i, kind in enumerate(unit)}
+        if reps > 1:
+            cache_u = tree_map(
+                lambda c: c[None].repeat(reps, *([1] * c.dim())), cache_u)
+        caches.append(cache_u)
+    return {"layers": caches, "pos": 0}
+
+
+def decoder_decode_step(params, cache, tokens, cfg):
+    """tokens: (B,1). Returns (logits (B,V), cache): the cache's tensors are
+    written in place and ``pos`` advances by one."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    pos = int(cache["pos"])
+    x = embed_lookup(params["embed"], tokens, dtype)
+    for seg_params, seg_cache, (unit, reps) in zip(
+            params["segments"], cache["layers"], segment_plan(cfg)):
+        for p_slice, c_slice in zip(_layers(seg_params, reps),
+                                    _layers(seg_cache, reps)):
+            for i, kind in enumerate(unit):
+                x, _ = block_apply_decode(p_slice[f"u{i}"], x, cfg, kind,
+                                          dtype, c_slice[f"u{i}"], pos)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = unembed(params["embed"], x, dtype)
+    return logits[:, 0], {"layers": cache["layers"], "pos": pos + 1}

@@ -1,4 +1,13 @@
-"""The engine's SpGEMM serving lane, mirroring ``src/repro/serve/engine.py``.
+"""The serving engine, mirroring ``src/repro/serve/engine.py``: token
+serving (``ServingEngine.generate_batch``) and the SpGEMM lane.
+
+``generate_batch`` serves one admission wave: the prompts left-padded with
+``eos_id`` into one (B, S) batch (no pad mask, as the reference has none),
+one ``Model.prefill`` at ``s_max``, then shared ``Model.decode_step``s while
+any request is alive, under ``torch.inference_mode()``. Sampling is the
+reference's, on the host with its numpy generator seeded from ``cfg.seed``.
+There is nothing to compile and nothing donated: the model's functions run
+as they are, and the decode cache is written in place.
 
 :class:`SparseGemmBatcher` packs heterogeneous per-request SpGEMMs that
 share shapes onto ``spgemm_coo_numeric_batched`` slots (structures recycled
@@ -6,14 +15,11 @@ through the engine-level ``StructureCache``; fingerprints may differ within
 one wave — each slot carries its own key plane), reporting slot occupancy
 and per-request latency through :class:`EngineStats`.
 
-:class:`ServingEngine` serves these sparse requests. Its token path
-(``generate_batch``: prefill, decode, continuous batching over a model)
-needs the LM stack and raises ``NotImplementedError`` until that is ported.
-
-Latencies are host-clock seconds around each wave. A wave ends in
-``obs.sync``, which waits for the device only while ``repro_torch.obs`` is
-enabled: with tracing off on CUDA operands, ``spgemm_compute_s`` times the
-launches, not the work.
+Latencies are host-clock seconds. A token wave reads its logits back to the
+host to sample, so its prefill and decode times hold the device's work. A
+SpGEMM wave ends in ``obs.sync``, which waits for the device only while
+``repro_torch.obs`` is enabled: with tracing off on CUDA operands,
+``spgemm_compute_s`` times the launches, not the work.
 """
 from __future__ import annotations
 
@@ -25,8 +31,7 @@ import numpy as np
 import torch
 
 from ..core.formats import Coo, EllCols, EllRows
-from ..core.spgemm import (_not_ported, spgemm_coo_numeric,
-                           spgemm_coo_numeric_batched)
+from ..core.spgemm import spgemm_coo_numeric, spgemm_coo_numeric_batched
 from ..kernels.insitu_search import KEY_INVALID
 from ..obs import metrics as _obs_metrics
 from ..obs import trace as _obs
@@ -68,8 +73,7 @@ class EngineStats(dict):
     working) that is also callable — ``eng.stats()`` returns a full snapshot
     joining the counters with per-request latency aggregates, mean batch
     occupancy (decode slots and SpGEMM slots), and the structure cache's
-    own counters. The token counters stay zero until token serving is
-    ported; the snapshot has the reference's keys all the same."""
+    own counters."""
 
     def __init__(self, engine: "ServingEngine"):
         super().__init__(requests=0, tokens=0, decode_s=0.0, prefill_s=0.0,
@@ -258,14 +262,16 @@ class SparseGemmBatcher:
 
 
 class ServingEngine:
-    """The serving engine's SpGEMM lane over one shared ``StructureCache``.
-    ``model`` and ``params`` are stored for the token path, which is not
-    ported; nothing is compiled."""
+    """Token serving over ``model`` (a ``models.Model``) and its ``params``,
+    and the SpGEMM lane over one shared ``StructureCache``. ``model`` and
+    ``params`` may be None for an engine that serves SpGEMM requests only.
+    Token batches go to the device the parameters are on."""
 
     def __init__(self, model, params, cfg: ServeConfig):
         self.model = model
         self.params = params
         self.cfg = cfg
+        self._rng = np.random.default_rng(cfg.seed)
         self.structure_cache = StructureCache(
             capacity=cfg.structure_cache_size,
             cache_dir=cfg.structure_cache_dir,
@@ -304,6 +310,97 @@ class ServingEngine:
         alongside the serving counters in ``self.stats``."""
         return self.structure_cache.stats()
 
+    def _device(self) -> torch.device:
+        from ..models.params import tree_leaves
+        return next(t for t in tree_leaves(self.params)
+                    if isinstance(t, torch.Tensor)).device
+
+    def _sample(self, logits: np.ndarray) -> np.ndarray:
+        if self.cfg.greedy:
+            return np.argmax(logits, axis=-1).astype(np.int32)
+        z = logits / max(self.cfg.temperature, 1e-3)
+        z = z - z.max(-1, keepdims=True)
+        p = np.exp(z)
+        p /= p.sum(-1, keepdims=True)
+        return np.array([self._rng.choice(len(q), p=q) for q in p],
+                        dtype=np.int32)
+
+    @staticmethod
+    def _host(logits: torch.Tensor) -> np.ndarray:
+        return logits.to(torch.float32).cpu().numpy()
+
     def generate_batch(self, prompts: List[np.ndarray]) -> List[List[int]]:
-        """Token serving: not ported (it needs the LM stack)."""
-        _not_ported("ServingEngine.generate_batch (token serving)", "lm")
+        """Serve one admission wave of ≤ max_batch prompts to completion."""
+        cfg = self.cfg
+        assert len(prompts) <= cfg.max_batch
+        b = len(prompts)
+        dev = self._device()
+        t_enq = time.time()
+        reqs = [Request(i, p, t_enq=t_enq) for i, p in enumerate(prompts)]
+        plen = max(len(p) for p in prompts)
+        toks = np.full((b, plen), cfg.eos_id, np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, plen - len(p):] = p      # left-pad so last pos = last token
+        with torch.inference_mode():
+            t0 = time.time()
+            # admission → prefill-start is this engine's queue phase
+            self.stats["queue_s"] += (t0 - t_enq) * b
+            _obs_metrics.observe("serve.queue_us", (t0 - t_enq) * 1e6)
+            with _obs.span("serve.prefill", batch=b, prompt_len=plen):
+                logits, cache = self.model.prefill(
+                    self.params, {"tokens": torch.from_numpy(toks).to(dev)},
+                    cfg.s_max)
+                host = self._host(logits)
+            self.stats["prefill_s"] += time.time() - t0
+            self.stats["requests"] += b
+            # the first sampled token is a real emission: count it and
+            # honour EOS so an immediately-finished request never enters the
+            # decode loop
+            cur = self._sample(host)
+            alive = False
+            for r, t in zip(reqs, cur):
+                r.out_tokens.append(int(t))
+                self.stats["tokens"] += 1
+                if t == cfg.eos_id:
+                    r.done = True
+                    r.t_done = time.time()
+                else:
+                    alive = True
+            t0 = time.time()
+            steps = 0
+            with _obs.span("serve.decode", batch=b) as _dsp:
+                for _ in range(cfg.max_new_tokens - 1):
+                    if not alive:
+                        break
+                    n_alive = sum(not r.done for r in reqs)
+                    logits, cache = self.model.decode_step(
+                        self.params, cache,
+                        torch.from_numpy(cur[:, None]).to(dev))
+                    cur = self._sample(self._host(logits))
+                    steps += 1
+                    # occupancy = live slots over the engine's static grid
+                    self.stats["occupancy_sum"] += n_alive / cfg.max_batch
+                    self.stats["decode_steps"] += 1
+                    _obs_metrics.gauge("serve.batch_occupancy",
+                                       n_alive / cfg.max_batch)
+                    alive = False
+                    for r, t in zip(reqs, cur):
+                        if r.done:
+                            continue
+                        r.out_tokens.append(int(t))
+                        self.stats["tokens"] += 1
+                        if t == cfg.eos_id:
+                            r.done = True
+                            r.t_done = time.time()
+                        else:
+                            alive = True
+                _dsp.set(steps=steps)
+            self.stats["decode_s"] += time.time() - t0
+        t_end = time.time()
+        for r in reqs:
+            if not r.done:
+                r.t_done = t_end
+            compute_s = r.t_done - r.t_enq
+            self.stats["compute_s"] += compute_s
+            _obs_metrics.observe("serve.compute_us", compute_s * 1e6)
+        return [r.out_tokens for r in reqs]

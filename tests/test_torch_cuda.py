@@ -931,6 +931,10 @@ def test_ell_spmm_kernel_float_and_checks(cuda):
         tes.ell_spmm(a_val, a_idx, x.double(), 100)
     with pytest.raises(TypeError):
         tes.ell_spmm(a_val, a_idx.long(), x, 100)
+    with pytest.raises(TypeError):                  # mixed value dtypes
+        tes.ell_spmm(a_val, a_idx, x.bfloat16(), 100)
+    y = tes.ell_spmm(a_val.bfloat16(), a_idx, x.bfloat16(), 100)
+    assert y.dtype == torch.bfloat16 and y.shape == (100, 256)
     with pytest.raises(ValueError):
         tes.ell_spmm(a_val.T.contiguous().T, a_idx, x, 100)
 
@@ -1120,6 +1124,58 @@ def test_moe_apply_on_card(cuda):
                               torch.from_numpy(x), cfg, torch.float32)
     torch.testing.assert_close(y.cpu(), y_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(aux.cpu(), aux_c, rtol=1e-5, atol=1e-5)
+
+
+def _bf16_tol(val, idx, x, n_rows):
+    """The kernel's bfloat16 result may differ from the float32 sum of the
+    same bfloat16 operands by one rounding to bfloat16 (≤ 2⁻⁸·|y|) plus
+    float32 summation order: (m - 1)·2⁻²⁴·Σ|v·x| for a row of m terms,
+    twice over (the card twin's atomics sum in another order)."""
+    mag = tes.ell_spmm_plain(val.float().abs(), idx, x.float().abs(), n_rows)
+    ok = (idx >= 0) & (idx < n_rows)
+    terms = torch.bincount(idx[ok].long(), minlength=n_rows)
+    return 2 * (terms - 1).clamp(min=0)[:, None] * 2.0 ** -24 * mag
+
+
+@pytest.mark.parametrize("t,d", [(512, 2048), (4096, 2048), (8, 2048),
+                                 (300, 2047), (64, 36)])
+def test_ell_spmm_kernel_bf16_moe_shapes(cuda, t, d):
+    """K9's bfloat16 entry at the MoE dispatch ((6, T) planes of value 1
+    into 64·cap slots) and combine ((1, 64·cap) planes of routing weights
+    back into T tokens) shapes of deepseek-v2-lite, d = 2048 and d that is
+    not a multiple of 8 (the scalar path): dispatch bit for bit against the
+    plain twin (every slot row holds at most one lane of value 1), combine
+    within one bfloat16 rounding of the float32 sum; the grids counted."""
+    from repro_torch.configs import deepseek_v2_lite
+    from repro_torch.models import ffn
+    cfg = deepseek_v2_lite.CONFIG
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    g = torch.Generator(device=cuda).manual_seed(t + d)
+    logits = torch.randn((1, t, e), generator=g, device=cuda)
+    w, _, _, kept, slot = ffn._spmm_route(logits, cfg)
+    n_slots = e * ffn.moe_capacity(t, cfg)
+    disp = ffn.dispatch_planes(kept[0], slot[0], n_slots, torch.bfloat16)
+    comb = ffn.combine_planes(kept[0], slot[0], w[0], n_slots,
+                              torch.bfloat16)
+    for a, n_rows, rows_in in ((disp, n_slots, t), (comb, t, n_slots)):
+        x = torch.randn((rows_in, d), generator=g, device=cuda) \
+            .to(torch.bfloat16)
+        before = tes.ell_spmm.launches
+        got = tes.ell_spmm(a.val, a.idx, x, n_rows)
+        torch.cuda.synchronize()
+        assert tes.ell_spmm.launches - before == tes.grids(*a.val.shape,
+                                                           n_rows, d)
+        assert got.dtype == torch.bfloat16 and got.shape == (n_rows, d)
+        assert torch.equal(got, tes.ell_spmm(a.val, a.idx, x, n_rows))
+        want = tes.ell_spmm_plain(a.val, a.idx, x, n_rows)
+        if a is disp:
+            assert torch.equal(got, want)
+        f32 = tes.ell_spmm_plain(a.val.float(), a.idx, x.float(), n_rows)
+        tol = 2.0 ** -8 * f32.abs() + _bf16_tol(a.val, a.idx, x, n_rows)
+        assert bool(((got.float() - f32).abs() <= tol).all())
+        # on the CPU the twin sums in lane order too: the same bits
+        cpu = tes.ell_spmm_plain(a.val.cpu(), a.idx.cpu(), x.cpu(), n_rows)
+        assert torch.equal(got.cpu(), cpu)
 
 
 # ---------------------------------------------------------------------------
@@ -1427,3 +1483,102 @@ def test_rotated_panels_never_share_storage(cuda):
         got[0].zero_()
         assert torch.equal(shards[3], torch.arange(4096, dtype=torch.float32,
                                                    device=cuda) + 3)
+
+
+# ---------------------------------------------------------------------------
+# The LM stack on the card
+# ---------------------------------------------------------------------------
+
+def _full_width_moe_block(cuda, dtype, dispatch="sort"):
+    """deepseek-v2-lite's MoE block (MLA + 64 experts top-6 + 2 shared) at
+    its published widths, weights drawn on the card from a seeded
+    generator."""
+    import dataclasses
+    from repro_torch.configs import deepseek_v2_lite
+    from repro_torch.models import params as tparams
+    from repro_torch.models import transformer as ttr
+    base = deepseek_v2_lite.CONFIG
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dispatch=dispatch))
+    g = torch.Generator(device=cuda).manual_seed(11)
+    p = tparams.init_params(ttr.block_specs(cfg, "mla_moe"), g, dtype)
+    return cfg, p
+
+
+def test_lm_full_width_block_card_vs_cpu(cuda):
+    """One full-width mla_moe block ('sort' dispatch) in float32 with TF32
+    off: on the card against the same weights and tokens on the CPU,
+    expert ids equal and the output within 1e-3·max|y|."""
+    from repro_torch.models import ffn
+    from repro_torch.models import transformer as ttr
+    from repro_torch.models.params import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p = _full_width_moe_block(cuda, torch.float32)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((1, 64, cfg.d_model), generator=g, device=cuda) * 0.1
+    with torch.inference_mode():
+        y, aux, _ = ttr.block_apply_full(p, x, cfg, "mla_moe", torch.float32,
+                                         False)
+        p_cpu = tree_map(lambda t: t.cpu(), p)
+        y_c, aux_c, _ = ttr.block_apply_full(p_cpu, x.cpu(), cfg, "mla_moe",
+                                             torch.float32, False)
+    assert y.is_cuda and bool(torch.isfinite(y).all())
+    assert float((y.cpu() - y_c).abs().max()) \
+        <= 1e-3 * float(y_c.abs().max())
+    assert abs(float(aux) - float(aux_c)) <= 1e-4 * abs(float(aux_c))
+    h = torch.randn((1, 64, cfg.d_model), generator=g, device=cuda)
+    ids = ffn._topk_routing(h @ p["ffn"]["router"], cfg.moe.top_k)[1]
+    ids_c = ffn._topk_routing(h.cpu() @ p_cpu["ffn"]["router"],
+                              cfg.moe.top_k)[1]
+    assert torch.equal(ids.cpu(), ids_c)
+
+
+def test_lm_moe_dispatches_agree_full_width(cuda, monkeypatch):
+    """The 'spmm' (K9's bfloat16 entry), 'sort' and 'ellpack' MoE layers
+    agree on one full-width layer in bfloat16, on 8 × 64 tokens
+    (capacity 60) and on the decode's 8 × 1 (capacity 1, most pairs
+    dropped), within 2e-2·max|y| (each rounds its expert and combine
+    products to bfloat16 at other points). y is the routed experts' sum:
+    the shared experts, one code path in all three, outweigh it many-fold
+    at this init and would hide a dispatch fault. 'spmm' with its first
+    kept pair dropped must fall outside the limit."""
+    import dataclasses
+    from repro_torch.models import ffn
+    cfg, p = _full_width_moe_block(cuda, torch.bfloat16, "sort")
+    p = {k: v for k, v in p["ffn"].items() if k != "shared"}
+    g = torch.Generator(device=cuda).manual_seed(13)
+
+    def apply(x, dispatch):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch, n_shared=0))
+        kernels.reset_launch_counts()
+        y = ffn.moe_apply(p, x, c, torch.bfloat16)[0]
+        torch.cuda.synchronize()
+        assert (kernels.launch_counts()["ell_spmm"] > 0) == \
+            (dispatch == "spmm")
+        assert y.dtype == torch.bfloat16
+        return y.float()
+
+    route = ffn._spmm_route
+
+    def drop_first(logits, c):
+        w, ids, onehot, kept, slot = route(logits, c)
+        kept = kept.clone()
+        kept.view(-1)[int(kept.reshape(-1).nonzero()[0])] = False
+        return w, ids, onehot, kept, slot
+
+    for t, cap in ((64, 60), (1, 1)):
+        assert ffn.moe_capacity(8 * t, cfg) == cap
+        x = torch.randn((8, t, cfg.d_model), generator=g, device=cuda) \
+            .to(torch.bfloat16)
+        with torch.inference_mode():
+            ys = {d: apply(x, d) for d in ("sort", "spmm", "ellpack")}
+            with monkeypatch.context() as m:
+                m.setattr(ffn, "_spmm_route", drop_first)
+                dropped = apply(x, "spmm")
+        scale = float(ys["sort"].abs().max())
+        for dispatch in ("spmm", "ellpack"):
+            err = float((ys[dispatch] - ys["sort"]).abs().max())
+            assert err <= 2e-2 * scale, (t, dispatch, err, scale)
+        err = float((dropped - ys["sort"]).abs().max())
+        assert err > 2e-2 * scale, (t, "a dropped pair", err, scale)

@@ -157,14 +157,25 @@ def test_moe_planes_are_the_routing_ellpack():
 
 @pytest.mark.parametrize("dispatch", ["ellpack", "sort"])
 def test_moe_other_dispatches_raise(dispatch):
-    cfg = dataclasses.replace(
-        tds.CONFIG.reduced(),
-        moe=dataclasses.replace(tds.CONFIG.reduced().moe, dispatch=dispatch))
-    p = params_from_numpy(_params(np.random.default_rng(0), cfg),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tffn.moe_apply(p, torch.zeros((1, 4, cfg.d_model)), cfg,
-                       torch.float32)
+    """The 'ellpack' and 'sort' dispatches, once refused, now run: each
+    against the reference's on the same parameters and tokens (at rtol =
+    atol = 1e-5, as the 'spmm' test above), at both capacity factors."""
+    for cf in (1.25, 0.5):
+        cfg_r, cfg_t = (dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, dispatch=dispatch, capacity_factor=cf))
+            for c in (ref_ds.CONFIG.reduced(), tds.CONFIG.reduced()))
+        rng = np.random.default_rng(0)
+        p = _params(rng, cfg_r)
+        x = rng.standard_normal((2, 16, cfg_r.d_model)).astype(np.float32)
+        y_r, aux_r = ref_ffn.moe_apply(_jnp(p), jnp.asarray(x), cfg_r,
+                                       jnp.float32)
+        y_t, aux_t = tffn.moe_apply(params_from_numpy(p, device="cpu"),
+                                    torch.from_numpy(x), cfg_t,
+                                    torch.float32)
+        np.testing.assert_allclose(y_t.numpy(), np.asarray(y_r), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(float(aux_t), float(aux_r), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_swiglu_matches_reference():

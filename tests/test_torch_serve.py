@@ -284,8 +284,30 @@ def test_engine_cache_dir_warm_starts(tmp_path):
     assert eng.cache_stats()["misses"] == 0
 
 
+class _Echo:
+    """A model whose prefill picks token 5 for every row and whose decode
+    step picks the token after the one it was given (EOS after 9)."""
+    vocab = 16
+
+    def prefill(self, params, batch, s_max):
+        b = batch["tokens"].shape[0]
+        return torch.zeros(b, self.vocab).index_fill_(1, torch.tensor(5),
+                                                      1.0), {"pos": 0}
+
+    def decode_step(self, params, cache, tokens):
+        nxt = torch.where(tokens[:, 0] >= 9, 2, tokens[:, 0] + 1)
+        return torch.nn.functional.one_hot(nxt.long(), self.vocab).float(), \
+            {"pos": cache["pos"] + 1}
+
+
 def test_generate_batch_is_not_ported():
-    eng = ServingEngine(_Stub(), {"w": 1}, ServeConfig())
-    assert eng.model is not None and eng.params == {"w": 1}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        eng.generate_batch([np.array([1, 2, 3], np.int32)])
+    """Token serving, once refused, now runs: a wave of two prompts
+    decodes until EOS, with the reference's counters."""
+    eng = ServingEngine(_Echo(), {"w": torch.zeros(1)}, ServeConfig())
+    assert eng.params["w"].shape == (1,)
+    outs = eng.generate_batch([np.array([1, 2, 3], np.int32),
+                               np.array([4], np.int32)])
+    assert outs == [[5, 6, 7, 8, 9, 2]] * 2
+    st = eng.stats()
+    assert (st["requests"], st["tokens"], st["decode_steps"]) == (2, 12, 5)
+    assert st["batch_occupancy"] == 2 / ServeConfig().max_batch
