@@ -12,8 +12,10 @@ numeric phase on a 'sort' and a 'stream' structure, and its SpMM side (MoE with
 engine's SpGEMM lane (``ServingEngine.submit_spgemm``/``flush_spgemm``),
 the hybrid ELLPACK + COO format (``hybrid_spgemm_dense``), the
 distributed SpGEMM on four shards of the card (``spgemm(a, b, mesh=,
-axis=)``) and token serving on the LM stack (``ServingEngine.generate_batch``
-over deepseek-v2-lite-16b, all 27 layers in bfloat16), at a real size:
+axis=)``), token serving on the LM stack (``ServingEngine.generate_batch``
+over deepseek-v2-lite-16b, all 27 layers in bfloat16) and training on it
+(``launch.train.main`` over granite-moe-3b-a800m, all 32 layers in
+bfloat16), at a real size:
 C = A·Aᵀ for the paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
@@ -207,9 +209,44 @@ Phases (any failure exits non-zero before the last line):
    summation-order error), timed beside the twin, ``torch.sparse.mm`` of
    the CSR operand and its bytes bound (6 bytes a lane of planes, 2 a
    value of X read and C written).
+6f. Training on the LM stack (``train_phase``), the ``[lm]`` weights freed
+   first and the resident memory printed. (a) granite-moe-3b-a800m at its
+   published widths and all 32 layers (≈3.30e9 parameters), bfloat16
+   parameters and compute, the config's ``dispatch="sort"`` and
+   ``remat="full"``, through ``repro_torch.launch.train.main`` (8 x 512
+   tokens a step, 6 steps, default ``AdamWConfig``, no checkpoint, no
+   resume), the counters zeroed around it: each step's loss, grad norm
+   and ms, the median of steps 1-5 and tokens/s, the init time and the
+   peak memory, all losses and grad norms finite; one more step split
+   into forward + backward and the AdamW update (host clock, synchronised).
+   (b) The same state with ``dispatch="spmm"`` for TRAIN_B_STEPS steps,
+   counters zeroed around them: K9's bfloat16 forward (its grids counted,
+   forward and checkpoint recompute) and the ``EllSpmm`` backward; one
+   more backward's router and ``w_gate``/``w_up``/``w_down`` grads of
+   every layer finite and not all zero, and with K9's output detached (a
+   planted fault) that gate must fail. (c) A 2-layer cut at published
+   widths, float32, TF32 off, 2 x 128 tokens: one loss and backward from
+   the same weights on the card and the CPU, for ``'sort'`` and
+   ``'spmm'``: the loss within 1e-5 relative, each grad within
+   1e-3·max|g_cpu|. (d) The cut in bfloat16 through ``Trainer``, 30 steps
+   at lr 3e-3, warmup 5, 8 x 64 tokens: the last logged loss below the
+   first by more than 0.2 (the reference's bar). (e) The cut saved at step
+   4 (``keep_n=1``) and resumed by a fresh ``Trainer``: every restored
+   leaf equal to the saved one bit for bit, bfloat16 included, the history
+   starting at step 4; save and restore ms and the checkpoint's bytes.
+   (f) K9 at granite's training dispatch and combine (bfloat16, against
+   its twin as in gate (c) of 6e); K9's training route (``ops.ell_spmm``)
+   against the plain twin's autograd at (6, 4096) x (4096, 2048) -> 30,720
+   rows with dead lanes, dX and dval bit for bit on integer operands and
+   within one bfloat16 rounding of the float32 gradients in bfloat16, the
+   backward timed; K10's bfloat16 entry at fc_in (4096, 2048) x 2:4
+   (1024, 10944) within 2⁻⁸·max|y32| of its float32 result and within
+   2⁻⁷·max|y_plain| (two bfloat16 roundings) of the plain twin's bfloat16
+   result, timed beside its twin and ``x @ wp`` in bfloat16.
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries, K9 with
-   its bfloat16 shapes), the card's name and power limit, and as the last
-   line ``{"ok": true, "device": {...}}``.
+   its bfloat16 and training shapes, K10 with its bfloat16 entry), the
+   card's name and power limit, and as the last line ``{"ok": true,
+   "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1819,7 +1856,9 @@ def check_spmm_kernels(cfg, p, x, mlp, x_int, h_int, seed: int) -> list:
                        entries={"float32": "ell_spmm_f32",
                                 "bfloat16": "ell_spmm_bf16"}),
             kernel_row("nm_spmm", "src/repro_torch/csrc/nm_spmm.cu",
-                       "src/repro/kernels/nm_spmm.py:41", nm)]
+                       "src/repro/kernels/nm_spmm.py:41", nm,
+                       entries={"float32": "nm_spmm_f32",
+                                "bfloat16": "nm_spmm_bf16"})]
 
 
 def peak_of(fn):
@@ -3188,6 +3227,457 @@ def lm_phase(seed: int):
     return shapes, counts, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6f: training on the LM stack
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "granite-moe-3b-a800m"
+TRAIN_A = dict(batch=8, seq=512, steps=6)   # (a): 4,096 tokens a step
+TRAIN_B_STEPS = 3                           # (b): 'spmm' steps at full width
+TRAIN_CUT = 2                               # (c)-(e): layers of the cut
+TRAIN_C = (2, 128)                          # (c): tokens, card vs CPU
+TRAIN_D = dict(steps=30, batch=8, seq=64, lr=3e-3, warmup_steps=5)
+TRAIN_E = dict(save=4, steps=6, batch=8, seq=64)
+TRAIN_TOL_C = (1e-5, 1e-3)    # (c): loss relative, grad vs max|g_cpu|
+TRAIN_DROP_D = 0.2            # (d): the reference's bar (tests/test_system.py)
+K9_BWD = (6, 4096, 30720, 2048)             # (f): k, n, n_rows, d
+K10_BF16 = (4096, 2048, 10944, (2, 4))      # (f): t, d_in, d_out, N:M
+BF16_ROUND = 2.0 ** -8        # one rounding to bfloat16, relative
+BF16_TC_OPS_PER_S = 989e12    # dense bf16 tensor-core rate
+
+
+def train_config(dispatch: str = "sort", **over):
+    from repro_torch.configs import get_config
+    base = get_config(TRAIN_ARCH)
+    return dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, dispatch=dispatch), **over)
+
+
+def bits(t):
+    """A tensor's raw bits, for bit-for-bit comparison of any float type."""
+    import torch
+    kind = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.detach().contiguous().view(kind[t.element_size()])
+
+
+def moe_grad_gate(model, params, batch) -> dict:
+    """Gate (b): one ``loss.backward`` through ``model``; the router and
+    the experts' ``w_gate``/``w_up``/``w_down`` grads of every layer must
+    be finite and not all zero. Returns the layers that fail, by leaf."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    leaves = tree_leaves(params)
+    loss = model.loss(params, batch)
+    grads = dict(zip(map(id, leaves), torch.autograd.grad(
+        loss, leaves, allow_unused=True)))       # None: reached by nothing
+    ffn_p = params["segments"][0]["u0"]["ffn"]
+    bad = {}
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        g = grads[id(ffn_p[name])]
+        layers = ffn_p[name].shape[0]
+        if g is None:
+            bad[name] = list(range(layers))
+            continue
+        finite = torch.isfinite(g).flatten(1).all(1)
+        live = (g != 0).flatten(1).any(1)
+        bad[name] = [i for i in range(layers)
+                     if not (bool(finite[i]) and bool(live[i]))]
+    del grads
+    return {"loss": loss.item(), "bad_layers": bad,
+            "ok": not any(bad.values())}
+
+
+def train_full(seed: int):
+    """(a) and (b): granite-moe-3b at published widths and all 32 layers,
+    bfloat16, through ``launch.train.main``; then 'spmm' for
+    TRAIN_B_STEPS steps from its state, the grad gate and its planted
+    fault. Returns (summary, {path: counts})."""
+    import tempfile
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+    from repro_torch.optim import AdamWConfig, adamw_update
+    torch.backends.cuda.matmul.allow_tf32 = True
+    a = TRAIN_A
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        out = tlaunch.main([
+            "--arch", TRAIN_ARCH, "--steps", str(a["steps"]),
+            "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+            "--ckpt-dir", d, "--ckpt-every", str(10 * a["steps"]),
+            "--no-resume", "--log-every", "1"])
+    torch.cuda.synchronize()
+    counts = {"train_sort": kernels.launch_counts()}
+    trainer, hist = out["trainer"], out["history"]
+    model, params, opt = trainer.model, out["params"], out["opt_state"]
+    cfg = model.cfg
+    tokens = a["batch"] * a["seq"]
+    step_ms = [h["ms"] for h in hist]
+    med = median(step_ms[1:])
+    s = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+             dispatch=cfg.moe.dispatch, remat=cfg.remat,
+             dtype=cfg.param_dtype, n_params=model.n_params(),
+             batch=a["batch"], seq=a["seq"], tokens_per_step=tokens,
+             init_s=trainer.init_s, losses=[h["loss"] for h in hist],
+             grad_norms=[h["grad_norm"] for h in hist], step_ms=step_ms,
+             median_step_ms_1_5=med, tokens_per_s=tokens / med * 1e3,
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    require(len(hist) == a["steps"], f"(a) logged {len(hist)} steps")
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in hist), f"(a) a loss or grad norm is not finite: "
+            f"{s['losses']} {s['grad_norms']}")
+    require(counts["train_sort"]["ell_spmm"] == 0,
+            "(a) 'sort' training launched K9")
+    # one more step split: forward + backward, then the AdamW update
+    batch = trainer._batch(a["steps"])
+    leaves = tree_leaves(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gtree = tree_unflatten(params, grads)
+    adamw_update(params, gtree, opt, trainer.opt_cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    s["split_ms"] = {"forward_backward": (t1 - t0) * 1e3,
+                     "adamw_update": (t2 - t1) * 1e3}
+    del grads, gtree, loss
+    s["resident_gib"] = torch.cuda.memory_allocated() / 2**30
+    print(f"[train] (a) {cfg.name} {cfg.n_layers} layers d_model "
+          f"{cfg.d_model}, {s['n_params']} parameters bf16, 'sort', remat "
+          f"'full', {a['batch']} x {a['seq']}: {json.dumps(s)}", flush=True)
+
+    # (b) 'spmm' from the same state: K9 forward and its autograd backward
+    model_b = build_model(train_config("spmm"))
+    step = make_train_step(model_b, AdamWConfig())
+    batches = [trainer._batch(a["steps"] + 1 + i)
+               for i in range(TRAIN_B_STEPS)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    b_ms, b_losses = [], []
+    for bt in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, bt)
+        b_losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        b_ms.append((time.perf_counter() - t0) * 1e3)
+    counts["train_spmm"] = kernels.launch_counts()
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    # each MoE layer's forward launches K9's dispatch and combine grids;
+    # the checkpoint's recompute in the backward launches them again, as
+    # far as the saved tensors it needs (its early stop may spare the
+    # combine, whose output nothing saves)
+    fwd = TRAIN_B_STEPS * n_moe * k9_grids(cfg, tokens)
+    got = counts["train_spmm"]["ell_spmm"]
+    require(all(math.isfinite(x) for x in b_losses),
+            f"(b) a loss is not finite: {b_losses}")
+    require(fwd < got <= 2 * fwd, f"(b) 'spmm' launched K9's grids {got} "
+            f"times, not in ({fwd}, {2 * fwd}] ({TRAIN_B_STEPS} steps x "
+            f"{n_moe} layers, forward and recompute)")
+    gate = moe_grad_gate(model_b, params, batches[0])
+    require(gate["ok"], f"(b) MoE grads dead or not finite: {gate}")
+    orig = ops.ell_spmm
+
+    def detached(*args):
+        return orig(*args).detach()
+    ops.ell_spmm = detached
+    try:
+        planted = moe_grad_gate(model_b, params, batches[0])
+    finally:
+        ops.ell_spmm = orig
+    require(not planted["ok"], "(b) the gate passed with K9's output "
+            "detached: it cannot see a missing gradient")
+    sb = dict(step_ms=b_ms, losses=b_losses, k9_grids=got,
+              k9_grids_one_forward=fwd,
+              gate_loss=gate["loss"], planted_bad_layers={
+                  k: len(v) for k, v in planted["bad_layers"].items()})
+    print(f"[train] (b) 'spmm' {TRAIN_B_STEPS} steps from (a)'s state, K9 "
+          f"forward + autograd backward: {json.dumps(sb)}; gate passed, and "
+          f"with K9's output detached it fails", flush=True)
+    s["spmm"] = sb
+    del params, opt, out, trainer, model, model_b, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return s, counts
+
+
+def train_cut_card_vs_cpu(seed: int) -> dict:
+    """(c): the 2-layer cut at published widths, float32, TF32 off, one
+    loss and backward from the same weights on the card and on the CPU,
+    for 'sort' and 'spmm'."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, sq = TRAIN_C
+    res = {}
+    for dispatch in ("sort", "spmm"):
+        cfg = train_config(dispatch, n_layers=TRAIN_CUT,
+                           param_dtype="float32", compute_dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed + 7))
+        toks = torch.from_numpy(np.random.default_rng(seed + 8).integers(
+            3, cfg.vocab, (b, sq)).astype(np.int32))
+        out = {}
+        for where in ("card", "cpu"):
+            p = params if where == "card" \
+                else tree_map(lambda t: t.detach().cpu(), params)
+            leaves = tree_leaves(p)
+            for t in leaves:
+                t.requires_grad_(True)
+            t0 = time.perf_counter()
+            loss = model.loss(p, {"tokens": toks.to(dev) if where == "card"
+                                  else toks})
+            grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+            out[where] = (float(loss), grads, time.perf_counter() - t0)
+        (lc, gc_, tc), (lh, gh, th) = out["card"], out["cpu"]
+        loss_rel = abs(lc - lh) / abs(lh)
+        grad_rel = max(float((x - y).abs().max()) / float(y.abs().max())
+                       for x, y in zip(gc_, gh) if float(y.abs().max()) > 0)
+        res[dispatch] = dict(loss_card=lc, loss_cpu=lh, loss_rel=loss_rel,
+                             worst_grad_rel=grad_rel, card_s=tc, cpu_s=th)
+        require(loss_rel <= TRAIN_TOL_C[0], f"(c) {dispatch}: loss off by "
+                f"{loss_rel} relative")
+        require(grad_rel <= TRAIN_TOL_C[1], f"(c) {dispatch}: a grad off by "
+                f"{grad_rel} of its max")
+        del params, out, model
+    torch.backends.cuda.matmul.allow_tf32 = True
+    print(f"[train] (c) {TRAIN_CUT}-layer cut, float32, card vs CPU, "
+          f"{b} x {sq} tokens: {json.dumps(res)}", flush=True)
+    return res
+
+
+def train_cut_learns_and_resumes(seed: int) -> dict:
+    """(d) and (e): the 2-layer cut in bfloat16 learns over TRAIN_D's steps
+    (the last logged loss below the first by TRAIN_DROP_D), and a run
+    saved at step TRAIN_E['save'] resumes in a fresh ``Trainer`` from
+    leaves equal to the saved ones bit for bit, its history starting
+    there."""
+    import tempfile
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    model = build_model(train_config(n_layers=TRAIN_CUT))
+    d_cfg = TRAIN_D
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        tcfg = TrainerConfig(steps=d_cfg["steps"], log_every=5,
+                             ckpt_every=10 * d_cfg["steps"], ckpt_dir=d,
+                             global_batch=d_cfg["batch"],
+                             seq_len=d_cfg["seq"], seed=seed)
+        out = Trainer(model, tcfg, AdamWConfig(
+            lr=d_cfg["lr"], warmup_steps=d_cfg["warmup_steps"])).run(
+                resume=False)
+    losses = [h["loss"] for h in out["history"]]
+    res["d"] = dict(losses=losses, drop=losses[0] - losses[-1])
+    print(f"[train] (d) {TRAIN_CUT}-layer cut, bf16, {d_cfg['steps']} steps "
+          f"lr {d_cfg['lr']}: {json.dumps(res['d'])}", flush=True)
+    require(all(math.isfinite(x) for x in losses) and
+            losses[-1] < losses[0] - TRAIN_DROP_D,
+            f"(d) the loss did not drop by {TRAIN_DROP_D}: {losses}")
+    del out
+    e = TRAIN_E
+    with tempfile.TemporaryDirectory() as d:
+        base = TrainerConfig(steps=e["save"], log_every=1,
+                             ckpt_every=e["save"], ckpt_dir=d, keep_n=1,
+                             global_batch=e["batch"], seq_len=e["seq"],
+                             seed=seed)
+        first_tr = Trainer(model, base)
+        save_ms = []
+        orig_save = first_tr.ckpt.save
+
+        def timed_save(*args, **kw):
+            r, ms = timed_ms(lambda: orig_save(*args, **kw))
+            save_ms.append(ms)
+            return r
+        first_tr.ckpt.save = timed_save
+        first = first_tr.run(resume=False)
+        nbytes = sum(f.stat().st_size for f in
+                     (Path(d) / f"step_{e['save']:08d}").iterdir())
+        second = Trainer(model, dataclasses.replace(base, steps=e["steps"]))
+        restored, restore_ms = [], []
+        orig_restore = second.ckpt.restore
+
+        def kept_restore(*args, **kw):
+            r, ms = timed_ms(lambda: orig_restore(*args, **kw))
+            restore_ms.append(ms)
+            restored.append(tree_map(lambda t: t.detach().clone(), r[:2]))
+            return r
+        second.ckpt.restore = kept_restore
+        resumed = second.run(resume=True)
+        require(len(save_ms) == 1 and len(restored) == 1,
+                f"(e) {len(save_ms)} saves, {len(restored)} restores")
+        saved = tree_leaves((first["params"], first["opt_state"]))
+        back = tree_leaves(restored[0])
+        require(len(saved) == len(back), "(e) restored tree differs")
+        n_bf16 = 0
+        for x, y in zip(saved, back):
+            require(x.dtype == y.dtype and y.device == x.device and
+                    torch.equal(bits(x), bits(y)),
+                    f"(e) a restored leaf differs from the saved one "
+                    f"({x.dtype} {tuple(x.shape)})")
+            n_bf16 += x.dtype == torch.bfloat16
+        steps = [h["step"] for h in resumed["history"]]
+        require(steps and steps[0] == e["save"],
+                f"(e) the resumed history starts at {steps[:1]}, not "
+                f"{e['save']}")
+    res["e"] = dict(save_ms=save_ms[0], restore_ms=restore_ms[0],
+                    checkpoint_bytes=nbytes, leaves=len(saved),
+                    bf16_leaves=n_bf16, resumed_steps=steps)
+    print(f"[train] (e) checkpoint at step {e['save']} and resume: "
+          f"{json.dumps(res['e'])}; every leaf restored bit for bit",
+          flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def k9_backward_shape(seed: int) -> dict:
+    """(f) K9's training route (``ops.ell_spmm``, the ``EllSpmm``
+    Function: K9 forward, backward in torch ops) against the plain twin's
+    own autograd on the card at the dispatch shape K9_BWD, with dead
+    lanes: dX and dval bit for bit on integer-valued float32 operands; in
+    bfloat16, each gradient within one bfloat16 rounding (BF16_ROUND·|g|)
+    of the float32 gradients of the widened operands. The backward's ms,
+    the twin's, and the bytes bound of the backward (dY read at the valid
+    lanes' rows, X and the planes read, dX and dval written)."""
+    import torch
+    from repro_torch.kernels import ell_spmm as k9
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    k, n, n_rows, d = K9_BWD
+    rng = np.random.default_rng(seed + 9)
+    idx = rng.integers(0, n_rows, (k, n)).astype(np.int32)
+    idx[rng.random((k, n)) < 0.25] = -1
+    ti = torch.from_numpy(idx).to(dev)
+    val = int_tensor(rng, (k, n), dev)
+    x = int_tensor(rng, (n, d), dev)
+    dy = int_tensor(rng, (n_rows, d), dev)
+
+    def grads(route, v, xx, g):
+        v = v.detach().requires_grad_(True)
+        xx = xx.detach().requires_grad_(True)
+        y = ops.ell_spmm(v, ti, xx, n_rows) if route == "kernel" \
+            else k9.ell_spmm_plain(v, ti, xx, n_rows)
+        return torch.autograd.grad(y, (v, xx), g)
+
+    got, want = grads("kernel", val, x, dy), grads("plain", val, x, dy)
+    for name, g, w in zip(("dval", "dX"), got, want):
+        same(f"ell_spmm backward {name}", g, w)
+    fv = (val * torch.rand(val.shape, device=dev)).bfloat16()
+    fx = (x * torch.rand(x.shape, device=dev)).bfloat16()
+    fdy = (dy * torch.rand(dy.shape, device=dev)).bfloat16()
+    g16 = grads("kernel", fv, fx, fdy)
+    g32 = grads("kernel", fv.float(), fx.float(), fdy.float())
+    err16 = 0.0
+    for name, g, w in zip(("dval", "dX"), g16, g32):
+        require(g.dtype == torch.bfloat16 and bool(
+            ((g.float() - w).abs() <= BF16_ROUND * w.abs()).all()),
+            f"ell_spmm backward bf16 {name}: off the float32 gradient by "
+            "more than one bfloat16 rounding")
+        err16 = max(err16, float((g.float() - w).abs().max()))
+    live = int((ti >= 0).sum())
+    t_b, by = bound(4 * (live * d + n * d + 2 * k * n) + 4 * (n * d + k * n),
+                    4 * live * d)
+    y = ops.ell_spmm(val.requires_grad_(True), ti, x.requires_grad_(True),
+                     n_rows)
+    r = dict(shape=f"backward of dispatch ({k},{n}) x ({n},{d}) -> "
+             f"({n_rows},{d}), {live} valid lanes", max_abs_err=0.0,
+             bf16_max_abs_err=err16,
+             ms=cuda_ms(lambda: torch.autograd.grad(y, (val, x), dy,
+                                                    retain_graph=True), 3),
+             plain_ms=cuda_ms(lambda: grads("plain", val, x, dy), 3),
+             bound_ms=t_b, bound_by=by)
+    print(f"[kernel] ell_spmm backward (torch ops) {r['shape']}: dX, dval "
+          f"bit-identical to the twin's autograd; {json.dumps(r)}",
+          flush=True)
+    del y, val, x, dy, got, want, g16, g32
+    torch.cuda.empty_cache()
+    return r
+
+
+def k10_bf16_shape(seed: int) -> dict:
+    """(f) K10's bfloat16 entry at fc_in's shape K10_BF16: within one
+    bfloat16 rounding of K10's float32 result on the widened operands
+    (max|y − y32| ≤ BF16_ROUND·max|y32|), and within two of the plain
+    twin's bfloat16 result on the same inputs (both round float32 sums,
+    summed in different orders, to bfloat16: max|y − y_plain| ≤
+    2·BF16_ROUND·max|y_plain|); its ms beside the plain twin's
+    and ``x @ wp`` in bfloat16, bound by the condensed product at the bf16
+    tensor cores' rate (passed as the operations that take the same time
+    at the CUDA-core rate) or by bytes."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import nm_spmm as k10
+    dev = torch.device("cuda")
+    t, d_in, d_out, (n, m) = K10_BF16
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    x = torch.randn((t, d_in), generator=g, device=dev).bfloat16()
+    w = torch.randn((d_in, d_out), generator=g, device=dev)
+    wp = repro_torch.magnitude_prune_nm(w, n, m)
+    wn = repro_torch.nm_from_dense(wp, n, m)
+    val, off = wn.val.bfloat16(), wn.off
+    wp16 = wp.bfloat16()
+    del w
+    before = k10.nm_spmm.launches
+    y = k10.nm_spmm(x, val, off, n=n, m=m)
+    torch.cuda.synchronize()
+    require(k10.nm_spmm.launches == before + 1 and y.dtype == torch.bfloat16,
+            "nm_spmm bf16: not one launch with a bfloat16 result")
+    y32 = k10.nm_spmm(x.float(), val.float(), off, n=n, m=m)
+    err = float((y.float() - y32).abs().max())
+    tol = BF16_ROUND * float(y32.abs().max())
+    require(err <= tol, f"nm_spmm bf16: max|y - y32| {err} > {tol}")
+    yp = k10.nm_spmm_plain(x, val, off, n=n, m=m).float()
+    plain_err = float((y.float() - yp).abs().max())
+    plain_tol = 2 * BF16_ROUND * float(yp.abs().max())   # two roundings
+    require(plain_err <= plain_tol,
+            f"nm_spmm bf16: max|y - plain| {plain_err} > {plain_tol}")
+    r_ = wn.r
+    t_b, by = bound(2 * t * d_in + 3 * r_ * d_out + 2 * t * d_out,
+                    2 * t * r_ * d_out * CORE_OPS_PER_S / BF16_TC_OPS_PER_S)
+    r = dict(shape=f"fc_in bf16: ({t},{d_in}) x {n}:{m} ({r_},{d_out})",
+             dtype="bfloat16", max_abs_err=err, tol=tol,
+             plain_err=plain_err, plain_tol=plain_tol,
+             ms=cuda_ms(lambda: k10.nm_spmm(x, val, off, n=n, m=m), 3),
+             plain_ms=cuda_ms(lambda: k10.nm_spmm_plain(x, val, off, n=n,
+                                                        m=m), 2),
+             library_ms=cuda_ms(lambda: x @ wp16, 5),
+             bound_ms=t_b, bound_by=by)
+    print(f"[kernel] nm_spmm bf16 {r['shape']}: within one bfloat16 "
+          f"rounding of the float32 result, two of the plain twin's "
+          f"bfloat16 result; {json.dumps(r)}", flush=True)
+    del x, y, y32, yp, wp, wp16, val, off, wn
+    torch.cuda.empty_cache()
+    return r
+
+
+def train_phase(seed: int):
+    """Training on the LM stack (see the module docstring, phase 6f).
+    Returns (K9 shape entries, K10 shape entries, {path: counts},
+    summary)."""
+    import torch
+    summary, counts = {}, {}
+    summary["a_b"], counts = train_full(seed)
+    summary["c"] = train_cut_card_vs_cpu(seed)
+    summary.update(train_cut_learns_and_resumes(seed))
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(seed + 11)
+    k9_rows = k9_bf16_shape(f"train T={TRAIN_A['batch'] * TRAIN_A['seq']}",
+                            train_config(), TRAIN_A["batch"] * TRAIN_A["seq"],
+                            g)
+    k9_rows.append(k9_backward_shape(seed))
+    return k9_rows, [k10_bf16_shape(seed)], counts, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3430,6 +3920,17 @@ def main(argv=None) -> int:
     counts.update(lm_counts)
     next(r for r in rows if r["name"] == "ell_spmm")["shapes"] += lm_shapes
     print(json.dumps({"lm": lm_summary}), flush=True)
+
+    # -- phase 6f: training on the LM stack ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] resident before the phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    k9_train, k10_train, train_counts, train_summary = train_phase(args.seed)
+    counts.update(train_counts)
+    next(r for r in rows if r["name"] == "ell_spmm")["shapes"] += k9_train
+    next(r for r in rows if r["name"] == "nm_spmm")["shapes"] += k10_train
+    print(json.dumps({"train": train_summary}), flush=True)
 
     # -- phase 7: the kernels line and the result ------------------------------
     for r in rows:

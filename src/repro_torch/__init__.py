@@ -45,14 +45,20 @@ and the LM stack's token serving (the decoder families built on attention;
     eng = repro_torch.ServingEngine(model, params, repro_torch.ServeConfig())
     outs = eng.generate_batch(prompts)                 # prefill + decode
 
+and training on it (``python -m repro_torch.launch.train --arch <id>``):
+
+    trainer = repro_torch.runtime.Trainer(model, repro_torch.runtime
+                                          .TrainerConfig(steps=100))
+    out = trainer.run()                                # AdamW, checkpoints
+
 Constructors default to ``default_device()`` (CUDA, or an error); pass
 ``device="cpu"`` to run the kernels' plain torch versions on the CPU. The
 CUDA kernels build from ``src/repro_torch/csrc`` on first use.
 ``repro_torch.obs.enable()`` turns on the spans and counters the entry points
 report through (``obs.export_chrome(path)`` writes a Chrome trace).
 """
-from . import configs, core, kernels, launch, models, obs, parallel, plan, \
-    serve
+from . import checkpoint, configs, core, data, kernels, launch, models, \
+    obs, optim, parallel, plan, runtime, serve
 from .core import hwmodel, hybrid, sccp
 from .core.accumulate import AccumulatorOverflow, check_no_overflow
 from .core.api import spgemm
@@ -80,7 +86,8 @@ __all__ = [
     *_MODULES, "AccumulatorOverflow", "Coo", "DistPlan", "EllCols",
     "EllRows", "Model", "NmWeights", "Plan", "ServeConfig", "ServingEngine", "SparseGemmBatcher",
     "SparseLinear", "SparseMLP", "SpgemmStructure", "StructureCache",
-    "build_model", "check_no_overflow", "coo_from_dense", "launch", "count_products",
+    "build_model", "check_no_overflow", "checkpoint", "coo_from_dense",
+    "count_products", "data", "launch", "optim", "runtime",
     "default_device", "detect_nm", "ell_cols_from_dense",
     "ell_rows_from_dense", "fingerprint", "from_numpy", "magnitude_prune",
     "magnitude_prune_nm", "make_dist_plan", "make_plan", "make_structure",

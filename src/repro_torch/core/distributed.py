@@ -5,7 +5,10 @@ Paper Fig. 6(c): B column-vectors rotate from array to array while A
 row-vectors stay; every array multiplies its resident A slabs by the
 visiting B slabs, and intermediate results never cross arrays (§VI-D). The
 reference maps the arrays to a mesh axis under ``shard_map``; here one host
-program drives every shard of a 1-D ``parallel.mesh.Mesh``: a shard is a
+program drives every shard along one named axis of a ``parallel.mesh.Mesh``
+(any number of axes: the group at index 0 of the others runs, the other
+axes replicate, as ``shard_map`` over one axis computes the same result in
+every group): a shard is a
 tensor on its device, a rotation is ``mesh.ppermute`` (a fresh copy on the
 destination, so shards never alias, even all on ``cuda:0``), and a step is
 a loop over the shards. Every shard's products are K1

@@ -13,13 +13,19 @@ chunk's V/O rows into a dense weight tile in shared memory (rows of one
 window that share an offset add, offsets outside [0, M) add nothing), and
 multiplies them on the FP64 tensor cores (``mma.sync`` m16n8k8 .f64): the
 fp32 operands widen exactly, products are exact and the sums run in
-double, so each result is rounded once, to fp32. It is bound by the
-dense-expanded operations (2·t·d_in·d_out). It masks the ragged token,
+double, so each result is rounded once, to fp32. A bfloat16 entry
+(``nm_spmm_bf16``: X and V bfloat16) runs the same tiles and pipeline on
+the bf16 tensor cores (``mma.sync`` m16n8k16 .bf16, float32 sums: the
+reference's accumulator) and rounds each result once, to bfloat16, the
+output in ``x.dtype``. Both are bound by the dense-expanded operations
+(2·t·d_in·d_out). It masks the ragged token,
 column and window edges itself, so the front pads nothing.
 
 ``nm_spmm`` checks the shapes and launches the kernel for CUDA tensors; it
 runs ``nm_spmm_plain`` (the reference's ``nm_spmm_xla``: M masked products,
-accumulated in float32) only for tensors the caller put on the CPU.
+accumulated in float32) only for tensors the caller put on the CPU. On the
+card X and V must share one dtype, float32 or bfloat16 (``_ENTRIES``);
+anything else raises ``TypeError``.
 ``nm_spmm.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -83,9 +89,9 @@ def nm_spmm(x: torch.Tensor, val: torch.Tensor, off: torch.Tensor, *,
         return nm_spmm_plain(x, val, off, n=n, m=m)
     if dev.type != "cuda":
         raise ValueError(f"nm_spmm: no kernel for device {dev}")
-    if x.dtype != torch.float32 or val.dtype != torch.float32:
-        raise TypeError("nm_spmm kernel takes float32 x and values, got "
-                        f"{x.dtype}/{val.dtype}")
+    if x.dtype not in _ENTRIES or val.dtype != x.dtype:
+        raise TypeError("nm_spmm kernel takes float32 or bfloat16 x and "
+                        f"values of one dtype, got {x.dtype}/{val.dtype}")
     if off.dtype != torch.int8:
         raise TypeError(f"nm_spmm kernel takes int8 offsets, got {off.dtype}")
     if not all(v.is_contiguous() for v in (x, val, off)):
@@ -96,19 +102,23 @@ def nm_spmm(x: torch.Tensor, val: torch.Tensor, off: torch.Tensor, *,
     return y
 
 
+_ENTRIES = {torch.float32: "nm_spmm_f32", torch.bfloat16: "nm_spmm_bf16"}
+_SIG = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p])
+
+
 def launch(lib_name: str, x: torch.Tensor, val: torch.Tensor,
            off: torch.Tensor, *, n: int, m: int) -> torch.Tensor:
-    """Run ``nm_spmm_f32`` of the library ``lib_name`` on checked CUDA
-    operands: K10 itself, or a probe build of its source
-    (``_build.VARIANTS``). Counts nothing; ``nm_spmm`` is the wrapper."""
+    """Run the entry for ``x.dtype`` (``_ENTRIES``) of the library
+    ``lib_name`` on checked CUDA operands: K10 itself, or a probe build of
+    its source (``_build.VARIANTS``). Counts nothing; ``nm_spmm`` is the
+    wrapper."""
     t, d_in = x.shape
     d_out = val.shape[1]
     dev = x.device
-    y = torch.empty((t, d_out), dtype=torch.float32, device=dev)
-    lib, fns = _build.bind(lib_name, {"nm_spmm_f32": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p])})
-    fn = fns["nm_spmm_f32"]
+    y = torch.empty((t, d_out), dtype=x.dtype, device=dev)
+    lib, fns = _build.bind(lib_name, {e: _SIG for e in _ENTRIES.values()})
+    fn = fns[_ENTRIES[x.dtype]]
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), val.data_ptr(), off.data_ptr(), y.data_ptr(),
                  t, d_in, d_out, n, m, *k_chunk(m),

@@ -14,7 +14,7 @@ accumulations run over a packed stream:
   * ``hash_merge``   — per-row-block open-addressing tables (``'hash'``).
 
 ``ell_spmm`` is the ELLPACK × dense SpMM behind MoE's ``'spmm'`` dispatch
-(K9).
+(K9), differentiable (``EllSpmm``).
 
 Coordinate spaces with ``n_rows·n_cols ≥ 2³¹−1`` cannot pack and raise;
 ``spgemm_coo`` reroutes them to the unpacked two-key ``'sort'``.
@@ -173,9 +173,56 @@ def hash_merge(row, col, val, n_rows: int, n_cols: int, *,
         max_probes=max_probes)
 
 
+class EllSpmm(torch.autograd.Function):
+    """``Y = A·X`` for row-wise ELLPACK planes under autograd. The forward is
+    K9 on CUDA tensors and its plain twin on CPU tensors
+    (``ell_spmm.ell_spmm``); the backward is written once in torch ops,
+    as the reference leaves its gradient to XLA's autodiff of
+    ``spmm_ell_dense``. With dead lanes (index < 0) adding nothing:
+
+      dX[c]      = Σ_s val[s, c] · dY[idx[s, c]]
+      dval[s, c] = ⟨dY[idx[s, c]], X[c]⟩
+
+    and ``idx`` gets none. Both are computed in float32 (float64 stays
+    float64), one slab ``s`` at a time in slab order, and returned in their
+    input's dtype."""
+
+    @staticmethod
+    def forward(ctx, a_val, a_idx, x, n_rows: int):
+        ctx.save_for_backward(a_val, a_idx, x)
+        return _ell_spmm.ell_spmm(a_val, a_idx, x, n_rows)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a_val, a_idx, x = ctx.saved_tensors
+        need_val, _, need_x, _ = ctx.needs_input_grad
+        acc = torch.promote_types(torch.float32, x.dtype)
+        dy = dy.to(acc)
+        live = a_idx >= 0
+        rows = torch.where(live, a_idx, 0).long()
+        val = torch.where(live, a_val.to(acc), 0)
+        dx = torch.zeros(x.shape, dtype=acc, device=x.device) \
+            if need_x else None
+        dval = torch.zeros(a_val.shape, dtype=acc, device=x.device) \
+            if need_val else None
+        xa = x.to(acc) if need_val else None
+        for s in range(a_val.shape[0]):
+            g = dy[rows[s]]                                   # (n, d)
+            if need_x:
+                dx += val[s, :, None] * g
+            if need_val:
+                dval[s] = torch.where(live[s], (g * xa).sum(-1), 0)
+            del g
+        return (None if dval is None else dval.to(a_val.dtype), None,
+                None if dx is None else dx.to(x.dtype), None)
+
+
 def ell_spmm(a_val, a_idx, x, n_rows: int):
     """A (row-wise ELLPACK planes) @ X → (n_rows, d) in ``x.dtype`` (K9,
-    ``ell_spmm.ell_spmm``; its plain twin for CPU operands). The kernel
-    masks the ragged edges itself, so nothing is padded and X is not cut
-    into the reference's 512-wide chunks."""
+    ``ell_spmm.ell_spmm``; its plain twin for CPU operands), differentiable
+    in ``a_val`` and ``x`` (``EllSpmm``). The kernel masks the ragged edges
+    itself, so nothing is padded and X is not cut into the reference's
+    512-wide chunks."""
+    if torch.is_grad_enabled() and (a_val.requires_grad or x.requires_grad):
+        return EllSpmm.apply(a_val, a_idx, x, n_rows)
     return _ell_spmm.ell_spmm(a_val, a_idx, x, n_rows)

@@ -3,7 +3,7 @@ architecture with uniform step functions.
 
   model.init(generator, device)             -> params (real tensors)
   model.abstract_params()                   -> tensors on the meta device
-  model.loss(params, batch)                 -> scalar (forward only)
+  model.loss(params, batch)                 -> scalar (differentiable)
   model.prefill(params, batch, s_max)       -> (last_logits, cache)
   model.decode_step(params, cache, tokens)  -> (logits, cache)
   model.input_specs(shape_case)             -> {name: (torch.Size, dtype)}

@@ -60,6 +60,33 @@ def tree_leaves(tree, is_leaf: Callable = None) -> list:
     return out
 
 
+def tree_unflatten(tree, leaves) -> Tree:
+    """``tree``'s structure with its leaves replaced, in ``tree_leaves``
+    order, by ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def tree_items(tree, sort: bool = False, prefix: str = "") -> list:
+    """``(path, leaf)`` pairs, the path the dict keys and list indices down
+    to the leaf joined by ``/`` (``segments/0/u0/attn/wq``). In
+    ``tree_map``'s order, or with ``sort`` in the reference's: dict keys
+    sorted (the order ``jax.tree.leaves`` gives), lists in order."""
+    if isinstance(tree, dict):
+        keys = sorted(tree) if sort else tree
+        return [it for k in keys
+                for it in tree_items(tree[k], sort, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [it for i, v in enumerate(tree)
+                for it in tree_items(v, sort, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def sorted_leaves(tree) -> list:
+    """Leaves in the reference's order (``tree_items(tree, sort=True)``)."""
+    return [x for _, x in tree_items(tree, sort=True)]
+
+
 def stack(spec_tree: Tree, n: int, axis_name: Optional[str] = None) -> Tree:
     """Prepend a layer-stack dimension to every Spec."""
     return tree_map(

@@ -19,13 +19,25 @@ The kinds ``mamba`` (falcon-mamba) and ``rec`` (recurrentgemma) raise
 Caches are preallocated at ``s_max`` (``decoder_cache_zeros``) and written
 in place: prefill fills them, every decode step writes its token's entries
 and returns the same tensors. ``pos`` is a Python int.
+
+The loss is differentiable: a stacked segment's leaves are split into their
+layers with ``unbind`` (whose backward stacks the layers' grads once, where
+indexing would add a zero-filled leaf-sized grad for every layer), and with
+grad enabled and no cache wanted each layer's block runs under
+``torch.utils.checkpoint`` as ``cfg.remat`` asks, the reference's
+``_maybe_remat``: ``"full"`` saves only each block's inputs, ``"dots"``
+saves the matmul outputs (a selective-checkpoint policy, the counterpart of
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest. Remat
+changes memory, never values.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.utils.checkpoint as _ckpt
 
 from . import attention as attn
 from . import ffn
@@ -241,6 +253,42 @@ def _layers(seg, reps: int):
         yield tree_map(lambda a: a[i], seg)
 
 
+def _unstack(tree, reps: int) -> list:
+    """The ``reps`` per-layer trees of a stacked segment, each leaf split
+    once with ``unbind``; a segment of one repeat is its own layer."""
+    if reps == 1:
+        return [tree]
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, reps) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(reps)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, reps) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(reps)]
+    return list(tree.unbind(0))
+
+
+def _remat(fn, cfg):
+    """``fn`` under the activation checkpoint ``cfg.remat`` names (None for
+    ``"none"``)."""
+    # the blocks draw no random numbers: no RNG state to keep for the
+    # recompute
+    ckpt = functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
+    if cfg.remat == "full":
+        return ckpt
+    if cfg.remat == "dots":
+        aten = torch.ops.aten
+        matmuls = {aten.mm.default, aten.bmm.default, aten.addmm.default,
+                   aten.baddbmm.default}
+
+        def save_matmuls(ctx, op, *args, **kwargs):
+            return (_ckpt.CheckpointPolicy.MUST_SAVE if op in matmuls
+                    else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+        return functools.partial(ckpt, context_fn=functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, save_matmuls))
+    return None
+
+
 def decoder_forward(params, tokens, cfg, *, prefix_embed=None,
                     want_cache: bool = False, s_max: int = 0,
                     return_hidden: bool = False):
@@ -257,15 +305,23 @@ def decoder_forward(params, tokens, cfg, *, prefix_embed=None,
     caches = decoder_cache_zeros(cfg, x.shape[0], s_max,
                                  device=x.device)["layers"] \
         if want_cache else None
+    remat = None
+    if torch.is_grad_enabled() and not want_cache:
+        remat = _remat(block_apply_full, cfg)
     for j, (seg_params, (unit, reps)) in enumerate(
             zip(params["segments"], segment_plan(cfg))):
         seg_cache = _layers(caches[j], reps) if want_cache \
             else itertools.repeat(None)
-        for p_slice, c_slice in zip(_layers(seg_params, reps), seg_cache):
+        for p_slice, c_slice in zip(_unstack(seg_params, reps), seg_cache):
             for i, kind in enumerate(unit):
-                x, aux, _ = block_apply_full(
-                    p_slice[f"u{i}"], x, cfg, kind, dtype, want_cache, s_max,
-                    cache=c_slice[f"u{i}"] if want_cache else None)
+                if remat is not None:
+                    x, aux, _ = remat(p_slice[f"u{i}"], x, cfg, kind, dtype,
+                                      False)
+                else:
+                    x, aux, _ = block_apply_full(
+                        p_slice[f"u{i}"], x, cfg, kind, dtype, want_cache,
+                        s_max,
+                        cache=c_slice[f"u{i}"] if want_cache else None)
                 aux_total = aux_total + aux
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     if return_hidden:
@@ -274,7 +330,8 @@ def decoder_forward(params, tokens, cfg, *, prefix_embed=None,
 
 
 def decoder_loss(params, tokens, cfg, prefix_embed=None) -> torch.Tensor:
-    """LM loss (forward only) through ``sharded_softmax_xent``."""
+    """LM loss through ``sharded_softmax_xent``, differentiable in
+    ``params`` (leaves that require grad)."""
     dtype = torch_dtype(cfg.compute_dtype)
     hidden, aux, _ = decoder_forward(params, tokens, cfg,
                                      prefix_embed=prefix_embed,

@@ -24,7 +24,9 @@ device of the mesh axis, and a collective maps such lists to lists:
 A ``Mesh`` is an array of torch devices with axis names; a device may
 repeat, so four shards of one card are ``make_mesh((4,), ("x",))`` on a
 one-card machine. Its ``shape`` maps each axis name to its size, as
-JAX's does. ``make_mesh`` defaults to the CUDA devices; a CPU mesh exists
+JAX's does. A mesh may have any number of axes: ``axis_groups(axis)`` lists
+the device groups along one axis, and the sharded paths run on the first
+group (``axis_devices``), the other axes replicating. ``make_mesh`` defaults to the CUDA devices; a CPU mesh exists
 only where the caller passes CPU devices.
 
 ``moved_bytes()`` reads, and ``reset_moved_bytes()`` zeroes, the bytes the
@@ -71,17 +73,24 @@ class Mesh:
     def size(self) -> int:
         return self.devices.size
 
-    def axis_devices(self, axis: str) -> List[torch.device]:
-        """The devices along ``axis`` of a 1-D mesh, in order. The sharded
-        SpGEMM paths take 1-D meshes only; more axes raise ``ValueError``."""
+    def axis_groups(self, axis: str) -> List[List[torch.device]]:
+        """One device list along ``axis`` for each coordinate of the other
+        axes, in row-major order of those coordinates: the groups a
+        collective over ``axis`` runs in under ``shard_map``."""
         if axis not in self.shape:
             raise ValueError(f"mesh has no axis {axis!r} (axes "
                              f"{self.axis_names})")
-        if len(self.axis_names) != 1:
-            raise ValueError(
-                f"the sharded paths take a 1-D mesh; this one has axes "
-                f"{self.axis_names} of shape {self.devices.shape}")
-        return list(self.devices)
+        i = self.axis_names.index(axis)
+        lanes = np.moveaxis(self.devices, i, -1).reshape(-1,
+                                                         self.shape[axis])
+        return [list(row) for row in lanes]
+
+    def axis_devices(self, axis: str) -> List[torch.device]:
+        """The devices along ``axis`` at index 0 of every other axis, in
+        order. The sharded paths run on them, and the other axes replicate,
+        as ``n_dev = mesh.shape[axis]`` under ``shard_map`` has every group
+        along ``axis`` compute the same result."""
+        return self.axis_groups(axis)[0]
 
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, "

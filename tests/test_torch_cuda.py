@@ -1582,3 +1582,158 @@ def test_lm_moe_dispatches_agree_full_width(cuda, monkeypatch):
             assert err <= 2e-2 * scale, (t, dispatch, err, scale)
         err = float((dropped - ys["sort"]).abs().max())
         assert err > 2e-2 * scale, (t, "a dropped pair", err, scale)
+
+
+# ---------------------------------------------------------------------------
+# Training: K9 under autograd, K10 in bfloat16, one train step, and a mesh
+# of more than one axis
+# ---------------------------------------------------------------------------
+
+BF16_ROUND = 2.0 ** -8     # one rounding to bfloat16, relative
+
+
+@pytest.mark.parametrize("k,n,n_rows,d", [(6, 4096, 480, 128),
+                                          (8, 777, 100, 64),
+                                          (1, 4000, 1024, 96)])
+def test_ell_spmm_backward_on_card(cuda, k, n, n_rows, d):
+    """``ops.ell_spmm`` on CUDA tensors that require grad: the forward is
+    K9 (its grids counted), and dX and dval equal the plain twin's own
+    autograd gradients on the card bit for bit on integer operands with
+    dead lanes. In bfloat16 they come back bfloat16, each within one
+    bfloat16 rounding (BF16_ROUND·|g|) of the float32 gradients of the
+    widened operands."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(k * n + d)
+    idx = rng.integers(0, n_rows, (k, n)).astype(np.int32)
+    idx[rng.random((k, n)) < 0.3] = -1
+    ti = torch.from_numpy(idx).to(cuda)
+    val = torch.from_numpy(_ints(rng, (k, n))).to(cuda)
+    x = torch.from_numpy(_ints(rng, (n, d))).to(cuda)
+    dy = torch.from_numpy(_ints(rng, (n_rows, d))).to(cuda)
+    grads = {}
+    for route in ("kernel", "plain"):
+        v = val.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        before = tes.ell_spmm.launches
+        y = ops.ell_spmm(v, ti, xx, n_rows) if route == "kernel" \
+            else tes.ell_spmm_plain(v, ti, xx, n_rows)
+        torch.cuda.synchronize()
+        assert (tes.ell_spmm.launches > before) == (route == "kernel")
+        grads[route] = torch.autograd.grad(y, (v, xx), dy)
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        assert torch.equal(g, w)
+    fv = (val * torch.rand(val.shape, device=cuda)).bfloat16()
+    fx = (x * torch.rand(x.shape, device=cuda)).bfloat16()
+    bdy = (dy * torch.rand(dy.shape, device=cuda)).bfloat16()
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        v = fv.to(dt).requires_grad_(True)
+        xx = fx.to(dt).requires_grad_(True)
+        out[dt] = torch.autograd.grad(ops.ell_spmm(v, ti, xx, n_rows),
+                                      (v, xx), bdy.to(dt))
+    for g, w in zip(out[torch.bfloat16], out[torch.float32]):
+        assert g.dtype == torch.bfloat16
+        assert bool(((g.float() - w).abs() <= BF16_ROUND * w.abs()).all())
+
+
+@pytest.mark.parametrize("t,d_in,d_out,nm", [(130, 64, 131, (2, 4)),
+                                             (200, 256, 257, (4, 8)),
+                                             (512, 2048, 1024, (2, 4))])
+def test_nm_spmm_kernel_bf16(cuda, t, d_in, d_out, nm):
+    """K10's bfloat16 entry: one launch, bfloat16 out, within one bfloat16
+    rounding of K10's float32 result on the widened operands
+    (max|y − y32| ≤ BF16_ROUND·max|y32|), and equal to the plain twin on
+    small-integer operands (exact sums below 256); mixed dtypes raise."""
+    n, m = nm
+    g = torch.Generator(device=cuda).manual_seed(t + d_in)
+    x = torch.randn((t, d_in), generator=g, device=cuda).bfloat16()
+    w = torch.randn((d_in, d_out), generator=g, device=cuda)
+    w_nm = rt.nm_from_dense(rt.magnitude_prune_nm(w, n, m), n, m)
+    val = w_nm.val.bfloat16()
+    before = tnm.nm_spmm.launches
+    y = tnm.nm_spmm(x, val, w_nm.off, n=n, m=m)
+    torch.cuda.synchronize()
+    assert tnm.nm_spmm.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (t, d_out)
+    y32 = tnm.nm_spmm(x.float(), val.float(), w_nm.off, n=n, m=m)
+    assert float((y.float() - y32).abs().max()) \
+        <= BF16_ROUND * float(y32.abs().max())
+    rng = np.random.default_rng(t)
+    xi = torch.from_numpy(rng.integers(-1, 2, (t, d_in)).astype(np.float32)
+                          ).to(cuda).bfloat16()
+    vi = torch.from_numpy(rng.integers(-1, 2, tuple(val.shape))
+                          .astype(np.float32)).to(cuda).bfloat16()
+    assert torch.equal(tnm.nm_spmm(xi, vi, w_nm.off, n=n, m=m),
+                       tnm.nm_spmm_plain(xi, vi, w_nm.off, n=n, m=m))
+    with pytest.raises(TypeError):
+        tnm.nm_spmm(x, val.float(), w_nm.off, n=n, m=m)
+    with pytest.raises(TypeError):
+        tnm.nm_spmm(x.half(), val.half(), w_nm.off, n=n, m=m)
+
+
+@pytest.mark.parametrize("dispatch", ["sort", "spmm"])
+def test_train_step_card_vs_cpu(cuda, dispatch):
+    """granite-moe-3b cut to one layer at its published widths, float32
+    with TF32 off, on 2 x 32 tokens, from the same weights on the card and
+    on the CPU: the loss within 1e-5 relative and every leaf's grad within
+    1e-3·max|g_cpu|; then one train step on each, whose loss and grad norm
+    agree the same way and whose parameters stay finite; 'spmm' launches
+    K9 (forward), 'sort' does not."""
+    import dataclasses
+    from repro_torch.configs import granite_moe_3b
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = granite_moe_3b.CONFIG
+    cfg = dataclasses.replace(base, n_layers=1, param_dtype="float32",
+                              compute_dtype="float32",
+                              moe=dataclasses.replace(base.moe,
+                                                      dispatch=dispatch))
+    model = rt.build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(3))
+    p_cpu = tree_map(lambda a: a.cpu(), params)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32))
+    res = {}
+    for where, p, t in (("card", params, toks.to(cuda)),
+                        ("cpu", p_cpu, toks)):
+        leaves = tree_leaves(p)
+        for a in leaves:
+            a.requires_grad_(True)
+        kernels.reset_launch_counts()
+        loss = model.loss(p, {"tokens": t})
+        grads = torch.autograd.grad(loss, leaves)
+        if where == "card":
+            torch.cuda.synchronize()
+            assert (kernels.launch_counts()["ell_spmm"] > 0) == \
+                (dispatch == "spmm")
+        res[where] = (float(loss), [g.cpu() for g in grads])
+    assert abs(res["card"][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
+    for got, want in zip(res["card"][1], res["cpu"][1]):
+        assert float((got - want).abs().max()) \
+            <= 1e-3 * float(want.abs().max())
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))
+    m_card = step(params, adamw_init(params), {"tokens": toks.to(cuda)})[2]
+    m_cpu = step(p_cpu, adamw_init(p_cpu), {"tokens": toks})[2]
+    for k, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        assert abs(float(m_card[k]) - float(m_cpu[k])) \
+            <= tol * abs(float(m_cpu[k]))
+    assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(params))
+
+
+@pytest.mark.parametrize("axis", ["x", "y"])
+def test_two_axis_mesh_on_card(cuda, axis):
+    """The sharded SpGEMM on a (2, 2) mesh of repeated ``cuda:0`` over
+    either axis equals the single-device call bit for bit, for each
+    schedule."""
+    from repro_torch.parallel import make_mesh
+    (ca, cb), (ha, hb) = _dist_operands(2)
+    mesh = make_mesh((2, 2), ("x", "y"), devices=[cuda] * 4)
+    assert mesh.axis_devices(axis) == [torch.device(cuda)] * 2
+    single = rt.spgemm(ha, hb, check=True)
+    for schedule in ("ring", "cstat", "summa"):
+        got = rt.spgemm(ca, cb, mesh=mesh, axis=axis, schedule=schedule,
+                        check=True)
+        for f in ("row", "col", "val", "ngroups"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(single, f)), f

@@ -112,11 +112,17 @@ def clean_obs():
 # ---------------------------------------------------------------------------
 
 def test_mesh_shape_and_axes():
-    m = make_mesh((2, 3), ("a", "b"), devices=["cpu"] * 6)
+    """A mesh's shape and its groups along each axis: ``axis_devices`` is
+    the group at index 0 of the other axes, on a mesh of any axes."""
+    m = make_mesh((2, 3), ("a", "b"), devices=[f"cpu:{i}" for i in range(6)])
     assert m.shape == {"a": 2, "b": 3} and m.size == 6
     assert list(m.shape) == ["a", "b"]
-    with pytest.raises(ValueError, match="1-D mesh"):
-        m.axis_devices("a")
+    cpu = [torch.device(f"cpu:{i}") for i in range(6)]
+    assert m.axis_groups("a") == [[cpu[0], cpu[3]], [cpu[1], cpu[4]],
+                                  [cpu[2], cpu[5]]]
+    assert m.axis_groups("b") == [cpu[0:3], cpu[3:6]]
+    assert m.axis_devices("a") == [cpu[0], cpu[3]]
+    assert m.axis_devices("b") == cpu[0:3]
     with pytest.raises(ValueError, match="no axis"):
         _mesh(4).axis_devices("x")
     with pytest.raises(ValueError, match="needs 4 devices"):
@@ -133,10 +139,18 @@ def test_make_mesh_defaults_to_cuda():
 
 
 def test_multi_axis_mesh_raises_on_the_sharded_paths():
+    """A mesh of two axes no longer raises on the sharded paths: the call
+    runs along the named axis (the other replicating) and equals the call
+    on a 1-D mesh of that axis's size bit for bit; an axis the mesh lacks
+    still raises."""
     (_, _), (ta, tb) = _operands(1, 16, 16, 16, 0.3, 0.3)[2]
     m = make_mesh((2, 2), ("x", "y"), devices=["cpu"] * 4)
-    with pytest.raises(ValueError, match="1-D mesh"):
-        rt.spgemm(ta, tb, mesh=m, axis="x")
+    got = rt.spgemm(ta, tb, mesh=m, axis="x")
+    want = rt.spgemm(ta, tb, mesh=_mesh(2, "x"), axis="x")
+    for f in ("row", "col", "val", "ngroups"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    with pytest.raises(ValueError, match="no axis"):
+        rt.spgemm(ta, tb, mesh=m, axis="z")
 
 
 def test_ppermute_copies_never_alias():
