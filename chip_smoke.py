@@ -243,6 +243,50 @@ Phases (any failure exits non-zero before the last line):
    (1024, 10944) within 2⁻⁸·max|y32| of its float32 result and within
    2⁻⁷·max|y_plain| (two bfloat16 roundings) of the plain twin's bfloat16
    result, timed beside its twin and ``x @ wp`` in bfloat16.
+6g. The SSM, RG-LRU and encoder-decoder families (``families_phase``),
+   the ``[train]`` phase's tensors freed first and the resident memory
+   printed; no hand-written kernel lies on these paths (their scans are
+   ``models.common.linear_scan`` in torch ops), and each path's counters
+   are zeroed just before it and read just after. For each of
+   falcon-mamba-7b, recurrentgemma-9b and whisper-medium in turn (built,
+   checked, freed): gates (b) and (c) on a cut at full width in float32,
+   TF32 off, weights drawn on the card and copied to the CPU (falcon-mamba
+   2 layers on 2 x 128 tokens, recurrentgemma one (rec, rec, local) unit on
+   1 x 64, whisper 2 + 2 layers on 1 x 64 over 1,500 frames): the
+   prefill's logits and 8 teacher-forced decode steps' within
+   1e-3·max|CPU|, the loss within 1e-5 relative and, for falcon-mamba and
+   whisper, every leaf's gradient within 1e-3·max|g_cpu| (recurrentgemma's
+   cut holds the loss alone: its untied 256,000-row embedding and
+   unembedding would put ≈22 GB of float32 weights and gradients on the
+   host). Then the whole model at published widths and all layers,
+   bfloat16, drawn on the card from ``--seed`` (7,272,665,088,
+   10,444,771,328 and 758,395,904 parameters). Gate (a): prefill P tokens,
+   decode 32 more, each step's logits within LM_TOL_A·max|logits| of the
+   full forward's at its position (falcon-mamba P 512, full forward 768;
+   recurrentgemma 2,560 and 3,072, past its 2,048-token window; whisper 32
+   and 64 over one encoder output); one planted fault must read above the
+   limit (falcon-mamba: the SSM states zeroed after the prefill;
+   recurrentgemma: the RG-LRU states ``h`` zeroed; whisper: the decode
+   position one behind). falcon-mamba is gated with its mixers at the
+   unstacked scale and Mamba's published A and Δ (``mamba_long_memory``;
+   under the reference's init its SSM state keeps ~3% a step and no
+   fault in it shows), its readings on the reference's init printed
+   beside. Serving: the two decoder families through
+   ``ServingEngine.generate_batch`` (greedy, ``max_new_tokens=32``) in
+   two waves, eight prompts of 64-512 tokens (the longest 512) and two of
+   2,049-4,096 (the longest 4,096: recurrentgemma's local attention past
+   its window in prefill and in the decode's ring), lengths and tokens
+   from ``--seed``; whisper through ``Model.prefill`` /
+   ``Model.decode_step`` (the engine serves tokens only, as the
+   reference's), eight prompts of 32 tokens over (8, 1500, 1024) frames,
+   then 32 greedy steps, ``s_max`` 448. Each wave's prefill ms, decode ms
+   a step, tokens/s and peak; every token in the vocabulary. Training in
+   bfloat16, ``remat="full"``, 4 steps each: whisper at full depth
+   through ``launch.train.main`` (8 x 256 tokens, frames from its
+   ``extra_batch_fn``), falcon-mamba cut to 16 layers and recurrentgemma
+   to 6 (two units) through ``runtime.Trainer`` (4 x 512 tokens, default
+   ``AdamWConfig``): each step's loss, grad norm and ms, tokens/s and
+   peak, all finite. The phase's seconds.
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries, K9 with
    its bfloat16 and training shapes, K10 with its bfloat16 entry), the
    card's name and power limit, and as the last line ``{"ok": true,
@@ -2761,13 +2805,14 @@ def lm_config(dispatch: str = "sort", **over):
         base.moe, dispatch=dispatch), **over)
 
 
-def lm_prompts(seed: int, vocab: int):
-    """The two waves' prompts: lengths and tokens drawn from ``seed``;
-    wave 2's longest is exactly its upper end, so its padded length is
-    that and ``_sdpa_chunked`` cuts it into 512-token blocks."""
+def lm_prompts(seed: int, vocab: int, waves_spec=LM_WAVES):
+    """The waves' prompts (``(count, shortest, longest)`` each): lengths and
+    tokens drawn from ``seed``; each wave's longest is exactly its upper
+    end, so its padded length is that (LM_WAVES' wave 2: ``_sdpa_chunked``
+    cuts it into 512-token blocks)."""
     rng = np.random.default_rng(seed + 26)
     waves = []
-    for n, lo, hi in LM_WAVES:
+    for n, lo, hi in waves_spec:
         lens = rng.integers(lo, hi + 1, n)
         lens[int(np.argmax(lens))] = hi
         waves.append([rng.integers(3, vocab, int(s)).astype(np.int32)
@@ -3073,14 +3118,15 @@ def lm_gate_d(params, seed: int) -> dict:
     return out
 
 
-def serve_wave(model, params, prompts, name: str) -> dict:
-    """One wave through ``ServingEngine.generate_batch`` (greedy,
-    ``LM_SERVE``), the launch counters zeroed just before and read just
+def serve_wave(model, params, prompts, name: str, serve=LM_SERVE,
+               tag: str = "lm") -> dict:
+    """One wave through ``ServingEngine.generate_batch`` (greedy, the
+    ``serve`` config), the launch counters zeroed just before and read just
     after: its outputs, the engine's stats, ms and peak."""
     import torch
     from repro_torch import kernels
     from repro_torch.serve import ServeConfig, ServingEngine
-    eng = ServingEngine(model, params, ServeConfig(**LM_SERVE))
+    eng = ServingEngine(model, params, ServeConfig(**serve))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3093,10 +3139,10 @@ def serve_wave(model, params, prompts, name: str) -> dict:
     st = eng.stats()
     vocab = model.cfg.vocab
     for o in outs:
-        require(1 <= len(o) <= LM_SERVE["max_new_tokens"]
+        require(1 <= len(o) <= serve["max_new_tokens"]
                 and all(0 <= t < vocab for t in o),
                 f"{name}: a request's tokens are out of range or count")
-        require(len(o) == LM_SERVE["max_new_tokens"]
+        require(len(o) == serve["max_new_tokens"]
                 or o[-1] == ServeConfig().eos_id,
                 f"{name}: a request stopped early without EOS")
     require(st["requests"] == len(prompts)
@@ -3116,7 +3162,7 @@ def serve_wave(model, params, prompts, name: str) -> dict:
                stats={k: v for k, v in st.items()
                       if not k.startswith("spgemm")
                       and k != "structure_cache"})
-    print(f"[lm] {name}: {json.dumps(res)}", flush=True)
+    print(f"[{tag}] {name}: {json.dumps(res)}", flush=True)
     return dict(res, outs=outs, counts=counts)
 
 
@@ -3678,6 +3724,425 @@ def train_phase(seed: int):
     return k9_rows, [k10_bf16_shape(seed)], counts, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6g: the SSM, RG-LRU and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+FAM_ARCHS = ("falcon-mamba-7b", "recurrentgemma-9b", "whisper-medium")
+FAM_SERVE = dict(max_batch=8, max_new_tokens=32, s_max=4128)
+FAM_WAVES = ((8, 64, 512), (2, 2049, 4096))    # prompts, shortest, longest
+FAM_AUDIO = (8, 32, 448)      # whisper: prompts, tokens each, s_max (its
+                              # text context)
+FAM_GATE_A = {"falcon-mamba-7b": (512, 768),  # gate (a): prefill, full
+              "recurrentgemma-9b": (2560, 3072),  # forward (whole chunks)
+              "whisper-medium": (32, 64)}
+FAM_DECODE_A = 32             # gate (a): decode steps after the prefill
+FAM_MAMBA_DT = (1e-3, 1e-1)   # gate (a) on falcon-mamba: Mamba's Δ range
+FAM_TOL_A_LONG = 0.2          # gate (a) on falcon-mamba's long-memory
+                              # weights: an H100's sound reading 0.068,
+                              # the planted fault 0.68 (PERF.md §6)
+FAM_CUT = {"falcon-mamba-7b": dict(n_layers=2),        # gates (b), (c)
+           "recurrentgemma-9b": dict(n_layers=3),      # one (rec, rec,
+           "whisper-medium": dict(n_layers=2,          # local) unit
+                                  n_encoder_layers=2)}
+FAM_GATE_B = {"falcon-mamba-7b": (2, 128), "recurrentgemma-9b": (1, 64),
+              "whisper-medium": (1, 64)}   # prompts x prefill tokens
+FAM_DECODE_B = 8              # gate (b): decode steps after the prefill
+FAM_GRADS_C = ("falcon-mamba-7b", "whisper-medium")   # (c): every leaf's
+                              # grad; recurrentgemma's cut: the loss alone
+FAM_TRAIN = {"falcon-mamba-7b": 16, "recurrentgemma-9b": 6}   # layers kept
+FAM_TRAIN_SHAPE = dict(batch=4, seq=512, steps=4)     # through Trainer
+FAM_TRAIN_AUDIO = dict(batch=8, seq=256, steps=4)     # through launch.train
+
+
+def fam_config(arch: str, **over):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **over)
+
+
+def fam_frames(cfg, n: int, seed: int):
+    """The audio stub's (n, encoder_seq, d_model) frames from ``seed``, as
+    float32 on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (n, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(
+            torch.device("cuda"))
+
+
+def fam_plant(cfg, cache):
+    """Gate (a)'s planted fault, on the prefill's cache: falcon-mamba's SSM
+    states zeroed, recurrentgemma's RG-LRU states ``h`` zeroed, whisper's
+    decode position one behind (each step then writes its keys over the
+    token before and takes that token's sinusoidal position)."""
+    from repro_torch.models.params import tree_items
+    if cfg.family == "audio":
+        return dict(cache, pos=cache["pos"] - 1)
+    key = "/ssm" if cfg.family == "ssm" else "/h"
+    hit = [t.zero_() for path, t in tree_items(cache["layers"])
+           if path.endswith(key)]
+    require(hit, f"no {key[1:]} state in the cache to plant a fault in")
+    return cache
+
+
+def mamba_long_memory(params, cfg):
+    """Gate (a) on falcon-mamba, on the served weights in place: each mixer
+    at the scale an unstacked layer is drawn at (the stacked init's 1/√L
+    undone, as the nearest power of two, 8 at 64 layers: exact in bf16
+    and undone exactly), with Mamba's published S4D-real A = -(1..d_state)
+    and Δ spread over FAM_MAMBA_DT across the channels. Under the
+    reference's init (A = -e, Δ ≈ 1.3, every mixer weight 1/8 of an
+    unstacked layer's) the SSM state keeps ~3% a step and moves the logits
+    by ~1e-6 of their max, so no fault in it could show. Returns
+    restore."""
+    import torch
+    mix = params["segments"][0]["u0"]["mixer"]
+    scale = 2.0 ** round(math.log2(math.sqrt(cfg.n_layers)))
+    scaled = ("w_in", "conv_w", "w_x", "w_dt", "w_out")
+    kept = {k: mix[k].clone() for k in ("a_log", "b_dt")}
+    for k in scaled:
+        mix[k].mul_(scale)
+    a = torch.arange(1, cfg.ssm.d_state + 1, dtype=torch.float32,
+                     device=mix["a_log"].device)
+    mix["a_log"].copy_(torch.log(a).expand(mix["a_log"].shape))
+    lo, hi = FAM_MAMBA_DT
+    dt = torch.exp(torch.linspace(math.log(lo), math.log(hi),
+                                  mix["b_dt"].shape[-1],
+                                  device=mix["b_dt"].device))
+    mix["b_dt"].copy_((dt + torch.log(-torch.expm1(-dt))).expand(
+        mix["b_dt"].shape))        # softplus(b_dt) = Δ
+
+    def restore():
+        for k in scaled:
+            mix[k].div_(scale)
+        for k, v in kept.items():
+            mix[k].copy_(v)
+    return restore
+
+
+def fam_gate_a(model, params, seed: int) -> dict:
+    """Gate (a): prefill P tokens of one prompt, then decode FAM_DECODE_A
+    more a token at a time; the prefill's and each step's logits against
+    the full forward's at that position (over whole scan chunks), within
+    LM_TOL_A·max|full| there. The planted fault (``fam_plant``) must read
+    above the limit. falcon-mamba is gated so on the reference's init,
+    where its planted fault cannot show (printed beside), and again on its
+    long-memory weights (``mamba_long_memory``) with FAM_TOL_A_LONG, the
+    sound readings below and the planted fault above."""
+    import torch
+    from repro_torch.models import encdec, transformer
+    cfg = model.cfg
+    p_len, s = FAM_GATE_A[cfg.name]
+    toks = torch.from_numpy(np.random.default_rng(seed + 34).integers(
+        3, cfg.vocab, (1, s)).astype(np.int32)).to(torch.device("cuda"))
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = fam_frames(cfg, 1, seed + 35)
+
+    @torch.inference_mode()
+    def readings():
+        """(sound errors by position, the planted fault's worst)."""
+        if cfg.family == "audio":
+            enc = encdec.encode(params, extra["frames"], cfg)
+            logits = encdec.decode_full(params, toks, enc, cfg)[0]
+            del enc
+        else:
+            logits = transformer.decoder_forward(params, toks, cfg)[0]
+        full = logits[0, p_len - 1:p_len + FAM_DECODE_A].float()
+        del logits
+
+        def rel(logits, i):
+            return float((logits[0].float() - full[i]).abs().max()) \
+                / float(full[i].abs().max())
+
+        def decode_errs(plant: bool):
+            logits, cache = model.prefill(
+                params, dict(extra, tokens=toks[:, :p_len]), s)
+            errs = [rel(logits, 0)]
+            if plant:
+                cache = fam_plant(cfg, cache)
+            for i in range(FAM_DECODE_A):
+                t = p_len + i
+                logits, cache = model.decode_step(params, cache,
+                                                  toks[:, t:t + 1])
+                errs.append(rel(logits, i + 1))
+            return errs
+        return decode_errs(False), max(decode_errs(True))
+
+    def reading(tol: float) -> dict:
+        errs, planted = readings()
+        return dict(max_rel_err=max(errs), mean_rel_err=sum(errs) / len(errs),
+                    rel_errs=errs, planted_max_rel_err=planted, tol=tol)
+
+    res = dict(prefill=p_len, decode_steps=FAM_DECODE_A, full_forward=s)
+    if cfg.family == "ssm":
+        res["reference_init"] = r = reading(LM_TOL_A)
+        restore = mamba_long_memory(params, cfg)
+        try:
+            res["long_memory"] = reading(FAM_TOL_A_LONG)
+        finally:
+            restore()
+        gated = (res["long_memory"],)
+    else:
+        res.update(reading(LM_TOL_A))
+        r, gated = res, (res,)
+    print(f"[families] {cfg.name} gate (a) prefill {p_len} + decode "
+          f"{FAM_DECODE_A} vs full forward of {s}, bf16: {json.dumps(res)}",
+          flush=True)
+    require(r["max_rel_err"] <= LM_TOL_A, f"{cfg.name} gate (a): decode off "
+            f"the full forward by {r['max_rel_err']} of max|logits| > "
+            f"{LM_TOL_A}")
+    for g in gated:
+        require(g["max_rel_err"] <= g["tol"] < g["planted_max_rel_err"],
+                f"{cfg.name} gate (a): the sound reading "
+                f"{g['max_rel_err']} or the planted fault's "
+                f"{g['planted_max_rel_err']} is on the wrong side of "
+                f"{g['tol']}")
+    return res
+
+
+def fam_cut_card_vs_cpu(arch: str, seed: int) -> dict:
+    """Gates (b) and (c): the family cut to FAM_CUT's layers at full width,
+    float32, TF32 off, weights drawn on the card and copied to the CPU.
+    (b) the prefill's logits and FAM_DECODE_B teacher-forced decode steps'
+    within LM_TOL_B·max|CPU| of the CPU's; (c) the loss on the prompt
+    within TRAIN_TOL_C[0] relative and, for FAM_GRADS_C, every leaf's
+    gradient within TRAIN_TOL_C[1]·max|g_cpu|."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = fam_config(arch, param_dtype="float32", compute_dtype="float32",
+                     **FAM_CUT[arch])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed + 31))
+    p_cpu = tree_map(lambda t: t.cpu(), params)
+    b, s = FAM_GATE_B[arch]
+    rng = np.random.default_rng(seed + 32)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        3, cfg.vocab, (b, s + FAM_DECODE_B)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model), dtype=np.float32))
+    grads_too = arch in FAM_GRADS_C
+    out = {}
+    for where, p in (("card", params), ("cpu", p_cpu)):
+        bt = {k: v.to(dev) if where == "card" else v
+              for k, v in batch.items()}
+        prompt = dict(bt, tokens=bt["tokens"][:, :s])
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, cache = model.prefill(p, prompt, s + FAM_DECODE_B)
+            steps = [logits.float().cpu()]
+            for t in range(s, s + FAM_DECODE_B):
+                logits, cache = model.decode_step(p, cache,
+                                                  bt["tokens"][:, t:t + 1])
+                steps.append(logits.float().cpu())
+        del cache
+        if grads_too:
+            leaves = tree_leaves(p)
+            for t in leaves:
+                t.requires_grad_(True)
+            loss = model.loss(p, prompt)
+            grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        else:
+            with torch.no_grad():
+                loss, grads = model.loss(p, prompt), []
+        out[where] = (steps, float(loss.detach()), grads,
+                      time.perf_counter() - t0)
+    del params, p_cpu, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    (sc, lc, gc_, t_card), (sh, lh, gh, t_cpu) = out["card"], out["cpu"]
+    step_errs = [float((x - y).abs().max()) / float(y.abs().max())
+                 for x, y in zip(sc, sh)]
+    finite = all(bool(torch.isfinite(x).all()) for x in sc + gc_)
+    loss_rel = abs(lc - lh) / abs(lh)
+    grad_rel = max((float((x - y).abs().max()) / float(y.abs().max())
+                    for x, y in zip(gc_, gh) if float(y.abs().max()) > 0),
+                   default=None)
+    res = dict(layers={k: v for k, v in FAM_CUT[arch].items()},
+               tokens=[b, s], decode_steps=FAM_DECODE_B,
+               max_step_rel_err=max(step_errs), tol_b=LM_TOL_B,
+               loss_card=lc, loss_cpu=lh, loss_rel=loss_rel,
+               worst_grad_rel=grad_rel, grad_leaves=len(gc_),
+               card_s=t_card, cpu_s=t_cpu)
+    print(f"[families] {arch} gates (b), (c) cut, float32, card vs CPU: "
+          f"{json.dumps(res)}", flush=True)
+    require(finite and all(e <= LM_TOL_B for e in step_errs),
+            f"{arch} gate (b): logits off the CPU's by {max(step_errs)} of "
+            f"max|logits| > {LM_TOL_B}, or not finite")
+    require(loss_rel <= TRAIN_TOL_C[0],
+            f"{arch} gate (c): loss off by {loss_rel} relative")
+    if grads_too:
+        require(len(gc_) == len(tree_leaves(model.abstract_params()))
+                and grad_rel <= TRAIN_TOL_C[1],
+                f"{arch} gate (c): a grad off by {grad_rel} of its max")
+    return res
+
+
+def fam_serve_audio(model, params, seed: int) -> dict:
+    """whisper through ``Model.prefill`` / ``Model.decode_step`` (the
+    engine serves tokens only, as the reference's): FAM_AUDIO's prompts
+    over frames drawn from ``seed``, then FAM_SERVE's token count of
+    greedy steps, each step's ids read on the host; the counters zeroed
+    just before and read just after."""
+    import torch
+    from repro_torch import kernels
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    n, s, s_max = FAM_AUDIO
+    toks = torch.from_numpy(np.random.default_rng(seed + 33).integers(
+        3, cfg.vocab, (n, s)).astype(np.int32)).to(dev)
+    frames = fam_frames(cfg, n, seed + 33)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks,
+                                               "frames": frames}, s_max)
+        cur = logits.argmax(-1).cpu()
+        t1 = time.perf_counter()
+        outs = [cur]
+        for _ in range(FAM_SERVE["max_new_tokens"]):
+            logits, cache = model.decode_step(
+                params, cache, cur[:, None].to(dev, torch.int32))
+            cur = logits.argmax(-1).cpu()
+            outs.append(cur)
+        t2 = time.perf_counter()
+    counts = kernels.launch_counts()
+    ids = torch.stack(outs, 1)
+    require(bool(((ids >= 0) & (ids < cfg.vocab)).all()),
+            f"{cfg.name}: a token is out of the vocabulary")
+    steps = len(outs) - 1
+    res = dict(requests=n, prompt_len=s, frames=list(frames.shape),
+               s_max=s_max, prefill_ms=(t1 - t0) * 1e3,
+               decode_ms_per_step=(t2 - t1) * 1e3 / steps,
+               decode_steps=steps, tokens=ids.numel(),
+               tokens_per_s=ids.numel() / (t2 - t0),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={k: v for k, v in counts.items() if v})
+    print(f"[families] {cfg.name} prefill + decode: {json.dumps(res)}",
+          flush=True)
+    del cache, logits, frames
+    return dict(res, counts=counts)
+
+
+def fam_train_steps(hist, tokens: int) -> dict:
+    step_ms = [h["ms"] for h in hist]
+    med = median(step_ms[1:])
+    return dict(losses=[h["loss"] for h in hist],
+                grad_norms=[h["grad_norm"] for h in hist], step_ms=step_ms,
+                median_step_ms_after_first=med, tokens_per_step=tokens,
+                tokens_per_s=tokens / med * 1e3)
+
+
+def fam_train(arch: str, seed: int) -> dict:
+    """Training in bfloat16 with ``remat="full"`` and the default
+    ``AdamWConfig``: whisper at full depth through
+    ``launch.train.main`` (FAM_TRAIN_AUDIO, frames from its
+    ``extra_batch_fn``), the decoder families cut to FAM_TRAIN's layers
+    through ``runtime.Trainer`` (FAM_TRAIN_SHAPE). Each step's loss, grad
+    norm and ms, tokens/s, peak memory, all finite."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        if arch == "whisper-medium":
+            a = FAM_TRAIN_AUDIO
+            out = tlaunch.main([
+                "--arch", arch, "--steps", str(a["steps"]),
+                "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+                "--ckpt-dir", d, "--ckpt-every", str(10 * a["steps"]),
+                "--no-resume", "--log-every", "1"])
+            model, init_s = out["trainer"].model, out["trainer"].init_s
+        else:
+            a = FAM_TRAIN_SHAPE
+            model = build_model(fam_config(arch, n_layers=FAM_TRAIN[arch]))
+            tr = Trainer(model, TrainerConfig(
+                steps=a["steps"], log_every=1, ckpt_every=10 * a["steps"],
+                ckpt_dir=d, global_batch=a["batch"], seq_len=a["seq"],
+                seed=seed), AdamWConfig())
+            out = tr.run(resume=False)
+            init_s = tr.init_s
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    res = dict(layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+               n_params=model.n_params(), dtype=cfg.param_dtype,
+               remat=cfg.remat, batch=a["batch"], seq=a["seq"],
+               init_s=init_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               **fam_train_steps(out["history"], a["batch"] * a["seq"]))
+    print(f"[families] {arch} training: {json.dumps(res)}", flush=True)
+    require(len(out["history"]) == a["steps"] and all(
+        math.isfinite(x) for x in res["losses"] + res["grad_norms"]),
+        f"{arch} training: a loss or grad norm is not finite: "
+        f"{res['losses']} {res['grad_norms']}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def families_phase(seed: int):
+    """falcon-mamba-7b, recurrentgemma-9b and whisper-medium, one at a time
+    (see the module docstring, phase 6g). Returns ({path: counts},
+    summary)."""
+    import torch
+    from repro_torch.models import build_model
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counts, summary = {}, {}
+    for arch in FAM_ARCHS:
+        s = {"gates_b_c": fam_cut_card_vs_cpu(arch, seed)}
+        cfg = fam_config(arch)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        s.update(init_s=time.perf_counter() - t0, n_params=model.n_params(),
+                 weights_gib=torch.cuda.memory_allocated() / 2**30)
+        print(f"[families] {arch}: {cfg.n_layers} layers"
+              + (f" + {cfg.n_encoder_layers} encoder layers"
+                 if cfg.n_encoder_layers else "")
+              + f", d_model {cfg.d_model}, {s['n_params']} parameters drawn "
+              f"in bf16 in {s['init_s']:.1f} s, {s['weights_gib']:.2f} GiB "
+              "on the card", flush=True)
+        s["gate_a"] = fam_gate_a(model, params, seed)
+        if cfg.family == "audio":
+            r = fam_serve_audio(model, params, seed)
+            counts[f"families_{arch}"] = r.pop("counts")
+            s["serve"] = r
+        else:
+            s["waves"] = {}
+            for i, prompts in enumerate(lm_prompts(seed, cfg.vocab,
+                                                   FAM_WAVES)):
+                r = serve_wave(model, params, prompts,
+                               f"{arch} wave {i + 1}", FAM_SERVE,
+                               "families")
+                counts[f"families_{arch}_wave{i + 1}"] = r["counts"]
+                s["waves"][f"wave{i + 1}"] = {
+                    k: v for k, v in r.items() if k not in ("outs", "counts")}
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        s["train"] = fam_train(arch, seed)
+        summary[arch] = s
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[families] phase {summary['phase_s']:.1f} s", flush=True)
+    return counts, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3931,6 +4396,15 @@ def main(argv=None) -> int:
     next(r for r in rows if r["name"] == "ell_spmm")["shapes"] += k9_train
     next(r for r in rows if r["name"] == "nm_spmm")["shapes"] += k10_train
     print(json.dumps({"train": train_summary}), flush=True)
+
+    # -- phase 6g: the SSM, RG-LRU and encoder-decoder families -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[families] resident before the phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    fam_counts, fam_summary = families_phase(args.seed)
+    counts.update(fam_counts)
+    print(json.dumps({"families": fam_summary}), flush=True)
 
     # -- phase 7: the kernels line and the result ------------------------------
     for r in rows:

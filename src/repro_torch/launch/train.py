@@ -65,16 +65,22 @@ def main(argv=None):
           f"device={dev}", flush=True)
 
     def extra(step):
+        """The modality stub's input a step, drawn as the reference's."""
         rng = np.random.default_rng(step)
-        return {"patches": torch.from_numpy(rng.standard_normal(
-            (args.batch, cfg.n_vision_tokens, cfg.d_model),
-            dtype=np.float32)).to(dev)}
+        if cfg.family == "audio":
+            name, shape = "frames", (args.batch, cfg.encoder_seq, cfg.d_model)
+        else:
+            name, shape = "patches", (args.batch, cfg.n_vision_tokens,
+                                      cfg.d_model)
+        return {name: torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev)}
 
     tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every, log_every=args.log_every,
                          global_batch=args.batch, seq_len=args.seq)
     trainer = Trainer(model, tcfg, AdamWConfig(lr=args.lr),
-                      extra_batch_fn=extra if cfg.family == "vlm" else None,
+                      extra_batch_fn=extra if cfg.family in ("audio", "vlm")
+                      else None,
                       device=dev)
     out = trainer.run(resume=not args.no_resume)
     print(f"[train] done. final loss "

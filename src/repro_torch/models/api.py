@@ -9,8 +9,10 @@ architecture with uniform step functions.
   model.input_specs(shape_case)             -> {name: (torch.Size, dtype)}
   model.cache_zeros(batch, s_max)           -> decode cache
 
-``batch`` is a dict: always "tokens" (B,S); plus "patches" for the VLM
-stub. The audio family (whisper) waits for ROADMAP queue 1 item 12.
+``batch`` is a dict: always "tokens" (B,S); plus "frames" (the audio
+stub's (B, encoder_seq, d_model) embeddings, whisper) or "patches" (the
+VLM stub). The audio family runs ``models/encdec.py``, every other one the
+decoder of ``models/transformer.py``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..configs.base import ModelConfig, ShapeCase
-from . import transformer
+from . import encdec, transformer
 from .params import abstract_params, count_params, init_params, torch_dtype
 
 
@@ -28,14 +30,14 @@ from .params import abstract_params, count_params, init_params, torch_dtype
 class Model:
     cfg: ModelConfig
 
-    def _decoder(self):
-        if self.cfg.family == "audio":
-            transformer.not_ported(f"{self.cfg.name} (family 'audio')",
-                                   "audio")
+    @property
+    def _audio(self) -> bool:
+        return self.cfg.family == "audio"
 
     # -- parameters ---------------------------------------------------------
     def specs(self):
-        self._decoder()
+        if self._audio:
+            return encdec.encdec_specs(self.cfg)
         return transformer.decoder_specs(self.cfg)
 
     def init(self, generator: Optional[torch.Generator] = None,
@@ -56,26 +58,31 @@ class Model:
         return batch.get("patches") if self.cfg.family == "vlm" else None
 
     def loss(self, params, batch) -> torch.Tensor:
-        self._decoder()
+        if self._audio:
+            return encdec.encdec_loss(params, batch["frames"],
+                                      batch["tokens"], self.cfg)
         return transformer.decoder_loss(params, batch["tokens"], self.cfg,
                                         prefix_embed=self._prefix(batch))
 
     def prefill(self, params, batch, s_max: int):
-        self._decoder()
+        if self._audio:
+            return encdec.encdec_prefill(params, batch["frames"],
+                                         batch["tokens"], self.cfg, s_max)
         return transformer.decoder_prefill(params, batch["tokens"], self.cfg,
                                            s_max,
                                            prefix_embed=self._prefix(batch))
 
     def decode_step(self, params, cache, tokens):
-        self._decoder()
+        if self._audio:
+            return encdec.encdec_decode_step(params, cache, tokens, self.cfg)
         return transformer.decoder_decode_step(params, cache, tokens,
                                                self.cfg)
 
     def cache_zeros(self, batch: int, s_max: int, device=None):
         from ..core.formats import resolve_device
-        self._decoder()
-        return transformer.decoder_cache_zeros(self.cfg, batch, s_max,
-                                               resolve_device(device))
+        zeros = encdec.encdec_cache_zeros if self._audio \
+            else transformer.decoder_cache_zeros
+        return zeros(self.cfg, batch, s_max, resolve_device(device))
 
     # -- shape stand-ins ------------------------------------------------------
     def input_specs(self, case: ShapeCase) -> Dict[str, tuple]:

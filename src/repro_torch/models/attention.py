@@ -1,6 +1,6 @@
-"""Attention variants: GQA/MHA (+bias), sliding-window, and MLA, mirroring
-``src/repro/models/attention.py`` (cross-attention comes with the
-encoder-decoder family, ROADMAP queue 1 item 12).
+"""Attention variants: GQA/MHA (+bias), sliding-window, MLA and
+cross-attention (whisper's decoder), mirroring
+``src/repro/models/attention.py``.
 
 Each variant has a full-sequence path (train / prefill; it also returns the
 compact keys and values the cache keeps) and a one-token decode path
@@ -307,3 +307,36 @@ def mla_decode(p, x, cfg, dtype, cache_latent, cache_krope, pos: int):
     out = torch.einsum("bshl,lhv->bshv", ctx, p["w_uv"].to(dtype))
     out = out.reshape(b, 1, -1) @ p["wo"].to(dtype)
     return out, cache_latent, cache_krope
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_specs(cfg) -> dict:
+    d, hd, h = cfg.d_model, cfg.head_dim, cfg.n_heads
+    return {
+        "wq": Spec((d, h * hd), ("fsdp", "qkv_flat")),
+        "wk": Spec((d, h * hd), (None, "qkv_flat")),
+        "wv": Spec((d, h * hd), (None, "qkv_flat")),
+        "wo": Spec((h * hd, d), ("qkv_flat", "fsdp")),
+    }
+
+
+def cross_kv(p, enc_out, cfg, dtype):
+    """The encoder states' keys and values, (B, T_enc, H, hd) each."""
+    b, t, _ = enc_out.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    k = (enc_out @ p["wk"].to(dtype)).reshape(b, t, h, hd)
+    v = (enc_out @ p["wv"].to(dtype)).reshape(b, t, h, hd)
+    return k, v
+
+
+def cross_apply(p, x, k, v, cfg, dtype):
+    """Unmasked attention of ``x`` over the encoder's keys and values, one
+    ``_sdpa`` whatever T_enc is, as the reference's."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ p["wq"].to(dtype)).reshape(b, s, h, hd)
+    out = _sdpa(q, k, v, None, h)
+    return out.reshape(b, s, -1) @ p["wo"].to(dtype)

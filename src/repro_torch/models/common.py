@@ -66,6 +66,30 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it
+    (``logaddexp(x, 0)``), with no switch to ``x`` above a threshold as
+    ``F.softplus`` has."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor):
+    """The recurrence ``h_t = a_t·h_{t-1} + b_t`` along dim 1 from
+    ``h_{-1} = 0``, and the running products ``a_0···a_t``: the pair
+    ``jax.lax.associative_scan`` gives for the combine ``(a_l·a_r,
+    a_r·b_l + b_r)``, here in ⌈log₂ C⌉ doubling passes over the C steps
+    (each step t combined with step t − 2ʲ). Every pass is a tensor op over
+    the whole chunk, differentiable; the sums come in another order than
+    the reference's, so results agree within rounding, not bit for bit."""
+    n = a.shape[1]
+    d = 1
+    while d < n:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return a, b
+
+
 # --- embeddings -------------------------------------------------------------
 
 def embed_specs(cfg) -> dict:

@@ -13,12 +13,13 @@ Block kinds ported:
   local      windowed GQA + SwiGLU                (recurrentgemma 1-in-3)
   mla_dense  MLA + SwiGLU                         (deepseek layer 0)
   mla_moe    MLA + MoE(+shared)                   (deepseek)
-The kinds ``mamba`` (falcon-mamba) and ``rec`` (recurrentgemma) raise
-``NotImplementedError`` naming their ROADMAP item.
+  mamba      selective SSM alone                  (falcon-mamba)
+  rec        RG-LRU + SwiGLU                      (recurrentgemma 2-in-3)
 
 Caches are preallocated at ``s_max`` (``decoder_cache_zeros``) and written
 in place: prefill fills them, every decode step writes its token's entries
-and returns the same tensors. ``pos`` is a Python int.
+(the recurrent kinds: their conv window and state) and returns the same
+tensors. ``pos`` is a Python int.
 
 The loss is differentiable: a stacked segment's leaves are split into their
 layers with ``unbind`` (whose backward stacks the layers' grads once, where
@@ -40,22 +41,10 @@ import torch
 import torch.utils.checkpoint as _ckpt
 
 from . import attention as attn
-from . import ffn
+from . import ffn, rglru, ssm
 from .common import (embed_lookup, embed_specs, rmsnorm,
                      sharded_softmax_xent, unembed)
 from .params import Spec, stack, torch_dtype, tree_map
-
-_LATER = {
-    "mamba": "ROADMAP queue 1 item 12 (the ssm, rglru and encdec families)",
-    "rec": "ROADMAP queue 1 item 12 (the ssm, rglru and encdec families)",
-    "audio": "ROADMAP queue 1 item 12 (the ssm, rglru and encdec families)",
-}
-
-
-def not_ported(what: str, key: str):
-    raise NotImplementedError(f"{what} is not ported to repro_torch yet: "
-                              f"{_LATER[key]}")
-
 
 # ---------------------------------------------------------------------------
 # Segment planning
@@ -104,8 +93,12 @@ def block_specs(cfg, kind: str) -> Dict[str, Any]:
         s["ln2"] = _norm_spec(cfg)
         s["ffn"] = ffn.moe_specs(cfg) if kind == "mla_moe" \
             else ffn.swiglu_specs(cfg)
-    elif kind in _LATER:
-        not_ported(f"block kind {kind!r}", kind)
+    elif kind == "mamba":
+        s["mixer"] = ssm.mamba_specs(cfg)
+    elif kind == "rec":
+        s["rec"] = rglru.rglru_specs(cfg)
+        s["ln2"] = _norm_spec(cfg)
+        s["ffn"] = ffn.swiglu_specs(cfg)
     else:
         raise ValueError(kind)
     return s
@@ -136,8 +129,9 @@ def _ring_layout(k, v, s: int, w: int):
 def block_apply_full(p, x, cfg, kind: str, dtype, want_cache: bool,
                      s_max: int = 0, cache=None):
     """Full-seq path. Returns (x, aux_loss, cache or None). With
-    ``want_cache`` the block's keys/values (or latent) are written into
-    ``cache`` (``block_cache_zeros``' layout; allocated here when None)."""
+    ``want_cache`` the block's keys/values (or latent, or recurrent states)
+    are written into ``cache`` (``block_cache_zeros``' layout; allocated
+    here when None)."""
     aux = torch.zeros((), device=x.device)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     s = x.shape[1]
@@ -175,8 +169,23 @@ def block_apply_full(p, x, cfg, kind: str, dtype, want_cache: bool,
             latent, krope = kv
             cache["latent"][:, :s] = latent
             cache["krope"][:, :s] = krope
-    elif kind in _LATER:
-        not_ported(f"block kind {kind!r}", kind)
+    elif kind == "mamba":
+        out, st = ssm.mamba_apply_full(p["mixer"], h, cfg, dtype,
+                                       return_state=want_cache)
+        x = x + out
+        if want_cache:
+            cache["conv"].copy_(st[0])
+            cache["ssm"].copy_(st[1])
+    elif kind == "rec":
+        out, st = rglru.rglru_apply_full(p["rec"], h, cfg, dtype,
+                                         return_state=want_cache)
+        x = x + out
+        h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        y, _ = _ffn_apply(p["ffn"], h2, cfg, kind, dtype)
+        x = x + y
+        if want_cache:
+            cache["conv"].copy_(st[0])
+            cache["h"].copy_(st[1])
     else:
         raise ValueError(kind)
     return x, aux, (cache if want_cache else None)
@@ -195,8 +204,15 @@ def block_cache_zeros(cfg, kind: str, batch: int, s_max: int, dtype,
         m = cfg.mla
         return {"latent": zeros(batch, s_max, m.kv_lora_rank),
                 "krope": zeros(batch, s_max, m.rope_head_dim)}
-    if kind in _LATER:
-        not_ported(f"block kind {kind!r}", kind)
+    f32 = functools.partial(torch.zeros, dtype=torch.float32, device=device)
+    if kind == "mamba":
+        di = cfg.ssm.expand * cfg.d_model
+        return {"conv": zeros(batch, cfg.ssm.d_conv - 1, di),
+                "ssm": f32((batch, di, cfg.ssm.d_state))}
+    if kind == "rec":
+        w = rglru._width(cfg)
+        return {"conv": zeros(batch, cfg.griffin.conv_width - 1, w),
+                "h": f32((batch, w))}
     raise ValueError(kind)
 
 
@@ -218,8 +234,18 @@ def block_apply_decode(p, x, cfg, kind: str, dtype, cache, pos: int):
         out, _, _ = attn.mla_decode(p["attn"], h, cfg, dtype,
                                     cache["latent"], cache["krope"], pos)
         x = x + out
-    elif kind in _LATER:
-        not_ported(f"block kind {kind!r}", kind)
+    elif kind == "mamba":
+        out, conv, st = ssm.mamba_decode(p["mixer"], h, cfg, dtype,
+                                         cache["conv"], cache["ssm"])
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(st)
+        return x + out, cache            # the mixer alone: no ln2, no FFN
+    elif kind == "rec":
+        out, conv, hst = rglru.rglru_decode(p["rec"], h, cfg, dtype,
+                                            cache["conv"], cache["h"])
+        cache["conv"].copy_(conv)
+        cache["h"].copy_(hst)
+        x = x + out
     else:
         raise ValueError(kind)
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)

@@ -1737,3 +1737,47 @@ def test_two_axis_mesh_on_card(cuda, axis):
                         check=True)
         for f in ("row", "col", "val", "ngroups"):
             assert torch.equal(getattr(got, f).cpu(), getattr(single, f)), f
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b",
+                                  "whisper-medium"])
+def test_lm_family_card_vs_cpu(cuda, arch):
+    """The reduced config of each recurrent or encoder-decoder family, in
+    float32 with TF32 off, from the same weights on the card and on the
+    CPU: the loss on 2 x 64 tokens within 1e-5 relative, and a prefill of
+    32 tokens (two SSM chunks, past the local window) then four decode
+    steps, each step's logits and the final cache within 1e-4·max|·|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = rt.build_model(get_config(arch + "-smoke"))
+    cfg = model.cfg
+    params = model.init(torch.Generator(device=cuda).manual_seed(5), cuda)
+    p_cpu = tree_map(lambda a: a.cpu(), params)
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    res = {}
+    for where, p in (("card", params), ("cpu", p_cpu)):
+        dev = cuda if where == "card" else torch.device("cpu")
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            loss = float(model.loss(p, b))
+            pre = dict(b, tokens=b["tokens"][:, :32])
+            logits, cache = model.prefill(p, pre, 40)
+            steps = [logits.cpu()]
+            for t in range(32, 36):
+                logits, cache = model.decode_step(p, cache,
+                                                  b["tokens"][:, t:t + 1])
+                steps.append(logits.cpu())
+        res[where] = (loss, steps, [c.cpu() for c in
+                                    tree_leaves(cache["layers"])])
+    (lc, sc, cc), (lh, sh, ch) = res["card"], res["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    for got, want in zip(sc + cc, sh + ch):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert float((got.float() - want.float()).abs().max()) \
+            <= 1e-4 * float(want.float().abs().max())

@@ -4,12 +4,16 @@ reference on the CPU, and K10's plain twin in bfloat16.
 ``Model.loss``'s gradient (autograd through the port's decoder, the MoE
 dispatches, K9's ``EllSpmm`` and the activation checkpoints) is held
 against ``jax.grad`` of the reference's loss on the reduced configs of
-qwen2-0.5b, deepseek-v2-lite-16b (MLA, ``'sort'``) and granite-moe-3b
-under ``'sort'``, ``'ellpack'`` and ``'spmm'``, in float32, from the
+qwen2-0.5b, deepseek-v2-lite-16b (MLA, ``'sort'``), granite-moe-3b
+under ``'sort'``, ``'ellpack'`` and ``'spmm'``, falcon-mamba-7b,
+recurrentgemma-9b and whisper-medium (with frames), in float32, from the
 reference's weights carried over by ``params_from_numpy``: the loss within
 1e-5 relative, every leaf's grad within ``GRAD_RTOL``·max|g_ref| + 1e-6
-(the two differ in summation order only; they agree to ~2e-6). The
-reference's jitted grads are computed once a module (``ref_grads``).
+(the two differ in summation order only; they agree to ~2e-6). The three
+recurrent and encoder-decoder families run 32 tokens, so the SSM's
+gradient crosses a scan-chunk boundary and recurrentgemma's its local
+window; the others 12. The reference's jitted grads are computed once a
+module (``ref_grads``).
 
 ``kernels.ops.ell_spmm``'s backward is held against ``jax.grad`` of the
 reference's ``spmm_ell_dense`` bit for bit on integer-valued operands with
@@ -41,7 +45,10 @@ from repro_torch.models.params import sorted_leaves, tree_leaves
 GRAD_RTOL = 1e-4
 CASES = [("qwen2-0.5b", None), ("deepseek-v2-lite-16b", "sort"),
          ("granite-moe-3b-a800m", "sort"), ("granite-moe-3b-a800m", "ellpack"),
-         ("granite-moe-3b-a800m", "spmm")]
+         ("granite-moe-3b-a800m", "spmm"), ("falcon-mamba-7b", None),
+         ("recurrentgemma-9b", None), ("whisper-medium", None)]
+LENGTHS = {"falcon-mamba-7b": 32, "recurrentgemma-9b": 32,
+           "whisper-medium": 32}          # the rest: 12
 
 
 def _configs(arch, dispatch, **over):
@@ -56,8 +63,8 @@ def _configs(arch, dispatch, **over):
 
 @pytest.fixture(scope="module")
 def ref_grads():
-    """(loss, grads, weights, tokens) of the reference a case, jitted once
-    a module."""
+    """(loss, grads, weights, batch) of the reference a case, jitted once
+    a module; the batch is numpy, "tokens" and, for whisper, "frames"."""
     cache = {}
 
     def get(arch, dispatch):
@@ -65,23 +72,28 @@ def ref_grads():
             rc, _ = _configs(arch, dispatch)
             rm = rbuild(rc)
             rp = rm.init(jax.random.PRNGKey(1))
-            toks = np.random.default_rng(2).integers(
-                0, rc.vocab, (2, 12)).astype(np.int32)
+            rng = np.random.default_rng(2)
+            batch = {"tokens": rng.integers(
+                0, rc.vocab, (2, LENGTHS.get(arch, 12))).astype(np.int32)}
+            if rc.family == "audio":
+                batch["frames"] = rng.standard_normal(
+                    (2, rc.encoder_seq, rc.d_model)).astype(np.float32)
             loss, g = jax.jit(jax.value_and_grad(rm.loss))(
-                rp, {"tokens": jnp.asarray(toks)})
+                rp, {k: jnp.asarray(v) for k, v in batch.items()})
             cache[arch, dispatch] = (float(loss), jax.tree.leaves(g),
-                                     jax.tree.map(np.asarray, rp), toks)
+                                     jax.tree.map(np.asarray, rp), batch)
         return cache[arch, dispatch]
     return get
 
 
-def _port_grads(arch, dispatch, weights, toks, **over):
+def _port_grads(arch, dispatch, weights, batch, **over):
     _, tc = _configs(arch, dispatch, **over)
     tp = params_from_numpy(weights, device="cpu")
     leaves = sorted_leaves(tp)
     for p in leaves:
         p.requires_grad_(True)
-    loss = tbuild(tc).loss(tp, {"tokens": torch.from_numpy(toks)})
+    loss = tbuild(tc).loss(tp, {k: torch.from_numpy(v)
+                                for k, v in batch.items()})
     return loss, torch.autograd.grad(loss, leaves)
 
 
@@ -89,8 +101,8 @@ def _port_grads(arch, dispatch, weights, toks, **over):
 def test_loss_grads_match_reference(ref_grads, arch, dispatch):
     """Every parameter's gradient of ``Model.loss`` against ``jax.grad``
     of the reference's, from the same float32 weights and tokens."""
-    rloss, rg, weights, toks = ref_grads(arch, dispatch)
-    loss, grads = _port_grads(arch, dispatch, weights, toks)
+    rloss, rg, weights, batch = ref_grads(arch, dispatch)
+    loss, grads = _port_grads(arch, dispatch, weights, batch)
     assert abs(loss.item() - rloss) <= 1e-5 * abs(rloss)
     assert len(grads) == len(rg)
     for i, (got, want) in enumerate(zip(grads, rg)):
@@ -105,11 +117,26 @@ def test_loss_grads_match_reference(ref_grads, arch, dispatch):
 def test_remat_changes_no_value(ref_grads, remat):
     """``cfg.remat`` 'none', 'full' (each block checkpointed) and 'dots'
     (matmul outputs saved) give the same loss and grads bit for bit."""
-    _, _, weights, toks = ref_grads("granite-moe-3b-a800m", "spmm")
-    base = _port_grads("granite-moe-3b-a800m", "spmm", weights, toks,
+    _, _, weights, batch = ref_grads("granite-moe-3b-a800m", "spmm")
+    base = _port_grads("granite-moe-3b-a800m", "spmm", weights, batch,
                        remat="none")
-    got = _port_grads("granite-moe-3b-a800m", "spmm", weights, toks,
+    got = _port_grads("granite-moe-3b-a800m", "spmm", weights, batch,
                       remat=remat)
+    assert torch.equal(got[0], base[0])
+    for g, w in zip(got[1], base[1]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b",
+                                  "whisper-medium"])
+def test_remat_changes_no_value_recurrent(ref_grads, arch):
+    """The ``mamba`` and ``rec`` blocks and whisper's two stacks under
+    ``remat="full"`` (each block or layer checkpointed, its scans and
+    attention recomputed in the backward) give the loss and grads of
+    ``remat="none"`` bit for bit."""
+    _, _, weights, batch = ref_grads(arch, None)
+    base = _port_grads(arch, None, weights, batch, remat="none")
+    got = _port_grads(arch, None, weights, batch, remat="full")
     assert torch.equal(got[0], base[0])
     for g, w in zip(got[1], base[1]):
         assert torch.equal(g, w)

@@ -2,7 +2,8 @@
 layers (norms, RoPE, embeddings, losses), attention (GQA full, windowed,
 with QKV bias, grouped, chunked past ``CHUNKED_THRESHOLD``; cached and ring
 decode; MLA full and absorbed decode), the MoE layer's three dispatches,
-and the parameter specs of all ten configs.
+and the parameter specs of all ten configs (the recurrent and
+encoder-decoder layers: ``test_torch_lm_families.py``).
 
 The same numpy inputs and parameters (the reference's ``init_params``
 carried over by ``params_from_numpy``) go through both packages. Float32
@@ -280,21 +281,14 @@ def _flat(tree, path=()):
              tree.scale)]
 
 
-UNPORTED = {"falcon-mamba-7b", "recurrentgemma-9b", "whisper-medium"}
-
-
 @pytest.mark.parametrize("name", sorted(rcfg.ARCHS))
 def test_decoder_specs_match_reference(name):
     """Full-size spec trees (shapes, logical axes, init kinds, scales) and
-    counts equal the reference's, with no allocation; the three families
-    not ported raise, naming their ROADMAP item."""
+    counts equal the reference's, with no allocation, for all ten configs
+    (whisper's two stacks included)."""
     from repro.models import build_model as rbuild
     from repro_torch.models import build_model as tbuild
     rm, tm = rbuild(rcfg.ARCHS[name]), tbuild(tcfg.ARCHS[name])
-    if name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            tm.specs()
-        return
     assert _flat(tm.specs()) == _flat(rm.specs())
     assert tm.n_params() == rm.n_params()
     meta = tm.abstract_params()
@@ -333,9 +327,15 @@ def test_init_params_kinds_and_scales():
 
 
 def test_block_kinds_not_ported_raise():
-    for kind in ("mamba", "rec"):
-        cfg = tcfg.get_config("recurrentgemma-9b-smoke")
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            tt.block_specs(cfg, kind)
-    assert tt.segment_plan(tcfg.ARCHS["recurrentgemma-9b"]) == \
-        rt.segment_plan(rcfg.ARCHS["recurrentgemma-9b"])
+    """The block kinds ``mamba`` and ``rec``, once refused, now build: their
+    spec trees at full width equal the reference's, and so do the segment
+    plans that use them (falcon-mamba's 64 ``mamba`` blocks,
+    recurrentgemma's ``(rec, rec, local) × 12, (rec, rec)``)."""
+    for kind, name in (("mamba", "falcon-mamba-7b"),
+                       ("rec", "recurrentgemma-9b")):
+        assert _flat(tt.block_specs(tcfg.ARCHS[name], kind)) == \
+            _flat(rt.block_specs(rcfg.ARCHS[name], kind))
+        assert tt.segment_plan(tcfg.ARCHS[name]) == \
+            rt.segment_plan(rcfg.ARCHS[name])
+    assert tt.segment_plan(tcfg.ARCHS["recurrentgemma-9b"]) == [
+        (("rec", "rec", "local"), 12), (("rec", "rec"), 1)]

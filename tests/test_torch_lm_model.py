@@ -1,13 +1,18 @@
 """repro_torch's decoder (``models.transformer``) and ``Model`` facade
 (``models.api``) against the JAX reference on the CPU, for the reduced
-configs of the seven attention-based archs.
+configs of all ten archs: the seven attention-based ones, falcon-mamba
+(``mamba`` blocks), recurrentgemma (``rec`` and ``local`` blocks) and
+whisper (the encoder-decoder, its batch carrying ``frames``).
 
 Weights are the reference's ``Model.init`` carried over by
 ``params_from_numpy``; tokens are drawn with numpy from a seed. For each
 arch: the full forward's logits, the loss, ``Model.prefill`` on the first
 half of the prompt and every teacher-forced ``decode_step`` after it, the
-cache layouts and the shape stand-ins. Float32 logits agree within
-1e-4·max|·|. The bfloat16 case (deepseek's reduced widths in bfloat16)
+cache layouts and the shape stand-ins. The three recurrent and
+encoder-decoder families run 64 tokens, prefill on 32: the SSM's scan
+crosses its 16-token chunks (two in the prefill, four in the full
+forward) and recurrentgemma's local attention its 8-token window; the
+others run 12, prefill on 6. Float32 logits agree within 1e-4·max|·|. The bfloat16 case (deepseek's reduced widths in bfloat16)
 agrees within 4e-2·max|·|: through two layers, prefill and six decode
 steps, the reference does not hold 2e-2 against itself (its jitted and
 eager runs of this case differ by up to 2.16e-2·max|·| at decode step 10,
@@ -27,15 +32,20 @@ import jax.numpy as jnp
 
 from repro import configs as rcfg
 from repro.models import build_model as rbuild
+from repro.models import encdec as red
 from repro.models import transformer as rt
 from repro_torch import configs as tcfg
 from repro_torch.core.formats import params_from_numpy
 from repro_torch.models import build_model as tbuild
+from repro_torch.models import encdec as ted
 from repro_torch.models import transformer as tt
 from repro_torch.models.params import tree_leaves
 
 ARCHS = ["mistral-large-123b", "qwen1.5-110b", "qwen2-0.5b", "yi-34b",
-         "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "internvl2-2b"]
+         "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "internvl2-2b",
+         "falcon-mamba-7b", "recurrentgemma-9b", "whisper-medium"]
+LENGTHS = {"falcon-mamba-7b": 64, "recurrentgemma-9b": 64,
+           "whisper-medium": 64}          # the rest: 12
 TOL = {"float32": 1e-4, "bfloat16": 4e-2}
 
 
@@ -73,6 +83,9 @@ def _batch(cfg, b: int, s: int, seed: int = 2):
     if cfg.family == "vlm":
         batch["patches"] = rng.standard_normal(
             (b, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return ({k: jnp.asarray(v) for k, v in batch.items()},
             {k: torch.from_numpy(v) for k, v in batch.items()})
 
@@ -84,14 +97,22 @@ def test_prefill_and_decode_match_reference(arch, dt):
     every teacher-forced decode step's logits, against the reference."""
     rm, tm, rp, tp = _setup(arch, dt)
     cfg = tm.cfg
-    b, s = 2, 12
+    b, s = 2, LENGTHS.get(arch, 12)
     jb, tb = _batch(cfg, b, s)
     prefix = tb.get("patches")
-    full, _, _ = jax.jit(lambda p, t, pe: rt.decoder_forward(
-        p, t, rm.cfg, prefix_embed=pe))(rp, jb["tokens"], jb.get("patches"))
     with torch.inference_mode():
-        tfull, _, none = tt.decoder_forward(tp, tb["tokens"], cfg,
-                                            prefix_embed=prefix)
+        if cfg.family == "audio":
+            full = jax.jit(lambda p, f, t: red.decode_full(
+                p, t, red.encode(p, f, rm.cfg), rm.cfg)[0])(
+                    rp, jb["frames"], jb["tokens"])
+            tfull, none = ted.decode_full(
+                tp, tb["tokens"], ted.encode(tp, tb["frames"], cfg), cfg)
+        else:
+            full, _, _ = jax.jit(lambda p, t, pe: rt.decoder_forward(
+                p, t, rm.cfg, prefix_embed=pe))(rp, jb["tokens"],
+                                                jb.get("patches"))
+            tfull, _, none = tt.decoder_forward(tp, tb["tokens"], cfg,
+                                                prefix_embed=prefix)
         assert none is None
         _close(tfull, full, dt, "forward")
         _close(tm.loss(tp, tb), jax.jit(rm.loss)(rp, jb), dt, "loss")
@@ -209,8 +230,25 @@ def test_model_init_device_decides_alone():
 
 
 def test_audio_family_not_ported():
-    tm = tbuild(tcfg.get_config("whisper-medium-smoke"))
-    for call in (tm.specs, lambda: tm.cache_zeros(1, 4, device="cpu"),
-                 lambda: tm.prefill({}, {"tokens": None}, 4)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            call()
+    """The audio family, once refused, now runs: whisper's two-stack spec
+    tree equals the reference's (shapes, axes, inits, count), its cache
+    has the reference's layout, and a prefill of 5 tokens over 16 frames
+    gives the reference's logits and cross-attention keys and values."""
+    rm, tm, rp, tp = _setup("whisper-medium")
+    assert set(tm.specs()) == {"embed", "encoder", "enc_ln", "decoder",
+                               "dec_ln"}
+    assert tm.n_params() == rm.n_params()
+    assert [tuple(t.shape) for t in _leaves(tm.abstract_params())] == \
+        [tuple(a.shape) for a in jax.tree.leaves(rm.abstract_params())]
+    cache = tm.cache_zeros(2, 9, device="cpu")
+    assert cache["pos"] == 0
+    assert {k: tuple(v.shape) for k, v in cache["layers"].items()} == \
+        {k: tuple(v.shape) for k, v in rm.cache_zeros(2, 9)["layers"].items()}
+    jb, tb = _batch(tm.cfg, 2, 5)
+    rlog, rcache = rm.prefill(rp, jb, 9)
+    with torch.inference_mode():
+        tlog, tcache = tm.prefill(tp, tb, 9)
+    _close(tlog, rlog, "float32", "prefill")
+    assert tcache["pos"] == int(rcache["pos"]) == 5
+    for key in ("k", "v", "ck", "cv"):
+        _close(tcache["layers"][key], rcache["layers"][key], "float32", key)
