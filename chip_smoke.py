@@ -287,6 +287,31 @@ Phases (any failure exits non-zero before the last line):
    to 6 (two units) through ``runtime.Trainer`` (4 x 512 tokens, default
    ``AdamWConfig``): each step's loss, grad norm and ms, tokens/s and
    peak, all finite. The phase's seconds.
+6h. The dry run held against the card (``dryrun_phase``), the
+   ``[families]`` phase's tensors freed first: granite-moe-3b-a800m at its
+   published widths and all 32 layers, bfloat16, one train step of the
+   ``[train]`` phase's 8 x 512 tokens on ``launch.mesh.make_host_mesh()``
+   (1, 1), first with the config's ``dispatch="sort"``, then
+   ``"spmm"``. For each: ``launch.dryrun.analyze_cell`` traces the step on
+   meta tensors; parameters (drawn from ``--seed``), AdamW state and the
+   batch are put on the card once. Gate (a): the dry run's
+   ``argument_bytes`` equals what ``torch.cuda.memory_allocated()`` gained
+   for them, within the caching allocator's 512-byte rounding a tensor,
+   and equals the allocator's requested bytes (sizes before rounding)
+   exactly. One real step runs
+   under ``launch.op_analysis.analyze``, the counters zeroed just before it
+   and read just after. Gate (b), on ``'sort'``: its FLOPs equal the meta
+   count exactly. One more step is timed (host clock, synchronised) after
+   ``reset_peak_memory_stats``. Gate (c), on ``'sort'``: the meta
+   ``peak_live_bytes`` within DRY_TOL_PEAK of that step's
+   ``max_memory_allocated()`` over what was resident before the
+   arguments, and its part beyond ``argument_bytes`` (saved activations,
+   gradients, temporaries) within DRY_TOL_PEAK of the card's part beyond
+   the arguments' allocation: the arguments are most of the peak, so the
+   whole peak alone would pass a tracker that counted only them. The step's ms and achieved TFLOP/s (counted FLOPs over the
+   step's time) are printed beside, and on ``'spmm'`` K9's launches are
+   required and its FLOPs and peak printed, not gated (the meta trace
+   takes K9's plain twin). The phase's seconds.
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries, K9 with
    its bfloat16 and training shapes, K10 with its bfloat16 entry), the
    card's name and power limit, and as the last line ``{"ok": true,
@@ -4143,6 +4168,126 @@ def families_phase(seed: int):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6h: the dry run held against the card
+# ---------------------------------------------------------------------------
+
+DRY_TOL_PEAK = 0.25           # (c): |meta peak - card peak| / card peak,
+                              # on the whole peak and on its part beyond
+                              # the arguments
+ALLOC_ROUND = 512             # (a): the caching allocator's rounding
+
+
+def requested_bytes() -> int:
+    """The bytes the caching allocator was asked for and holds (its
+    ``requested_bytes`` statistic: sizes before rounding)."""
+    import torch
+    return torch.cuda.memory_stats().get("requested_bytes.all.current", -1)
+
+
+def dryrun_phase(seed: int):
+    """The dry run's predictions against one real train step of
+    granite-moe-3b-a800m (see the module docstring, phase 6h). Returns
+    ({path: counts}, summary)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeCase
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    b, s = TRAIN_A["batch"], TRAIN_A["seq"]
+    case = ShapeCase(f"train_{b}x{s}", s, b, "train")
+    mesh = make_host_mesh()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.synchronize()
+    base, base_req = torch.cuda.memory_allocated(), requested_bytes()
+    cfg = train_config("sort")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = build_model(cfg).init(g)
+    opt = adamw_init(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                     dtype=torch.int32, device=dev)}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    held_req = requested_bytes() - base_req
+    n_tensors = len(tree_leaves((params, opt, batch)))
+    counts, summary = {}, {"card": gpu_line(), "mesh": mesh.shape,
+                           "case": dataclasses.asdict(case),
+                           "n_params": build_model(cfg).n_params(),
+                           "tensors": n_tensors, "allocated": held,
+                           "requested": held_req}
+    for dispatch in ("sort", "spmm"):
+        cfg = train_config(dispatch)
+        meta = dryrun.analyze_cell(cfg, case, mesh)
+        arg = meta["mem_per_device"]["argument_bytes"]
+        step = make_train_step(build_model(cfg), AdamWConfig())
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        _, real = analyze(step, params, opt, batch)
+        torch.cuda.synchronize()
+        counts[f"dryrun_{dispatch}"] = kernels.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, _, metrics = step(params, opt, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        r = dict(trace_s=meta["trace_s"], argument_bytes=arg,
+                 allocated_minus_argument=held - arg,
+                 requested_minus_argument=held_req - arg,
+                 meta_flops=meta["flops"], card_flops=real["flops"],
+                 meta_peak_live_bytes=meta["peak_live_bytes"],
+                 card_peak_live_bytes=real["peak_live_bytes"],
+                 card_max_allocated=peak,
+                 peak_rel=(meta["peak_live_bytes"] - peak) / peak,
+                 meta_beyond_arguments=meta["peak_live_bytes"] - arg,
+                 card_beyond_arguments=peak - held,
+                 beyond_rel=((meta["peak_live_bytes"] - arg) - (peak - held))
+                 / (peak - held),
+                 meta_bytes=meta["bytes"], card_bytes=real["hbm_bytes"],
+                 step_ms=ms, achieved_tflops=meta["flops"] / ms / 1e9,
+                 loss=loss, k9_grids=counts[f"dryrun_{dispatch}"]["ell_spmm"])
+        summary[dispatch] = r
+        print(f"[dryrun] {cfg.name} '{dispatch}' {b} x {s}, {summary['card']}: "
+              f"{json.dumps(r)}", flush=True)
+        require(0 <= held - arg <= ALLOC_ROUND * n_tensors,
+                f"(a) '{dispatch}': the card allocated {held} bytes for the "
+                f"{n_tensors} argument tensors, the dry run says {arg} (more "
+                f"than {ALLOC_ROUND} bytes a tensor apart)")
+        require(held_req == arg,
+                f"(a) '{dispatch}': the allocator was asked for {held_req} "
+                f"bytes for the arguments, the dry run says {arg}")
+        require(math.isfinite(loss), f"'{dispatch}' loss {loss}")
+        if dispatch == "sort":
+            require(real["flops"] == meta["flops"],
+                    f"(b) the step counted {real['flops']} FLOPs on the card, "
+                    f"{meta['flops']} on meta")
+            require(abs(r["peak_rel"]) <= DRY_TOL_PEAK,
+                    f"(c) meta peak {meta['peak_live_bytes']} bytes against "
+                    f"the card's {peak}: {r['peak_rel']:+.3f} relative")
+            require(abs(r["beyond_rel"]) <= DRY_TOL_PEAK,
+                    f"(c) meta peak beyond the arguments "
+                    f"{r['meta_beyond_arguments']} bytes against the card's "
+                    f"{r['card_beyond_arguments']}: {r['beyond_rel']:+.3f} "
+                    f"relative")
+        else:
+            require(r["k9_grids"] > 0, "'spmm' step launched no K9 grid")
+    del params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[dryrun] gates (a)-(c) passed; phase {summary['phase_s']:.1f} s",
+          flush=True)
+    return counts, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4405,6 +4550,15 @@ def main(argv=None) -> int:
     fam_counts, fam_summary = families_phase(args.seed)
     counts.update(fam_counts)
     print(json.dumps({"families": fam_summary}), flush=True)
+
+    # -- phase 6h: the dry run held against the card ---------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dryrun] resident before the phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    dry_counts, dry_summary = dryrun_phase(args.seed)
+    counts.update(dry_counts)
+    print(json.dumps({"dryrun": dry_summary}), flush=True)
 
     # -- phase 7: the kernels line and the result ------------------------------
     for r in rows:

@@ -28,7 +28,8 @@ the card.
 
 ``ell_spmm`` launches the kernel for CUDA tensors and runs ``ell_spmm_plain``
 (the reference oracle ``kernels/ref.py:ell_spmm_ref``, i.e.
-``core.spgemm.spmm_ell_dense``) only for tensors the caller put on the CPU.
+``core.spgemm.spmm_ell_dense``) only for tensors the caller put on the CPU,
+or on ``meta``, where the dry run (``launch/dryrun.py``) traces shapes alone.
 ``ell_spmm.launches`` counts its grids (``grids``). Indices must lie in
 [−1, n_rows).
 """
@@ -106,7 +107,7 @@ def ell_spmm(a_val: torch.Tensor, a_idx: torch.Tensor, x: torch.Tensor,
     if len(devices) != 1:
         raise ValueError(f"ell_spmm: operands on several devices {devices}")
     dev = x.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):     # meta: the dry run's shapes alone
         return ell_spmm_plain(a_val, a_idx, x, n_rows)
     if dev.type != "cuda":
         raise ValueError(f"ell_spmm: no kernel for device {dev}")

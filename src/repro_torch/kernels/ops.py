@@ -219,7 +219,7 @@ class EllSpmm(torch.autograd.Function):
 
 def ell_spmm(a_val, a_idx, x, n_rows: int):
     """A (row-wise ELLPACK planes) @ X → (n_rows, d) in ``x.dtype`` (K9,
-    ``ell_spmm.ell_spmm``; its plain twin for CPU operands), differentiable
+    ``ell_spmm.ell_spmm``; its plain twin for CPU and meta operands), differentiable
     in ``a_val`` and ``x`` (``EllSpmm``). The kernel masks the ragged edges
     itself, so nothing is padded and X is not cut into the reference's
     512-wide chunks."""

@@ -1,15 +1,25 @@
-"""Host mesh construction, mirroring ``src/repro/launch/mesh.py``.
+"""Mesh construction, mirroring ``src/repro/launch/mesh.py``.
 
-A function, not a module constant: importing this module touches no
-device. ``make_production_mesh`` (the (16, 16) and (2, 16, 16) TPU pod
-meshes) serves only the XLA dry-run and is not ported (ROADMAP queue 1
-item 11).
+Functions, not module constants: importing this module touches no
+device.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..parallel.mesh import Mesh, make_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production meshes the dry run lays its cells out on: 16 x 16 =
+    256 devices a pod on ``("data", "model")``, or two pods, (2, 16, 16) =
+    512 on ``("pod", "data", "model")``. Its devices are ``meta``: the dry
+    run reads only the mesh's shape."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, [torch.device("meta")] * math.prod(shape))
 
 
 def make_host_mesh(model_parallel: int = 1, devices=None) -> Mesh:

@@ -7,11 +7,11 @@ Runs the port's ``Trainer`` (checkpoint/restart, fault tolerance) with the
 reference's flags and defaults (``src/repro/launch/train.py``), plus
 ``--log-every`` (``TrainerConfig.log_every``) and ``--device`` (the card
 unless the caller asks for the CPU). On the CPU use the reduced config
-(``--smoke``). The LM's sharding over a host mesh
-(``launch.mesh.make_host_mesh``) is not ported, so the step runs on one
-device, and ``--model-parallel`` other than 1 raises
-``NotImplementedError``: it needs the multi-process realization (ROADMAP
-queue 1 item 9).
+(``--smoke``). The step runs on one device: the logical-axis rules lay
+arguments out only for the dry run (``launch/dryrun.py``), and running the
+LM sharded over a host mesh (``launch.mesh.make_host_mesh``) needs the
+multi-process realization (ROADMAP queue 1 item 9), so
+``--model-parallel`` other than 1 raises ``NotImplementedError``.
 
 ``main(argv)`` takes an argument list and returns the trainer's result
 (``params``, ``opt_state``, ``history``, ``straggler``) with the

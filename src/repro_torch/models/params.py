@@ -2,11 +2,11 @@
 
 Modules declare parameters as ``Spec`` leaves in nested dicts and lists.
 From the same tree come real initialized parameters (``init_params``),
-shape-only ones on the ``meta`` device (``abstract_params``) and the count
-(``count_params``). Parameter trees keep the reference's layouts, per-layer
-stack dimension included, so its weights carry across one to one
-(``core.formats.params_from_numpy``). Shardings wait for the port's
-multi-axis meshes (ROADMAP queue 1 item 9).
+shape-only ones on the ``meta`` device (``abstract_params``), their
+shardings under the active logical-axis rules (``param_shardings``) and the
+count (``count_params``). Parameter trees keep the reference's layouts,
+per-layer stack dimension included, so its weights carry across one to one
+(``core.formats.params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -156,11 +156,34 @@ def init_params(spec_tree: Tree, generator: Optional[torch.Generator] = None,
     return tree_map(mk, spec_tree, is_spec)
 
 
+def meta_tensor(shape, dtype, sharding=None) -> torch.Tensor:
+    """An empty tensor on the ``meta`` device carrying ``sharding`` (a
+    ``parallel.sharding.NamedSharding`` or None) as its ``sharding``
+    attribute, the counterpart of a ``jax.ShapeDtypeStruct``'s: a meta
+    tensor has no layout of its own."""
+    t = torch.empty(tuple(shape), dtype=torch_dtype(dtype), device="meta")
+    t.sharding = sharding
+    return t
+
+
 def abstract_params(spec_tree: Tree, dtype=torch.float32) -> Tree:
     """The tree as tensors on the ``meta`` device: shapes and dtypes, no
-    allocation."""
-    dtype = torch_dtype(dtype)
-    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"),
+    allocation. Under ``sharding_rules`` each leaf's ``sharding`` is its
+    resolved layout (``meta_tensor``; None without a mesh), the same as
+    ``param_shardings`` gives beside the tree."""
+    from ..parallel.sharding import named_sharding
+    return tree_map(lambda s: meta_tensor(s.shape, dtype,
+                                          named_sharding(s.axes, s.shape)),
+                    spec_tree, is_spec)
+
+
+def param_shardings(spec_tree: Tree) -> Tree:
+    """The ``NamedSharding`` tree of ``spec_tree`` under the active rules
+    (``sharding_rules(mesh)`` must be set)."""
+    from ..parallel.sharding import NamedSharding, mesh_rules
+    rules = mesh_rules()
+    return tree_map(lambda s: NamedSharding(rules.mesh,
+                                            rules.resolve(s.axes, s.shape)),
                     spec_tree, is_spec)
 
 

@@ -15,10 +15,10 @@ It runs in torch's idiom: in place, under ``torch.no_grad()``, one leaf at
 a time, and a stacked leaf (ndim ≥ 3) one slice of its first dim at a time
 (the same numbers, elementwise), so a float32 temporary is one slice: a
 whole stacked expert matrix of granite-moe-3b is 1,006,632,960 elements,
-4.03 GB a float32 temporary. The reference's ZeRO-1 sharding constraint on
-the moments (``_shard_moment``) has no counterpart on one card;
-``opt_state_specs`` keeps its logical axes for the dry-run tooling (ROADMAP
-queue 1 item 11).
+4.03 GB a float32 temporary. ``opt_state_specs`` keeps the reference's
+ZeRO-1 axes, from which the dry run lays the moments out
+(``launch/steps.py::abstract_train_args``); ``_shard_moment``, the
+reference's constraint on them, returns its input (see there).
 
 Leaves are visited in the reference's order (dict keys sorted, the order
 ``jax.tree.leaves`` gives), which fixes the order of ``global_norm``'s sum.
@@ -66,6 +66,19 @@ def opt_state_specs(param_specs) -> Any:
         "nu": tree_map(one, param_specs, is_spec),
         "step": Spec((), (), init="zeros"),
     }
+
+
+def _shard_moment(x: torch.Tensor, spec: Optional[Spec]) -> torch.Tensor:
+    """The reference's ZeRO-1 ``with_sharding_constraint`` on a moment:
+    ``x`` itself. The eager program has no partitioner for a constraint to
+    steer (the dry run reads the moments' layout from ``opt_state_specs``
+    instead); under ``sharding_rules(mesh)`` the moment axes are resolved
+    against ``x``'s shape, so a moment of the wrong rank raises."""
+    from ..parallel.sharding import current_rules
+    rules = current_rules()
+    if rules is not None and rules.mesh is not None and spec is not None:
+        rules.resolve(_moment_axes(spec), x.shape)
+    return x
 
 
 def adamw_init(params) -> Any:
