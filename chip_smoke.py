@@ -15,7 +15,8 @@ distributed SpGEMM on four shards of the card (``spgemm(a, b, mesh=,
 axis=)``), token serving on the LM stack (``ServingEngine.generate_batch``
 over deepseek-v2-lite-16b, all 27 layers in bfloat16) and training on it
 (``launch.train.main`` over granite-moe-3b-a800m, all 32 layers in
-bfloat16), at a real size:
+bfloat16), and both again under a ``("data", "model")`` mesh of four
+shards (``--model-parallel``), at a real size:
 C = A·Aᵀ for the paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
@@ -312,6 +313,32 @@ Phases (any failure exits non-zero before the last line):
    step's time) are printed beside, and on ``'spmm'`` K9's launches are
    required and its FLOPs and peak printed, not gated (the meta trace
    takes K9's plain twin). The phase's seconds.
+6i. The LM under a mesh (``mesh_phase``), the ``[dryrun]`` phase's
+   tensors freed first, on ``launch.mesh.make_host_mesh`` over four
+   shards (the cards where the machine has four, else ``cuda:0`` four
+   times; the phase says which). Gate (a): granite-moe-3b-a800m at its
+   published widths cut to TRAIN_CUT layers, float32, TF32 off, 2 x 128
+   tokens (two token groups): ``Model.loss`` and every gradient under a
+   (2, 2) mesh (the experts split over ``"model"``: offsets, ``psum``)
+   against a (2, 1) mesh (the same groups, nothing split), and against
+   the same (2, 2) mesh on CPU devices, within MESH_TOL_A (loss
+   relative, each grad against its max). Gate (b): each of two planted
+   faults, every shard combining from expert 0 (``e_off = 0``) and no
+   ``psum``, must break gate (a). Gate (c): granite-moe-3b-a800m, all 32
+   layers, bfloat16, ``'sort'``, MESH_TRAIN's steps of 8 x 512 tokens
+   through ``launch.train.main(..., devices=...)`` at
+   ``--model-parallel`` 2 ((2, 2)) and 4 ((1, 4); 40 experts split
+   either way), then the hidden-dim split ((1, 16): 40 % 16 != 0, 512 %
+   16 = 0) through ``runtime.Trainer`` under the mesh: losses finite and
+   falling, ms a step, tokens/s, peak and ``moved_bytes()``. Gate (d):
+   the cut's loss under ``'spmm'`` on (2, 2), K9 launched once a group
+   (its grids counted exactly, the counters zeroed just before and read
+   just after), within MESH_TOL_A of ``'ellpack'``'s on the same mesh
+   (``'sort'``'s printed beside: its aux loss is the data shards' mean).
+   Gate (e): deepseek-v2-lite-16b, all 27 layers, bfloat16, a wave of 8
+   requests through ``launch.serve.main(..., devices=...)`` at
+   ``--model-parallel`` 4: prefill ms, decode ms a step, tokens/s, peak
+   and ``moved_bytes()`` (the experts' ``psum``). The phase's seconds.
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries, K9 with
    its bfloat16 and training shapes, K10 with its bfloat16 entry), the
    card's name and power limit, and as the last line ``{"ok": true,
@@ -320,6 +347,7 @@ Phases (any failure exits non-zero before the last line):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -4288,6 +4316,316 @@ def dryrun_phase(seed: int):
     return counts, summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 6i: the LM under a mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4               # the host mesh's shards (cards, or cuda:0 x 4)
+MESH_GATE_A = (2, 128)        # (a), (d): prompts x tokens on the float32 cut
+MESH_TOL_A = 1e-5             # (a): loss relative, each grad vs its max
+MESH_TRAIN = dict(batch=8, seq=512, steps=4)     # (c) through launch.train
+MESH_TRAIN_MP = (2, 4)        # (c): --model-parallel on four shards
+MESH_HIDDEN = (16, 32, 3)     # (c): model-parallel (40 % 16, 512 % 16 = 0),
+                              # layers, steps: the hidden-dim split
+MESH_SERVE = ("deepseek-v2-lite-16b", 8, 32, 4)  # (e): arch, requests,
+                              # max new tokens, --model-parallel
+
+
+def mesh_devices(n: int):
+    """``n`` shards: the cards in turn where the machine has
+    ``MESH_SHARDS`` or more, else ``cuda:0`` n times."""
+    import torch
+    cards = torch.cuda.device_count()
+    if cards >= MESH_SHARDS:
+        return [torch.device("cuda", i % cards) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def mesh_loss_grads(model, params, toks, mesh) -> tuple:
+    """``Model.loss`` and every leaf's grad under ``sharding_rules(mesh)``,
+    the grads on the CPU."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel import sharding_rules
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    with sharding_rules(mesh):
+        loss = model.loss(params, {"tokens": toks})
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    return float(loss), grads
+
+
+def mesh_apart(got, want) -> dict:
+    """Loss relative and the worst grad's max gap over its max."""
+    (lg, gg), (lw, gw) = got, want
+    return dict(loss_rel=abs(lg - lw) / abs(lw),
+                worst_grad_rel=max(float((x - y).abs().max())
+                                   / float(y.abs().max())
+                                   for x, y in zip(gg, gw)
+                                   if float(y.abs().max()) > 0))
+
+
+@contextlib.contextmanager
+def mesh_plant(fault: str):
+    """(b): plant ``fault`` in the ``'sort'`` region within the block:
+    every shard combines from expert 0 (``e_off = 0``), or each data
+    shard keeps its first ``"model"`` shard's partial combine (no
+    ``psum``)."""
+    from repro_torch.models import ffn
+    from repro_torch.parallel import mesh as pmesh
+    off = fault == "e_off = 0"
+    mod, name = (ffn, "_moe_sort_body") if off else (pmesh, "psum")
+    orig = getattr(mod, name)
+    setattr(mod, name, (lambda *a: orig(*a[:-1], 0)) if off
+            else (lambda shards: shards[0].clone()))
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def mesh_gates_ad(seed: int) -> tuple:
+    """(a), (b), (d) on granite's published widths cut to TRAIN_CUT layers,
+    float32, TF32 off: see the module docstring, phase 6i. Returns
+    (summary, {path: counts})."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_map
+    from repro_torch.parallel import sharding_rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    b, sq = MESH_GATE_A
+    cfg = train_config("sort", n_layers=TRAIN_CUT, param_dtype="float32",
+                       compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed + 11))
+    toks = torch.from_numpy(np.random.default_rng(seed + 12).integers(
+        3, cfg.vocab, (b, sq)).astype(np.int32)).to(dev)
+    devs = mesh_devices(MESH_SHARDS)
+    m22, m21 = make_host_mesh(2, devs), make_host_mesh(1, devs[:2])
+    cpu22 = make_host_mesh(2, ["cpu"] * MESH_SHARDS)
+    res = {"meshes": {"split": m22.shape, "unsplit": m21.shape,
+                      "devices": [str(d) for d in devs]}}
+    t0 = time.perf_counter()
+    ref = mesh_loss_grads(model, params, toks, m21)
+    split = mesh_loss_grads(model, params, toks, m22)
+    res["split_s"] = time.perf_counter() - t0
+    cpu_params = tree_map(lambda t: t.detach().cpu(), params)
+    on_cpu = mesh_loss_grads(model, cpu_params, toks.cpu(), cpu22)
+    res["card_2x2_vs_2x1"] = mesh_apart(split, ref)
+    res["card_2x2_vs_cpu_2x2"] = mesh_apart(split, on_cpu)
+    res["losses"] = dict(card_2x2=split[0], card_2x1=ref[0],
+                         cpu_2x2=on_cpu[0])
+    for what in ("card_2x2_vs_2x1", "card_2x2_vs_cpu_2x2"):
+        r = res[what]
+        require(r["loss_rel"] <= MESH_TOL_A
+                and r["worst_grad_rel"] <= MESH_TOL_A,
+                f"(a) {what}: {json.dumps(r)} above {MESH_TOL_A}")
+    del on_cpu, cpu_params
+    # (b) each planted fault must break gate (a)
+    res["planted"] = {}
+    for fault in ("e_off = 0", "no psum"):
+        with mesh_plant(fault):
+            bad = mesh_apart(mesh_loss_grads(model, params, toks, m22), ref)
+        res["planted"][fault] = bad
+        require(bad["loss_rel"] > MESH_TOL_A
+                or bad["worst_grad_rel"] > MESH_TOL_A,
+                f"(b) gate (a) passed with '{fault}' planted: "
+                f"{json.dumps(bad)}")
+    del ref, split
+    print(f"[mesh] (a) {TRAIN_CUT}-layer float32 cut of {cfg.name}, {b} x "
+          f"{sq} tokens, {gpu_line()}: (2, 2) against (2, 1) and against "
+          f"(2, 2) on CPU devices within {MESH_TOL_A}; (b) both planted "
+          f"faults caught: {json.dumps(res)}", flush=True)
+    # (d) 'spmm' at two groups: K9 once a group, the loss equal to
+    # 'ellpack''s on the same mesh
+    losses, counts = {}, {}
+    for dispatch in ("spmm", "ellpack", "sort"):
+        dm = build_model(train_config(dispatch, n_layers=TRAIN_CUT,
+                                      param_dtype="float32",
+                                      compute_dtype="float32"))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with sharding_rules(m22), torch.no_grad():
+            losses[dispatch] = float(dm.loss(params, {"tokens": toks}))
+        torch.cuda.synchronize()
+        counts[f"mesh_{dispatch}"] = kernels.launch_counts()
+    groups = 2
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    want = n_moe * groups * k9_grids(cfg, b * sq // groups)
+    got = counts["mesh_spmm"]["ell_spmm"]
+    rd = dict(losses=losses, spmm_vs_ellpack_rel=abs(
+        losses["spmm"] - losses["ellpack"]) / abs(losses["ellpack"]),
+        k9_grids=got, k9_grids_want=want)
+    print(f"[mesh] (d) 'spmm' on (2, 2), {groups} groups, {gpu_line()}: "
+          f"{json.dumps(rd)}", flush=True)
+    require(got == want, f"(d) 'spmm' launched K9's grids {got} times, not "
+            f"{want} ({n_moe} layers x {groups} groups)")
+    require(rd["spmm_vs_ellpack_rel"] <= MESH_TOL_A,
+            f"(d) 'spmm' loss {losses['spmm']} against 'ellpack' "
+            f"{losses['ellpack']} on the same mesh")
+    res["spmm"] = rd
+    torch.backends.cuda.matmul.allow_tf32 = True
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def mesh_train_steps(out, tokens: int, what: str) -> dict:
+    """(c): one run's losses (finite, falling), ms a step, tokens/s (the
+    median step after the first), peak and moved bytes."""
+    import torch
+    from repro_torch.parallel import mesh as pmesh
+    hist = out["history"]
+    ms = [h["ms"] for h in hist]
+    med = median(ms[1:])
+    r = dict(mesh=out["mesh"].shape, losses=[h["loss"] for h in hist],
+             step_ms=ms, median_step_ms=med, tokens_per_s=tokens / med * 1e3,
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             moved_bytes=pmesh.moved_bytes())
+    require(all(math.isfinite(x) for x in r["losses"]),
+            f"(c) {what}: a loss is not finite: {r['losses']}")
+    require(r["losses"][-1] < r["losses"][0],
+            f"(c) {what}: losses do not fall: {r['losses']}")
+    return r
+
+
+def mesh_train(seed: int) -> tuple:
+    """(c): granite-moe-3b-a800m at all 32 layers, bfloat16, 'sort',
+    through ``launch.train.main(..., devices=...)`` on (2, 2) and (1, 4),
+    then the hidden-dim split through ``runtime.Trainer`` under
+    ``sharding_rules(make_host_mesh(16, ...))``. Returns (summary,
+    {path: counts})."""
+    import tempfile
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import mesh as pmesh
+    from repro_torch.parallel import sharding_rules
+    from repro_torch.runtime import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = True
+    a = MESH_TRAIN
+    tokens = a["batch"] * a["seq"]
+    res, counts = {}, {}
+    for mp in MESH_TRAIN_MP:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pmesh.reset_moved_bytes()
+        kernels.reset_launch_counts()
+        with tempfile.TemporaryDirectory() as d:
+            out = tlaunch.main([
+                "--arch", TRAIN_ARCH, "--steps", str(a["steps"]),
+                "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+                "--ckpt-dir", d, "--ckpt-every", str(10 * a["steps"]),
+                "--no-resume", "--log-every", "1", "--model-parallel",
+                str(mp)], devices=mesh_devices(MESH_SHARDS))
+        torch.cuda.synchronize()
+        what = f"model_parallel_{mp}"
+        counts[f"mesh_train_{mp}"] = kernels.launch_counts()
+        res[what] = mesh_train_steps(out, tokens, what)
+        print(f"[mesh] (c) {TRAIN_ARCH} 32 layers bf16 'sort' {a['batch']} "
+              f"x {a['seq']} on {out['mesh'].shape}, {gpu_line()}: "
+              f"{json.dumps(res[what])}", flush=True)
+        del out
+        gc.collect()
+    mp, layers, steps = MESH_HIDDEN
+    cfg = train_config("sort", n_layers=layers)
+    require(cfg.moe.n_experts % mp and cfg.moe.d_ff_expert % mp == 0,
+            f"(c) {mp} shards do not split {cfg.name}'s hidden dim alone")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pmesh.reset_moved_bytes()
+    kernels.reset_launch_counts()
+    mesh = make_host_mesh(mp, mesh_devices(mp))
+    with tempfile.TemporaryDirectory() as d, sharding_rules(mesh):
+        tr = Trainer(build_model(cfg), TrainerConfig(
+            steps=steps, ckpt_dir=d, ckpt_every=10 * steps, log_every=1,
+            global_batch=a["batch"], seq_len=a["seq"], seed=seed),
+            AdamWConfig(), device=mesh.devices.flat[0])
+        out = tr.run(resume=False)
+    torch.cuda.synchronize()
+    counts["mesh_train_hidden"] = kernels.launch_counts()
+    res["hidden_split"] = mesh_train_steps(dict(out, mesh=mesh), tokens,
+                                           "hidden split")
+    res["hidden_split"]["layers"] = layers
+    print(f"[mesh] (c) hidden-dim split, {layers} layers bf16 on "
+          f"{mesh.shape}, {gpu_line()}: {json.dumps(res['hidden_split'])}",
+          flush=True)
+    del out, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def mesh_serve(seed: int) -> tuple:
+    """(e): one wave through ``launch.serve.main(..., devices=...)``.
+    Returns (summary, {path: counts})."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve as slaunch
+    from repro_torch.parallel import mesh as pmesh
+    arch, n, new, mp = MESH_SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pmesh.reset_moved_bytes()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = slaunch.main(["--arch", arch, "--requests", str(n), "--max-new",
+                        str(new), "--model-parallel", str(mp)],
+                       devices=mesh_devices(MESH_SHARDS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    steps = st["decode_steps"]
+    r = dict(arch=arch, requests=st["requests"], tokens=st["tokens"],
+             prefill_ms=st["prefill_s"] * 1e3,
+             decode_ms_per_step=st["decode_s"] * 1e3 / max(1, steps),
+             decode_steps=steps,
+             tokens_per_s=st["tokens"] / (st["prefill_s"] + st["decode_s"]),
+             decode_tokens_per_s=st["tokens"] / max(st["decode_s"], 1e-9),
+             wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             moved_bytes=pmesh.moved_bytes())
+    require(st["requests"] == n and n <= st["tokens"] <= n * new,
+            f"(e) served {st['requests']} requests, {st['tokens']} tokens")
+    require(r["moved_bytes"] > 0, "(e) no psum ran: the experts did not "
+            "split over 'model'")
+    print(f"[mesh] (e) {arch} 27 layers bf16, a wave of {n} through "
+          f"launch.serve.main on (1, {mp}), {gpu_line()}: {json.dumps(r)}",
+          flush=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r, {"mesh_serve": kernels.launch_counts()}
+
+
+def mesh_phase(seed: int):
+    """The LM under a mesh (see the module docstring, phase 6i). Returns
+    ({path: counts}, summary)."""
+    import torch
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    summary = {"card": gpu_line(), "cards": cards,
+               "shards_on": "cards" if cards >= MESH_SHARDS
+               else f"cuda:0 x {MESH_SHARDS}"}
+    print(f"[mesh] shards on {summary['shards_on']}", flush=True)
+    counts = {}
+    for part, fn in (("cut", mesh_gates_ad), ("train", mesh_train),
+                     ("serve", mesh_serve)):
+        summary[part], c = fn(seed)
+        counts.update(c)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] gates (a)-(e) passed; phase {summary['phase_s']:.1f} s",
+          flush=True)
+    return counts, summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4559,6 +4897,15 @@ def main(argv=None) -> int:
     dry_counts, dry_summary = dryrun_phase(args.seed)
     counts.update(dry_counts)
     print(json.dumps({"dryrun": dry_summary}), flush=True)
+
+    # -- phase 6i: the LM under a mesh ---------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] resident before the phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    mesh_counts, mesh_summary = mesh_phase(args.seed)
+    counts.update(mesh_counts)
+    print(json.dumps({"mesh": mesh_summary}), flush=True)
 
     # -- phase 7: the kernels line and the result ------------------------------
     for r in rows:

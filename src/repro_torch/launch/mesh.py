@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from ..core.formats import resolve_device
 from ..parallel.mesh import Mesh, make_mesh
 
 
@@ -38,3 +39,19 @@ def make_host_mesh(model_parallel: int = 1, devices=None) -> Mesh:
                          f"the {n} devices")
     return make_mesh((n // model_parallel, model_parallel),
                      ("data", "model"), devices)
+
+
+def launch_mesh(model_parallel: int = 1, device=None, devices=None) -> Mesh:
+    """The mesh ``launch/train.py`` and ``launch/serve.py`` run under:
+    ``make_host_mesh(model_parallel, devices)``. Without ``devices``: every
+    card where ``device`` is the card (``None`` or ``"cuda"``), else
+    ``[device]`` (``"cpu"``, ``"cuda:1"``). A ``device`` of another type
+    than ``devices`` raises ``ValueError``."""
+    if devices is None:
+        dev = resolve_device(device)
+        if dev.type != "cuda" or dev.index is not None:
+            devices = [dev]
+    elif device is not None and \
+            torch.device(device).type != torch.device(devices[0]).type:
+        raise ValueError(f"--device {device} and devices {devices} differ")
+    return make_host_mesh(model_parallel, devices)

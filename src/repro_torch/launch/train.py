@@ -7,15 +7,18 @@ Runs the port's ``Trainer`` (checkpoint/restart, fault tolerance) with the
 reference's flags and defaults (``src/repro/launch/train.py``), plus
 ``--log-every`` (``TrainerConfig.log_every``) and ``--device`` (the card
 unless the caller asks for the CPU). On the CPU use the reduced config
-(``--smoke``). The step runs on one device: the logical-axis rules lay
-arguments out only for the dry run (``launch/dryrun.py``), and running the
-LM sharded over a host mesh (``launch.mesh.make_host_mesh``) needs the
-multi-process realization (ROADMAP queue 1 item 9), so
-``--model-parallel`` other than 1 raises ``NotImplementedError``.
+(``--smoke``). As the reference does, the trainer runs under
+``sharding_rules(make_host_mesh(--model-parallel))``: a ("data", "model")
+mesh over every card of this host, or over ``devices`` where the caller
+passes them (``main(argv, devices=["cuda:0"] * 4)``: four shards of one
+card; ``["cpu"] * 4`` in the tests). A model-parallel size that does not
+divide the devices raises ``ValueError``. Parameters, optimizer state and
+the dense layers live on the mesh's first device; the mesh splits the MoE
+layers' token groups and their ``'sort'`` region (``models/ffn.py``).
 
-``main(argv)`` takes an argument list and returns the trainer's result
-(``params``, ``opt_state``, ``history``, ``straggler``) with the
-``trainer`` itself.
+``main(argv, devices=None)`` takes an argument list and returns the
+trainer's result (``params``, ``opt_state``, ``history``, ``straggler``)
+with the ``trainer`` itself and the ``mesh``.
 """
 from __future__ import annotations
 
@@ -25,14 +28,15 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..core.formats import resolve_device
 from ..models import build_model
 from ..optim import AdamWConfig
+from ..parallel.sharding import sharding_rules
 from ..runtime import Trainer, TrainerConfig
 from ..runtime.trainer import default_ckpt_dir
+from .mesh import launch_mesh
 
 
-def main(argv=None):
+def main(argv=None, devices=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -50,19 +54,13 @@ def main(argv=None):
                     help="cpu or cuda (default: the card)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel} ({cards} device(s) "
-            "here): the LM's sharding over a mesh is not ported to "
-            "repro_torch yet; it needs ROADMAP queue 1 item 9 (a "
-            "multi-process realization over torch.distributed)")
+    mesh = launch_mesh(args.model_parallel, args.device, devices)
+    dev = mesh.devices.flat[0]
     name = args.arch + ("-smoke" if args.smoke else "")
     cfg = get_config(name)
     model = build_model(cfg)
     print(f"[train] arch={cfg.name} params={model.n_params():,} "
-          f"device={dev}", flush=True)
+          f"device={dev} mesh={mesh.shape}", flush=True)
 
     def extra(step):
         """The modality stub's input a step, drawn as the reference's."""
@@ -78,14 +76,15 @@ def main(argv=None):
     tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every, log_every=args.log_every,
                          global_batch=args.batch, seq_len=args.seq)
-    trainer = Trainer(model, tcfg, AdamWConfig(lr=args.lr),
-                      extra_batch_fn=extra if cfg.family in ("audio", "vlm")
-                      else None,
-                      device=dev)
-    out = trainer.run(resume=not args.no_resume)
+    with sharding_rules(mesh):
+        trainer = Trainer(model, tcfg, AdamWConfig(lr=args.lr),
+                          extra_batch_fn=extra
+                          if cfg.family in ("audio", "vlm") else None,
+                          device=dev)
+        out = trainer.run(resume=not args.no_resume)
     print(f"[train] done. final loss "
           f"{out['history'][-1]['loss']:.4f}", flush=True)
-    return dict(out, trainer=trainer)
+    return dict(out, trainer=trainer, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -16,10 +16,14 @@ exactly ``k`` slots. The dispatches (``cfg.moe.dispatch``):
 
 The expert and shared-expert products are plain batched matmuls, as the
 reference leaves them to XLA; ``'ellpack'`` and ``'sort'`` run no TPU
-kernel. Without a mesh the reference takes one token group
-(``axis_size("batch")`` is 1), its ``'sort'`` body has no expert offset and
-no ``psum``, and its ``maybe_shard`` does nothing; the port has no mesh
-here, so it keeps one group.
+kernel. Under ``parallel.sharding_rules(mesh)`` the tokens form one group
+a data shard, in all three dispatches, and ``'sort'`` runs its region
+shard by shard on the mesh (``_moe_sort_sharded``): what the reference's
+``shard_map`` computes, the expert offsets, ``psum`` and aux ``pmean``
+included. Without a mesh there is one group and one body. ``'ellpack'``,
+``'spmm'``, the router and the shared experts run on the tokens' device
+as one program: their layout under a mesh is the reference's partitioner's
+choice and changes no value.
 
 Parameters are dicts of tensors in the reference's layouts
 (``core.formats.params_from_numpy`` carries the reference's over):
@@ -29,6 +33,7 @@ with shared experts, ``shared`` = {``w_gate``, ``w_up`` (d, n_shared·f),
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Tuple
 
 import torch
@@ -233,20 +238,98 @@ def _moe_ellpack(p, x_grp: torch.Tensor, cfg, dtype):
 
 def _moe_sort(p, x_grp: torch.Tensor, cfg, dtype):
     """Sorted dispatch (the in-situ-search dual: equal coordinates grouped
-    by sorting). Every group sorts its (token, slot) pairs by expert id,
-    stably; a pair's rank in its expert's run (a running max of the run
-    starts) decides whether it fits the capacity; kept tokens are gathered
-    into the (E·C) capacity rows, the expert products run, and the rows
-    come back scaled by their routing weights and summed into their tokens
-    (``index_add_``, one extra row taking the dropped pairs). This is the
-    reference's ``_moe_sort_body`` on one device: every expert local, no
-    expert offset, no ``psum``."""
+    by sorting). Without a mesh, one body (``_moe_sort_body``) over every
+    group and expert. Under ``sharding_rules(mesh)`` the reference runs the
+    region under a full-manual ``shard_map``; here ``_moe_sort_sharded``
+    runs its shards one after another."""
+    from ..parallel.sharding import current_rules
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return _moe_sort_body(x_grp, p["router"], p["w_gate"], p["w_up"],
+                              p["w_down"], cfg, dtype, 0)
+    return _moe_sort_sharded(p, x_grp, cfg, dtype, rules)
+
+
+def _moe_sort_sharded(p, x_grp: torch.Tensor, cfg, dtype, rules):
+    """The reference's ``shard_map`` of the ``'sort'`` region on the
+    in-process mesh. The groups split over the data axes ``gspec`` names
+    and the expert weights over ``"model"`` (the expert dim where it
+    divides, else the hidden dim, else not at all), by the specs the
+    reference resolves. For each data coordinate and each ``"model"``
+    coordinate the device-local body runs on that mesh device, on its
+    blocks (views where they lie on that device already, else counted
+    copies: ``parallel.mesh.place``), with ``e_off`` = its ``"model"``
+    index · e_loc. An axis no spec names replicates and runs once. When
+    the weights were split, ``psum`` over ``"model"`` completes each data
+    shard's partial combine; the data shards' groups are concatenated on
+    the mesh's first device, and the aux loss is the mean of theirs (the
+    reference's ``pmean``). Everything runs under autograd.
+
+    On ``meta`` tensors (the dry run, whatever the mesh's devices) one
+    body runs over the global shapes, every group and expert: a trace
+    that counts the whole program without a loop over hundreds of shards
+    a layer."""
+    from ..parallel.mesh import place, psum
+    from ..parallel.sharding import shard_block, shard_shape, spec_axes
+    mesh = rules.mesh
+    d = x_grp.shape[-1]
+    e, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+    if x_grp.is_meta:
+        return _moe_sort_body(x_grp, p["router"], p["w_gate"], p["w_up"],
+                              p["w_down"], cfg, dtype, 0)
+    gspec = rules.resolve(("batch", None, None), x_grp.shape)
+    wg_spec = rules.resolve(("expert", None, "expert_ff"), (e, d, fe))
+    wd_spec = rules.resolve(("expert", "expert_ff", None), (e, fe, d))
+    gaxes = spec_axes(gspec[0])
+    waxes = tuple(dict.fromkeys(ax for sp in (wg_spec, wd_spec)
+                                for entry in sp for ax in spec_axes(entry)))
+    if set(waxes) - {"model"} or "model" in gaxes:
+        raise ValueError(f"the 'sort' region splits groups over the data "
+                         f"axes and experts over 'model' only; the rules "
+                         f"give groups {gspec[0]!r}, experts {waxes}")
+    e_loc, _, f_loc = shard_shape(wg_spec, (e, d, fe), mesh)
+    partitioned = e_loc < e or f_loc < fe
+    n_model = mesh.shape["model"] if partitioned else 1
+    first = mesh.devices.flat[0]
+    ys, auxes = [], []
+    for gc in itertools.product(*(range(mesh.shape[ax]) for ax in gaxes)):
+        parts = []
+        for j in range(n_model):
+            coords = dict(zip(gaxes, gc), model=j)
+            dev = mesh.device_at(coords)
+            x_loc = place(shard_block(x_grp, gspec, mesh, coords), dev)
+            w = [place(shard_block(p[name], sp, mesh, coords), dev)
+                 for name, sp in (("w_gate", wg_spec), ("w_up", wg_spec),
+                                  ("w_down", wd_spec))]
+            e_off = j * e_loc if e_loc < e else 0
+            y, aux = _moe_sort_body(x_loc, place(p["router"], dev), *w,
+                                    cfg, dtype, e_off)
+            parts.append(y)
+            if j == 0:
+                auxes.append(place(aux, first))
+        ys.append(place(psum(parts) if partitioned else parts[0], first))
+    aux = auxes[0] if len(auxes) == 1 else torch.stack(auxes).mean()
+    return torch.cat(ys) if len(ys) > 1 else ys[0], aux
+
+
+def _moe_sort_body(x_grp: torch.Tensor, router, w_gate, w_up, w_down, cfg,
+                   dtype, e_off: int):
+    """The reference's device-local ``_moe_sort_body``. Every group sorts
+    its (token, slot) pairs by expert id, stably; a pair's rank in its
+    expert's run (a running max of the run starts) decides whether it fits
+    the capacity; kept tokens are gathered into the (E·C) capacity rows,
+    the expert products run on the ``e_loc`` = ``w_gate.shape[0]`` experts
+    from ``e_off`` whose weights arrive (all of them, or a hidden-dim
+    slice, without a mesh), and the rows of those experts come back scaled
+    by their routing weights and summed into their tokens (``index_add_``):
+    a partial combine where the weights were split."""
     m = cfg.moe
     g, tg, d = x_grp.shape
     e, k = m.n_experts, m.top_k
     cap = moe_capacity(tg, cfg)
+    e_loc = w_gate.shape[0]
     dev = x_grp.device
-    logits = x_grp @ p["router"].to(dtype)                  # (G,Tg,E)
+    logits = x_grp @ router.to(dtype)                       # (G,Tg,E)
     w, ids = _topk_routing(logits, k)
     npg = tg * k                                             # pairs a group
     tok_of = torch.arange(tg, dtype=torch.int64, device=dev) \
@@ -270,14 +353,21 @@ def _moe_sort(p, x_grp: torch.Tensor, cfg, dtype):
     flat_slot = torch.where(keep, slot + goff_s, g * e * cap).reshape(-1)
     xe = torch.zeros((g * e * cap + 1, d), dtype=dtype, device=dev)
     xe.index_add_(0, flat_slot, gathered.reshape(g * npg, d))
-    xe = xe[:-1].reshape(g, e, cap, d)
+    xe = xe[:-1].reshape(g, e, cap, d)[:, e_off:e_off + e_loc]
     del gathered
-    h = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dtype))
-    u = torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(dtype))
-    ye = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dtype))
+    h = torch.einsum("gecd,edf->gecf", xe, w_gate.to(dtype))
+    u = torch.einsum("gecd,edf->gecf", xe, w_up.to(dtype))
+    ye = torch.einsum("gecf,efd->gecd", F.silu(h) * u, w_down.to(dtype))
     del h, u
-    back = ye.reshape(g * e * cap, d)[(slot + goff_s).reshape(-1)] \
-        .reshape(g, npg, d) * (s_w * keep).to(dtype)[..., None]
+    # combine only the pairs whose expert is local
+    loc_slot = slot - e_off * cap
+    scale = s_w * keep
+    if e_loc < e:
+        scale = scale * ((loc_slot >= 0) & (loc_slot < e_loc * cap))
+        loc_slot = loc_slot.clamp(0, e_loc * cap - 1)
+    goff_l = (torch.arange(g, device=dev) * (e_loc * cap))[:, None]
+    back = ye.reshape(g * e_loc * cap, d)[(loc_slot + goff_l).reshape(-1)] \
+        .reshape(g, npg, d) * scale.to(dtype)[..., None]
     y = torch.zeros((g * tg, d), dtype=dtype, device=dev)
     y.index_add_(0, tok_flat, back.reshape(g * npg, d))
     onehot = F.one_hot(ids.long(), e).to(torch.float32)
@@ -290,9 +380,17 @@ _DISPATCH = {"ellpack": _moe_ellpack, "sort": _moe_sort, "spmm": _moe_spmm}
 def moe_apply(p, x: torch.Tensor, cfg, dtype) -> Tuple[torch.Tensor,
                                                        torch.Tensor]:
     """x: (B, S, d) → (y, aux_loss) through ``cfg.moe.dispatch``
-    (``'ellpack'``, ``'sort'`` or ``'spmm'``)."""
+    (``'ellpack'``, ``'sort'`` or ``'spmm'``). Tokens are split into
+    ``min(axis_size("batch"), B)`` groups (GShard groups, one a data shard
+    under ``sharding_rules(mesh)``, one without a mesh), which must divide
+    the B·S tokens; capacity is counted a group."""
+    from ..parallel.sharding import axis_size
     b, s, d = x.shape
-    x_grp = x.reshape(1, b * s, d)          # one group without a mesh
+    groups = max(1, min(axis_size("batch"), b))
+    if b * s % groups:
+        raise ValueError(f"{b} x {s} tokens do not split into {groups} "
+                         "groups (the reference's reshape fails alike)")
+    x_grp = x.reshape(groups, b * s // groups, d)
     run = _DISPATCH.get(cfg.moe.dispatch, _moe_ellpack)
     with _obs.span("moe.dispatch", strategy=cfg.moe.dispatch, tokens=b * s,
                    experts=cfg.moe.n_experts):

@@ -295,10 +295,19 @@ def _unstack(tree, reps: int) -> list:
 
 def _remat(fn, cfg):
     """``fn`` under the activation checkpoint ``cfg.remat`` names (None for
-    ``"none"``)."""
+    ``"none"``). The recompute runs under the sharding rules active now:
+    autograd runs a card's backward on a thread of its own, where the
+    thread's rules (``parallel.sharding_rules``) would be missing and the
+    MoE layer would regroup its tokens."""
+    from ..parallel.sharding import current_rules, use_rules
+    rules = current_rules()
+
+    def body(*args):
+        with use_rules(rules):
+            return fn(*args)
     # the blocks draw no random numbers: no RNG state to keep for the
     # recompute
-    ckpt = functools.partial(_ckpt.checkpoint, fn, use_reentrant=False,
+    ckpt = functools.partial(_ckpt.checkpoint, body, use_reentrant=False,
                              preserve_rng_state=False)
     if cfg.remat == "full":
         return ckpt

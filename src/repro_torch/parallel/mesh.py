@@ -31,7 +31,9 @@ only where the caller passes CPU devices.
 
 ``moved_bytes()`` reads, and ``reset_moved_bytes()`` zeroes, the bytes the
 collectives have copied between shards (the tensors' sizes: what
-``ppermute`` delivers and what ``psum`` brings to the first device).
+``ppermute`` delivers and what ``psum`` brings to the first device), and
+what ``place`` copies to another device (a block already on its device is
+taken as a view and counts nothing).
 """
 from __future__ import annotations
 
@@ -92,6 +94,11 @@ class Mesh:
         along ``axis`` compute the same result."""
         return self.axis_groups(axis)[0]
 
+    def device_at(self, coords) -> torch.device:
+        """The device at ``coords`` (``{axis: index}``), index 0 on every
+        axis ``coords`` does not name."""
+        return self.devices[tuple(coords.get(a, 0) for a in self.axis_names)]
+
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, "
                 f"devices={[str(d) for d in self.devices.reshape(-1)]})")
@@ -145,6 +152,13 @@ def ring_perm(n: int) -> List[Tuple[int, int]]:
 def _copy(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     _MOVED[0] += x.numel() * x.element_size()
     return x.to(dev, non_blocking=True, copy=True)
+
+
+def place(x: torch.Tensor, dev) -> torch.Tensor:
+    """``x`` on ``dev``: ``x`` itself (a view stays a view) where it lies
+    there already, else a copy, counted in ``moved_bytes``."""
+    dev = torch.device(dev)
+    return x if x.device == dev else _copy(x, dev)
 
 
 def _receivers(shards: Shards, perm):

@@ -16,8 +16,12 @@ them. The port runs one eager program, with no partitioner: the resolved
 specs give each argument's per-device layout and bytes (``shard_shape``;
 the dry run, ``launch/dryrun.py``), and ``maybe_shard`` only checks its
 spec, as the reference's ``with_sharding_constraint`` would, and returns
-its input. ``logical_to_pspec``, ``maybe_shard`` and the module-level
-``axis_size`` keep the reference's API: no code of the port calls them.
+its input. Values change under a mesh only where the reference's do: the
+MoE layer groups its tokens by data shard (``axis_size("batch")``) and
+runs its ``'sort'`` region shard by shard (``shard_block`` slices its
+inputs as ``shard_map`` would; ``models/ffn.py``). ``logical_to_pspec``
+and ``maybe_shard`` keep the reference's API: no code of the port calls
+them.
 
 A ``ShardedEll`` is an ELLPACK operand placed on a mesh: one ``(val,
 idx)`` pair a device, split along one plane axis or held whole by every
@@ -134,6 +138,28 @@ def shard_shape(spec: Spec, shape: Sequence[int],
     return tuple(out)
 
 
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes one spec entry names, outermost first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def shard_block(x: torch.Tensor, spec: Spec, mesh: Mesh,
+                coords: Dict[str, int]) -> torch.Tensor:
+    """The block of ``x`` laid out by ``spec`` that the device at ``coords``
+    (``{axis: index}``, 0 on the axes it does not name) holds, as a view of
+    ``x``: ``shard_map``'s in-spec slicing."""
+    block = shard_shape(spec, x.shape, mesh)
+    for i, entry in enumerate(spec):
+        pos = 0
+        for ax in spec_axes(entry):
+            pos = pos * mesh.shape[ax] + coords.get(ax, 0)
+        if entry is not None:
+            x = x.narrow(i, pos * block[i], block[i])
+    return x
+
+
 _state = threading.local()
 
 
@@ -151,16 +177,24 @@ def mesh_rules() -> ShardingRules:
 
 
 @contextlib.contextmanager
+def use_rules(rules: Optional[ShardingRules]):
+    """Make ``rules`` (``None``: none) this thread's within the block; the
+    previous ones come back after it. A recompute that autograd runs on
+    its own thread (an activation checkpoint's backward on the card)
+    re-enters the rules of its forward so."""
+    prev = getattr(_state, "rules", None)
+    _state.rules = rules
+    try:
+        yield rules
+    finally:
+        _state.rules = prev
+
+
 def sharding_rules(mesh: Optional[Mesh],
                    rules: Optional[Dict[str, Tuple[str, ...]]] = None):
     """Set the rules for this thread within the block (``DEFAULT_RULES``
     unless ``rules`` is given); the previous ones come back after it."""
-    prev = getattr(_state, "rules", None)
-    _state.rules = ShardingRules(mesh, dict(rules or DEFAULT_RULES))
-    try:
-        yield _state.rules
-    finally:
-        _state.rules = prev
+    return use_rules(ShardingRules(mesh, dict(rules or DEFAULT_RULES)))
 
 
 def logical_to_pspec(logical_axes: Sequence[Optional[str]],

@@ -125,13 +125,52 @@ def test_sampling_uses_the_reference_generator():
 
 def test_launch_serve_smoke(capsys):
     """``python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke`` on
-    the CPU with two requests; ``--model-parallel`` above 1 names its
-    ROADMAP item."""
+    the CPU with two requests; ``--model-parallel 2`` serves on four CPU
+    devices, and a size that does not divide the devices raises
+    ``ValueError``."""
     eng = tlaunch.main(["--arch", "qwen2-0.5b", "--smoke", "--requests",
                         "2", "--max-new", "4", "--device", "cpu"])
     st = eng.stats()
     assert st["requests"] == 2 and 2 <= st["tokens"] <= 8
     assert "[serve] 2 reqs" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tlaunch.main(["--arch", "qwen2-0.5b", "--smoke",
-                      "--model-parallel", "2", "--device", "cpu"])
+    eng = tlaunch.main(["--arch", "qwen2-0.5b", "--smoke", "--requests",
+                        "2", "--max-new", "4", "--model-parallel", "2"],
+                       devices=["cpu"] * 4)
+    assert eng.stats()["requests"] == 2
+    for mp, n in ((2, 1), (3, 4)):
+        with pytest.raises(ValueError, match="does not divide"):
+            tlaunch.main(["--arch", "qwen2-0.5b", "--smoke",
+                          "--model-parallel", str(mp), "--device", "cpu"],
+                         devices=None if n == 1 else ["cpu"] * n)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)])
+def test_launch_serve_model_parallel_moe(mesh):
+    """``launch.serve.main(..., devices=["cpu"] * 4)`` on deepseek's smoke
+    config (``'sort'``, shared experts): the waves run under the host
+    mesh, and serve as many tokens as the same weights and prompts do
+    through ``generate_batch`` under that mesh by hand; the experts'
+    split shows in ``moved_bytes``. As in the reference, a wave whose
+    tokens the data axis does not divide fails."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import mesh as pmesh
+    from repro_torch.parallel import sharding_rules
+    argv = ["--arch", "deepseek-v2-lite-16b", "--smoke", "--requests", "4",
+            "--max-new", "4", "--model-parallel", str(mesh[1])]
+    pmesh.reset_moved_bytes()
+    eng = tlaunch.main(argv, devices=["cpu"] * 4)
+    assert pmesh.moved_bytes() > 0
+    st = eng.stats()
+    assert st["requests"] == 4 and 4 <= st["tokens"] <= 16
+    model = tbuild(tcfg.get_config("deepseek-v2-lite-16b-smoke"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, model.cfg.vocab, size=rng.integers(4, 16))
+               .astype(np.int32) for _ in range(4)]
+    again = ServingEngine(model, params, ServeConfig(max_new_tokens=4))
+    with sharding_rules(make_host_mesh(mesh[1], ["cpu"] * 4)):
+        again.generate_batch(prompts)
+        assert again.stats()["tokens"] == st["tokens"]
+        if mesh[0] > 1:     # a wave of 3 decodes 3 tokens: 2 groups fail
+            with pytest.raises(ValueError, match="do not split"):
+                again.generate_batch(prompts[:3])

@@ -10,10 +10,14 @@ against ``spgemm_coo`` bit for bit, ``ngroups`` included, on
 integer-valued operands), against sequential execution (the pipeline,
 atol 1e-5), and against the reference's bounds (the compressed mean);
 at one shard or stage, against the reference's own ``shard_map`` bit for
-bit.
+bit; and at 8 stages and 8 shards against the reference's ``shard_map``
+on 8 fake devices (a subprocess, ``conftest.run_with_devices``; its meshes
+built with Auto axes, as jax 0.9's Explicit default refuses the
+reference's programs).
 """
 import numpy as np
 import pytest
+from conftest import run_with_devices
 
 torch = pytest.importorskip("torch")
 
@@ -242,3 +246,85 @@ def test_compressed_psum_mean_one_shard_matches_reference():
                                               np.asarray(want[k]))
             np.testing.assert_array_equal(got["b"]["c"].numpy(),
                                           np.asarray(want["b"]["c"]))
+
+
+# ---------------------------------------------------------------------------
+# 8 stages and 8 shards against the reference's shard_map
+# ---------------------------------------------------------------------------
+
+REF_8 = r'''
+import sys
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import AxisType, PartitionSpec as P
+from repro.compat import shard_map
+from repro.optim import compressed_psum_mean
+from repro.parallel.pipeline import pipeline_apply
+src, dst = sys.argv[1], sys.argv[2]
+inp = np.load(src)
+out = {}
+def mesh(name):
+    return jax.make_mesh((8,), (name,), axis_types=(AxisType.Auto,))
+out["pipe"] = np.asarray(pipeline_apply(
+    lambda p, h: jnp.tanh(h @ p["w"] + p["b"]),
+    {"w": jnp.asarray(inp["w"]), "b": jnp.asarray(inp["b"])},
+    jnp.asarray(inp["x"]), mesh("pipe"), axis="pipe"))
+for tag, feed in (("", False), ("fed_", True)):
+    def f(gs, es):
+        e = {"g": es[0]} if feed else None
+        mean, err = compressed_psum_mean({"g": gs[0]}, "data", e)
+        return mean["g"][None], err["g"][None]
+    mean, err = shard_map(f, mesh=mesh("data"), in_specs=(P("data"),
+                          P("data")), out_specs=(P("data"), P("data")))(
+        jnp.asarray(inp["g"]), jnp.asarray(inp["e"]))
+    out[tag + "mean"], out[tag + "err"] = np.asarray(mean), np.asarray(err)
+np.savez(dst, **out)
+print("OK")
+'''
+
+
+@pytest.fixture(scope="module")
+def ref_8(tmp_path_factory):
+    """The reference's 8-stage pipeline and 8-shard compressed mean (with
+    and without residuals fed in) on 8 fake devices, with their inputs."""
+    tmp = tmp_path_factory.mktemp("ref_8")
+    params, x = _pipe_operands(8)
+    rng = np.random.default_rng(9)
+    inputs = dict(w=params["w"], b=params["b"], x=x,
+                  g=rng.standard_normal((8, 40)).astype(np.float32),
+                  e=(rng.standard_normal((8, 40)) * 1e-2).astype(np.float32))
+    np.savez(tmp / "in.npz", **inputs)
+    argv = ["ref", str(tmp / "in.npz"), str(tmp / "out.npz")]
+    run_with_devices(f"import sys\nsys.argv = {argv!r}\n" + REF_8, 8,
+                     timeout=300)
+    return inputs, dict(np.load(tmp / "out.npz"))
+
+
+def test_pipeline_8_stages_matches_reference(ref_8):
+    """The port's pipeline over 8 CPU stages against the reference's
+    ``shard_map`` pipeline over 8 devices (atol 1e-6)."""
+    inputs, want = ref_8
+    got = pipeline_apply(_stage_fn, {k: torch.from_numpy(inputs[k])
+                                     for k in ("w", "b")},
+                         torch.from_numpy(inputs["x"]),
+                         make_mesh((8,), ("pipe",), devices=["cpu"] * 8),
+                         axis="pipe")
+    np.testing.assert_allclose(got.numpy(), want["pipe"], atol=1e-6)
+
+
+@pytest.mark.parametrize("fed", [False, True])
+def test_compressed_psum_mean_8_shards_matches_reference(ref_8, fed):
+    """Each of 8 CPU shards' mean and residual against the reference's
+    ``shard_map`` over 8 devices, bit for bit (the int8 lattices sum
+    exactly in int32), with and without a residual fed in."""
+    inputs, want = ref_8
+    mesh = make_mesh((8,), ("data",), devices=["cpu"] * 8)
+    grads = [{"g": torch.from_numpy(inputs["g"][d])} for d in range(8)]
+    errs = [{"g": torch.from_numpy(inputs["e"][d])} for d in range(8)] \
+        if fed else None
+    means, new_e = compressed_psum_mean(grads, mesh, "data", error=errs)
+    tag = "fed_" if fed else ""
+    for d in range(8):
+        np.testing.assert_array_equal(means[d]["g"].numpy(),
+                                      want[tag + "mean"][d])
+        np.testing.assert_array_equal(new_e[d]["g"].numpy(),
+                                      want[tag + "err"][d])

@@ -443,7 +443,9 @@ def test_checkpoint_resume_continues(tmp_path):
 
 def test_launch_train_smoke(tmp_path, capsys):
     """``python -m repro_torch.launch.train --arch qwen2-0.5b --smoke`` on
-    the CPU; ``--model-parallel`` above the cards names its ROADMAP item."""
+    the CPU (a (1, 1) mesh); ``--model-parallel 2`` trains on four CPU
+    devices, and a size that does not divide the devices raises
+    ``ValueError``, as the reference's ``assert`` does."""
     out = tlaunch.main(["--arch", "qwen2-0.5b", "--smoke", "--steps", "3",
                         "--batch", "2", "--seq", "16", "--log-every", "1",
                         "--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
@@ -455,6 +457,43 @@ def test_launch_train_smoke(tmp_path, capsys):
     assert out["trainer"].device == torch.device("cpu")
     assert all(p.device.type == "cpu"
                for p in tree_leaves(out["params"]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tlaunch.main(["--arch", "qwen2-0.5b", "--smoke", "--model-parallel",
-                      "2", "--device", "cpu"])
+    assert out["mesh"].shape == {"data": 1, "model": 1}
+    out = tlaunch.main(["--arch", "qwen2-0.5b", "--smoke", "--steps", "2",
+                        "--batch", "2", "--seq", "16", "--model-parallel",
+                        "2", "--ckpt-dir", str(tmp_path / "mp"),
+                        "--no-resume"], devices=["cpu"] * 4)
+    assert out["mesh"].shape == {"data": 2, "model": 2}
+    assert [h["step"] for h in out["history"]] == [0, 1]
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    for mp, n in ((2, 1), (3, 4)):
+        with pytest.raises(ValueError, match="does not divide"):
+            tlaunch.main(["--arch", "qwen2-0.5b", "--smoke",
+                          "--model-parallel", str(mp), "--device", "cpu"],
+                         devices=None if n == 1 else ["cpu"] * n)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4), (4, 1)])
+def test_launch_train_model_parallel_moe(tmp_path, mesh):
+    """``launch.train.main(..., devices=["cpu"] * 4)`` on granite-moe's
+    smoke config under ``'sort'``: the trainer runs under the host mesh,
+    so each step's MoE layers take one token group a data shard and split
+    their experts over ``"model"`` (8 experts: every model size here
+    divides them), whose ``psum`` ``moved_bytes`` counts. The first step's
+    loss is ``Model.loss`` of the initial weights under the same mesh."""
+    from repro_torch.parallel import mesh as pmesh
+    from repro_torch.parallel import sharding_rules
+    argv = ["--arch", "granite-moe-3b-a800m", "--smoke", "--steps", "2",
+            "--batch", "4", "--seq", "16", "--log-every", "1",
+            "--model-parallel", str(mesh[1]), "--ckpt-dir", str(tmp_path),
+            "--no-resume"]
+    pmesh.reset_moved_bytes()
+    out = tlaunch.main(argv, devices=["cpu"] * 4)
+    assert out["mesh"].shape == {"data": mesh[0], "model": mesh[1]}
+    assert (pmesh.moved_bytes() > 0) == (mesh[1] > 1)
+    hist = out["history"]
+    assert [h["step"] for h in hist] == [0, 1]
+    trainer = out["trainer"]
+    params, _ = trainer.init_state()
+    with sharding_rules(out["mesh"]), torch.no_grad():
+        want = trainer.model.loss(params, trainer._batch(0)).item()
+    assert hist[0]["loss"] == want
