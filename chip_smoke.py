@@ -16,7 +16,8 @@ axis=)``), token serving on the LM stack (``ServingEngine.generate_batch``
 over deepseek-v2-lite-16b, all 27 layers in bfloat16) and training on it
 (``launch.train.main`` over granite-moe-3b-a800m, all 32 layers in
 bfloat16), and both again under a ``("data", "model")`` mesh of four
-shards (``--model-parallel``), at a real size:
+shards (``--model-parallel``), serving partitioned by the logical-axis
+rules, at a real size:
 C = A·Aᵀ for the paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
@@ -337,8 +338,35 @@ Phases (any failure exits non-zero before the last line):
    (``'sort'``'s printed beside: its aux loss is the data shards' mean).
    Gate (e): deepseek-v2-lite-16b, all 27 layers, bfloat16, a wave of 8
    requests through ``launch.serve.main(..., devices=...)`` at
-   ``--model-parallel`` 4: prefill ms, decode ms a step, tokens/s, peak
-   and ``moved_bytes()`` (the experts' ``psum``). The phase's seconds.
+   ``--model-parallel`` 4 (the partitioned program): prefill ms, decode
+   ms a step, tokens/s, peak and ``moved_bytes()``. Then the partitioned
+   serving program (``mesh_serving``), on meshes of the same shards.
+   Serving (a): 2-layer float32 cuts of deepseek-v2-lite-16b (MLA, MoE
+   ``'sort'``), mistral-large-123b (GQA, 8 kv heads) and qwen2-0.5b (14
+   heads, the flat split inside a head, tied vocab of 151,936), TF32 off,
+   MESH_PART_A's prompts, tokens and greedy steps, the weights placed
+   (``Model.place``) on (1, 4) and (2, 2): the prefill's and every
+   step's logits within MESH_PART_TOL of their max of the same calls on
+   whole weights under the same rules (which group the MoE tokens alike),
+   and the greedy tokens equal. Serving (b): each coordinate's weight and
+   cache block bytes equal the dry run's per-device argument bytes of the
+   same config, mesh and shapes (``launch.steps.abstract_decode_args`` on
+   a meta mesh); at full width the bytes requested from the allocator
+   after placement, the whole tree dropped, equal the placed blocks'
+   storages exactly (``memory_allocated`` beside it, with its rounding):
+   no whole copy is left beyond the replicated leaves. Serving (c):
+   deepseek-v2-lite-16b, all 27 layers, on (1, 4) and (2, 2), and
+   mistral-large-123b, 8 of its 88 layers at full width, on (1, 4) and
+   (1, 16) (8 kv heads over 16 shards: each shard's from a gathered flat
+   dim), bfloat16, one wave of MESH_PART_WAVE's prompts through
+   ``generate_batch``: prefill ms, decode ms a step, tokens/s, peak,
+   ``moved_bytes()`` and ``parallel.mesh.collectives()``, the counters
+   zeroed just before the wave, required equal to the dry run's count of
+   the same prefill and that many decode steps
+   (``launch.dryrun.collective_trace``). Serving (d): dropping the
+   program's second reduce and writing each decode token's cache entries
+   on the next shard must each break serving (a) on qwen2-0.5b's (1, 4).
+   The phase's seconds.
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries, K9 with
    its bfloat16 and training shapes, K10 with its bfloat16 entry), the
    card's name and power limit, and as the last line ``{"ok": true,
@@ -4594,8 +4622,8 @@ def mesh_serve(seed: int) -> tuple:
              moved_bytes=pmesh.moved_bytes())
     require(st["requests"] == n and n <= st["tokens"] <= n * new,
             f"(e) served {st['requests']} requests, {st['tokens']} tokens")
-    require(r["moved_bytes"] > 0, "(e) no psum ran: the experts did not "
-            "split over 'model'")
+    require(r["moved_bytes"] > 0, "(e) no collective ran: the program "
+            "did not split over 'model'")
     print(f"[mesh] (e) {arch} 27 layers bf16, a wave of {n} through "
           f"launch.serve.main on (1, {mp}), {gpu_line()}: {json.dumps(r)}",
           flush=True)
@@ -4603,6 +4631,271 @@ def mesh_serve(seed: int) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     return r, {"mesh_serve": kernels.launch_counts()}
+
+
+MESH_PART_CUTS = ("deepseek-v2-lite-16b", "mistral-large-123b",
+                  "qwen2-0.5b")  # (a), (b): 2-layer float32 cuts
+MESH_PART_MESHES = ((1, 4), (2, 2))
+MESH_PART_A = (4, 64, 8, 80)  # (a): prompts, tokens, greedy steps, s_max
+MESH_PART_TOL = 1e-5          # (a): each step's logits against their max
+MESH_PART_FULL = (("deepseek-v2-lite-16b", 0, ((1, 4), (2, 2))),
+                  ("mistral-large-123b", 8, ((1, 4), (1, 16))))
+MESH_PART_WAVE = (8, 64, 512)   # (c): prompts, shortest, longest
+MESH_PART_SERVE = dict(max_batch=8, max_new_tokens=16, s_max=544)
+
+
+def part_greedy(model, params, toks, steps: int, s_max: int) -> tuple:
+    """Prefill ``toks`` and ``steps`` greedy decode steps, each fed the
+    argmax of the step before: (every step's logits on the CPU, float32;
+    the (B, steps) tokens; the cache)."""
+    import torch
+    host = (lambda t: (t if isinstance(t, torch.Tensor) else t.whole())
+            .float().cpu())
+    logits, cache = model.prefill(params, {"tokens": toks}, s_max)
+    outs, picks = [host(logits)], []
+    for _ in range(steps):
+        nxt = outs[-1].argmax(-1).to(torch.int32)
+        picks.append(nxt)
+        logits, cache = model.decode_step(params, cache,
+                                          nxt[:, None].to(toks.device))
+        outs.append(host(logits))
+    return outs, torch.stack(picks, 1), cache
+
+
+def part_apart(got, want) -> dict:
+    """The worst step's logits gap over its max, and whether the greedy
+    tokens are equal."""
+    (go, gt, _), (wo, wt, _) = got, want
+    return dict(worst_rel=max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(go, wo)),
+                tokens_equal=bool((gt == wt).all()))
+
+
+def part_block_bytes(tree) -> set:
+    """Each mesh coordinate's bytes of ``tree``'s placed blocks, as a set
+    (one value where every coordinate holds as many)."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel.sharding import mesh_coords
+    leaves = tree_leaves(tree)
+    return {sum(t.blocks[c].numel() * t.blocks[c].element_size()
+                for t in leaves) for c in mesh_coords(leaves[0].mesh)}
+
+
+def part_dry(model, shape, batch: int, plen: int, s_max: int) -> dict:
+    """The dry run on a meta mesh of ``shape``: the weights' and the decode
+    cache's argument bytes a device, and the partitioned program's
+    collectives of a prefill of ``batch`` x ``plen`` and of one decode
+    step at ``s_max`` (``launch.dryrun.collective_trace``)."""
+    from repro_torch.configs.base import ShapeCase
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.parallel import make_mesh, sharding_rules
+    mesh = make_mesh(shape, ("data", "model"), ["meta"] * math.prod(shape))
+    pre = ShapeCase("prefill", plen, batch, "prefill")
+    dec = ShapeCase("decode", s_max, batch, "decode")
+    with sharding_rules(mesh):
+        aparams, acache, tokens = steps.abstract_decode_args(model, dec)
+        out = dict(weight_bytes=dryrun.device_bytes(aparams),
+                   cache_bytes=dryrun.device_bytes(acache["layers"]))
+        out["prefill"] = dryrun.collective_trace(
+            model, pre, steps.make_prefill_step(model, s_max),
+            steps.abstract_prefill_args(model, pre))
+        out["decode"] = dryrun.collective_trace(
+            model, dec, steps.make_serve_step(model),
+            (aparams, {**acache, "pos": s_max - 1}, tokens))
+    return out
+
+
+@contextlib.contextmanager
+def part_plant(fault: str):
+    """(d): within the block, drop the program's second reduce (the first
+    layer's after ``wo``: each shard keeps its own partial sum), or write
+    each decode token's cache entries on the next shard along the
+    sequence."""
+    from repro_torch.parallel import sharding as sh
+    name = "reduce" if fault == "drop a reduce" else "index_owner"
+    orig = getattr(sh, name)
+    calls = [0]
+
+    def dropped(x, dim=None):
+        calls[0] += 1
+        if calls[0] != 2 or not x.partial:
+            return orig(x, dim)
+        own = sh.Sharded(x.mesh, x.spec, x.shape, x.blocks)
+        return own if dim is None else sh.split(own, dim,
+                                                sh._entry(x.partial))
+
+    def next_shard(i, block):
+        return (i // block + 1) % MESH_SHARDS, i % block
+    setattr(sh, name, dropped if name == "reduce" else next_shard)
+    try:
+        yield
+    finally:
+        setattr(sh, name, orig)
+
+
+def mesh_part_cuts(seed: int) -> dict:
+    """(a), (b), (d) on the 2-layer float32 cuts, TF32 off."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding_rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    b, sq, steps, s_max = MESH_PART_A
+    res = {}
+    for arch in MESH_PART_CUTS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed + 31),
+                            dev)
+        toks = torch.from_numpy(np.random.default_rng(seed + 32).integers(
+            3, cfg.vocab, (b, sq)).astype(np.int32)).to(dev)
+        r = res[arch] = {}
+        for shape in MESH_PART_MESHES:
+            mesh = make_host_mesh(shape[1], mesh_devices(math.prod(shape)))
+            dry = part_dry(model, shape, b, sq, s_max)
+            with sharding_rules(mesh):
+                want = part_greedy(model, params, toks, steps, s_max)
+                placed = model.place(params)
+                got = part_greedy(model, placed, toks, steps, s_max)
+                held = part_apart(got, want)
+                held.update(
+                    weight_bytes=sorted(part_block_bytes(placed)),
+                    cache_bytes=sorted(part_block_bytes(got[2]["layers"])),
+                    dry_weight_bytes=dry["weight_bytes"],
+                    dry_cache_bytes=dry["cache_bytes"])
+                if arch == MESH_PART_CUTS[-1] and shape == (1, 4):
+                    held["planted"] = {}
+                    for fault in ("drop a reduce", "cache at the wrong "
+                                  "shard"):
+                        with part_plant(fault):
+                            bad = part_apart(part_greedy(
+                                model, placed, toks, steps, s_max), want)
+                        held["planted"][fault] = bad
+                        require(bad["worst_rel"] > MESH_PART_TOL
+                                or not bad["tokens_equal"],
+                                f"(d) gate (a) passed with '{fault}' "
+                                f"planted: {json.dumps(bad)}")
+            r[f"{shape}"] = held
+            what = f"{arch} 2-layer cut on {shape}"
+            require(held["worst_rel"] <= MESH_PART_TOL
+                    and held["tokens_equal"],
+                    f"(a) {what}: {json.dumps(held)}")
+            require(held["weight_bytes"] == [dry["weight_bytes"]]
+                    and held["cache_bytes"] == [dry["cache_bytes"]],
+                    f"(b) {what}: block bytes against the dry run's "
+                    f"{json.dumps(held)}")
+            del placed, got, want
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    print(f"[mesh] serving (a) 2-layer float32 cuts, {b} x {sq} tokens, "
+          f"{steps} greedy steps, placed on {MESH_PART_MESHES} against whole "
+          f"weights under the same rules, within {MESH_PART_TOL}; (b) each "
+          f"coordinate's weight and cache bytes equal the dry run's; (d) "
+          f"both planted faults caught, {gpu_line()}: {json.dumps(res)}",
+          flush=True)
+    return res
+
+
+def mesh_part_full(seed: int) -> dict:
+    """(b) the allocator after placement and (c) the full-width waves."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel import mesh as pmesh
+    from repro_torch.parallel import sharding_rules
+    from repro_torch.serve import ServeConfig, ServingEngine
+    dev = torch.device("cuda")
+    n, lo, hi = MESH_PART_WAVE
+    res = {}
+    for arch, layers, shapes in MESH_PART_FULL:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=layers or base.n_layers)
+        model = build_model(cfg)
+        prompts = lm_prompts(seed, cfg.vocab, ((n, lo, hi),))[0]
+        for shape in shapes:
+            what = f"{arch} {cfg.n_layers} layers bf16 on {shape}"
+            mesh = make_host_mesh(shape[1], mesh_devices(math.prod(shape)))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            m0, r0 = torch.cuda.memory_allocated(), requested_bytes()
+            t0 = time.perf_counter()
+            with sharding_rules(mesh):
+                eng = ServingEngine(model, model.init(torch.Generator(
+                    device=dev).manual_seed(seed + 33), dev),
+                    ServeConfig(**MESH_PART_SERVE))
+            gc.collect()
+            torch.cuda.synchronize()
+            place_s = time.perf_counter() - t0
+            storages = {t.data_ptr(): t.numel() * t.element_size()
+                        for leaf in tree_leaves(eng.params)
+                        for t in leaf.blocks.values()}
+            placed = sum(storages.values())
+            resident = torch.cuda.memory_allocated() - m0
+            requested = requested_bytes() - r0
+            torch.cuda.reset_peak_memory_stats()
+            pmesh.reset_moved_bytes()
+            pmesh.reset_collectives()
+            with sharding_rules(mesh):
+                eng.generate_batch(prompts)
+            torch.cuda.synchronize()
+            live = pmesh.collectives()
+            st = eng.stats()
+            steps = st["decode_steps"]
+            dry = part_dry(model, shape, n, hi, MESH_PART_SERVE["s_max"])
+            want = tuple({k: dry["prefill"][i][k] + steps
+                          * dry["decode"][i][k] for k in live[i]}
+                         for i in range(2))
+            r = res[what] = dict(
+                init_and_place_s=place_s, resident_bytes=resident,
+                requested_bytes=requested, placed_storage_bytes=placed,
+                storages=len(storages),
+                dry_weight_bytes_a_device=dry["weight_bytes"],
+                prefill_ms=st["prefill_s"] * 1e3,
+                decode_ms_per_step=st["decode_s"] * 1e3 / max(1, steps),
+                decode_steps=steps, tokens=st["tokens"],
+                tokens_per_s=st["tokens"] / (st["prefill_s"]
+                                             + st["decode_s"]),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                moved_bytes=pmesh.moved_bytes(),
+                collective_bytes=live[0], collective_count=live[1],
+                dry_collective_bytes=want[0],
+                dry_collective_count=want[1])
+            print(f"[mesh] serving (c) {what}, a wave of {n} x {lo}-{hi}, "
+                  f"{gpu_line()}: {json.dumps(r)}", flush=True)
+            require(requested == placed,
+                    f"(b) {what}: {requested} bytes requested from the "
+                    f"allocator after placement ({resident} allocated) "
+                    f"against {placed} in the placed blocks' storages")
+            require(part_block_bytes(eng.params) == {dry["weight_bytes"]},
+                    f"(b) {what}: weight block bytes against the dry run's "
+                    f"{dry['weight_bytes']}")
+            require(live == want, f"(c) {what}: the live collectives "
+                    f"{live} against the dry run's {want}")
+            require(st["requests"] == n and steps > 0,
+                    f"(c) {what}: {st['requests']} requests, {steps} steps")
+            del eng
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_serving(seed: int) -> tuple:
+    """The partitioned serving program: (a), (b), (d) on the cuts, then
+    (b) and (c) at full width. Returns (summary, {path: counts})."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    res = {"cuts": mesh_part_cuts(seed), "full": mesh_part_full(seed)}
+    return res, {"mesh_serving": kernels.launch_counts()}
 
 
 def mesh_phase(seed: int):
@@ -4617,12 +4910,12 @@ def mesh_phase(seed: int):
     print(f"[mesh] shards on {summary['shards_on']}", flush=True)
     counts = {}
     for part, fn in (("cut", mesh_gates_ad), ("train", mesh_train),
-                     ("serve", mesh_serve)):
+                     ("serve", mesh_serve), ("serving", mesh_serving)):
         summary[part], c = fn(seed)
         counts.update(c)
     summary["phase_s"] = time.perf_counter() - t_phase
-    print(f"[mesh] gates (a)-(e) passed; phase {summary['phase_s']:.1f} s",
-          flush=True)
+    print(f"[mesh] gates (a)-(e) and serving (a)-(d) passed; phase "
+          f"{summary['phase_s']:.1f} s", flush=True)
     return counts, summary
 
 

@@ -25,11 +25,20 @@ execute) on them at the cell's global shapes under
   * ``trace_s``                        seconds to build and trace the cell
     (the reference's ``compile_s``)
 
-``collective_bytes`` and ``collective_count`` are null and ``gaps`` names
-why: the port has no partitioned program, so neither the collectives nor a
-device's temporaries beyond the even split can be read (ROADMAP queue 1
-item 9). A decode cell runs one step at the cache's last position
-(``seq_len - 1``); a decode step's work does not depend on it.
+  * ``collective_bytes``, ``collective_count``  by the reference's kinds
+    (all-gather, all-reduce, reduce-scatter, all-to-all,
+    collective-permute): one device's output bytes of each collective op of
+    the partitioned program, and the ops (``collective_trace``). Filled for
+    the prefill and decode cells of the configs with a partitioned program
+    (``Model.partitioned``: the decoder-only ones); null, with ``gaps``
+    saying why, for train cells and the SSM, RG-LRU and encoder-decoder
+    families, whose partitioned programs come later (ROADMAP queue 1
+    item 9). The layers are a Python loop here, so an op of a layer counts
+    once a layer; the reference's HLO counts a scanned layer's op once.
+
+A device's temporaries beyond the even split are not counted (``gaps``).
+A decode cell runs one step at the cache's last position (``seq_len -
+1``); a decode step's work does not depend on it.
 
 Results land in results/dryrun_torch/<arch>__<shape>__<mesh>.json.
 
@@ -50,7 +59,7 @@ from pathlib import Path
 from ..configs import ARCHS, applicable_shapes, get_config
 from ..configs.base import ShapeCase, get_shape
 from ..models import build_model
-from ..models.params import tree_leaves
+from ..models.params import tree_leaves, tree_unflatten
 from ..optim import AdamWConfig
 from ..parallel.sharding import NamedSharding, sharding_rules
 from .mesh import make_production_mesh
@@ -63,8 +72,8 @@ from .steps import (abstract_cache, abstract_decode_args,
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
 DRYRUN_GAPS = {**GAPS, "temp_bytes": "a device's temporaries beyond an "
-               "even split of peak_live_bytes need the partitioned program "
-               "(ROADMAP queue 1 item 9)"}
+               "even split of peak_live_bytes are not counted: the "
+               "partitioned program is traced for its collectives only"}
 
 
 def _fmt_bytes(b: float) -> str:
@@ -99,6 +108,28 @@ def _output_bytes(model, case, step, out) -> int:
         laid, prefill_out_shardings(model, case, step, out)))
 
 
+def collective_trace(model, case: ShapeCase, step, args):
+    """``(bytes, count)`` by kind of the partitioned program's collectives
+    on ``args`` (meta, laid out by their ``sharding``): the weights placed
+    by the rules, the cache by its layout, the step traced under the active
+    mesh, where one device stands for all (``parallel.sharding.
+    mesh_coords``)."""
+    from ..parallel import mesh as pmesh
+    from ..parallel.sharding import mesh_rules, shard
+    mesh = mesh_rules().mesh
+    params = model.place(args[0])
+    pmesh.reset_collectives()
+    if case.kind == "prefill":
+        step(params, args[1])
+    else:
+        _, cache, tokens = args
+        layers = tree_unflatten(cache["layers"], [
+            shard(t, t.sharding.spec, mesh)
+            for t in tree_leaves(cache["layers"])])
+        step(params, {"layers": layers, "pos": cache["pos"]}, tokens)
+    return pmesh.collectives()
+
+
 def analyze_cell(cfg, case: ShapeCase, mesh) -> dict:
     """Trace one cell: ``cfg``'s step of ``case.kind`` on meta arguments at
     ``case``'s shapes, laid out on ``mesh``. Returns the record's counts
@@ -121,6 +152,18 @@ def analyze_cell(cfg, case: ShapeCase, mesh) -> dict:
             args = (params, {**cache, "pos": case.seq_len - 1}, tokens)
         out, cost = analyze(step, *args)
         out_bytes = _output_bytes(model, case, step, out)
+        coll = (collective_trace(model, case, step, args)
+                if case.kind != "train" and model.partitioned
+                else (None, None))
+    gaps = dict(DRYRUN_GAPS)
+    if coll[0] is not None:
+        del gaps["collective_bytes"]
+    else:
+        gaps["collective_bytes"] = (
+            "the partitioned program covers the decoder-only configs' "
+            "prefill and decode; the training step's and the SSM, RG-LRU "
+            "and encoder-decoder families' come later (ROADMAP queue 1 "
+            "item 9)")
     n_dev = mesh.size
     return {
         "n_devices": n_dev,
@@ -135,9 +178,9 @@ def analyze_cell(cfg, case: ShapeCase, mesh) -> dict:
         "n_ops": cost["n_ops"],
         "mem_per_device": {"argument_bytes": arg_bytes,
                            "output_bytes": out_bytes},
-        "collective_bytes": None,
-        "collective_count": None,
-        "gaps": dict(DRYRUN_GAPS),
+        "collective_bytes": coll[0],
+        "collective_count": coll[1],
+        "gaps": gaps,
     }
 
 

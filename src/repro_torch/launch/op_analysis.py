@@ -29,9 +29,10 @@ allocation) or on the card, and records:
   * ``n_ops``            aten ops dispatched
 
 The dict has ``analyze_hlo``'s keys. ``collective_bytes`` and
-``collective_count`` are None: the port has no partitioned program whose
-collectives could be counted (ROADMAP queue 1 item 9, the multi-process
-realization); ``gaps`` says so.
+``collective_count`` are None: ``analyze`` counts the ops of whatever runs,
+and a collective is not an aten op here. The dry run counts the
+partitioned program's collectives itself (``launch.dryrun.
+collective_trace``) where one exists; ``gaps`` says so.
 """
 from __future__ import annotations
 
@@ -43,9 +44,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
-GAPS = {"collective_bytes": "the port has no partitioned program whose "
-        "collectives could be counted: a per-device program waits on the "
-        "multi-process realization (ROADMAP queue 1 item 9)"}
+GAPS = {"collective_bytes": "analyze counts aten ops, not collectives: "
+        "the dry run traces the partitioned program for them where there "
+        "is one (ROADMAP queue 1 item 9 for the rest)"}
 
 _ALLOCATE_ONLY = {torch.ops.aten.empty.memory_format,
                   torch.ops.aten.empty_strided.default,

@@ -9,9 +9,13 @@ from ``numpy.random.default_rng(0)``, waves of ``max_batch``, all under
 ``sharding_rules(make_host_mesh(--model-parallel))`` as in the reference:
 a ("data", "model") mesh over every card, or over ``devices``
 (``main(argv, devices=...)``); a size that does not divide them raises
-``ValueError``. The weights and caches live on the mesh's first device;
-the mesh splits each wave's MoE token groups and the ``'sort'`` region
-(``models/ffn.py``). Returns the engine.
+``ValueError``. The decoder-only configs serve the partitioned program:
+the engine lays the weights out on the mesh by the rules (each device
+its blocks, no whole copy kept), prefill lays the caches out by batch and
+sequence, and attention, the FFNs, the MoE region and the vocab run
+split, their collectives counted (``parallel.mesh.collectives``). The
+other families keep their weights and caches on the mesh's first device.
+Returns the engine.
 """
 from __future__ import annotations
 
@@ -43,9 +47,9 @@ def main(argv=None, devices=None):
     dev = mesh.devices.flat[0]
     rng = np.random.default_rng(0)
     with sharding_rules(mesh):
-        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-        eng = ServingEngine(model, params, ServeConfig(
-            max_new_tokens=args.max_new))
+        eng = ServingEngine(model, model.init(
+            torch.Generator(device=dev).manual_seed(0), dev), ServeConfig(
+                max_new_tokens=args.max_new))
         served = 0
         while served < args.requests:
             n = min(eng.cfg.max_batch, args.requests - served)

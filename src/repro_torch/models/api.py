@@ -8,6 +8,7 @@ architecture with uniform step functions.
   model.decode_step(params, cache, tokens)  -> (logits, cache)
   model.input_specs(shape_case)             -> {name: (torch.Size, dtype)}
   model.cache_zeros(batch, s_max)           -> decode cache
+  model.place(params)                       -> params laid out on the mesh
 
 ``batch`` is a dict: always "tokens" (B,S); plus "frames" (the audio
 stub's (B, encoder_seq, d_model) embeddings, whisper) or "patches" (the
@@ -23,7 +24,8 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeCase
 from . import encdec, transformer
-from .params import abstract_params, count_params, init_params, torch_dtype
+from .params import (abstract_params, count_params, init_params,
+                     place_params, torch_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +54,18 @@ class Model:
 
     def n_params(self) -> int:
         return count_params(self.specs())
+
+    @property
+    def partitioned(self) -> bool:
+        """Whether prefill and decode have a partitioned program under a
+        mesh (``place_params``): the decoder-only configs whose every block
+        kind has one (``transformer.partitioned``)."""
+        return not self._audio and transformer.partitioned(self.cfg)
+
+    def place(self, params):
+        """``params`` laid out on the active mesh by the rules
+        (``params.place_params``)."""
+        return place_params(params, self.specs())
 
     # -- steps ---------------------------------------------------------------
     def _prefix(self, batch):

@@ -14,6 +14,23 @@ the reference's online-softmax blocking over keys, which bounds the live
 scores at one key block: every query block goes through one tensor op per
 key block (query rows are independent, so batching them changes no sum),
 and only the key blocks are a loop.
+
+Under a mesh, with the weights placed (``models.params.place_params``),
+``gqa_full_sharded``, ``gqa_decode_sharded`` (a ring's too),
+``mla_full_sharded`` and ``mla_decode_sharded`` run the partitioned program on
+``parallel.sharding.Sharded`` tensors. Each ``"model"`` shard computes
+its own heads where the rules split the heads (``"heads"``), all of them
+where they do not; a projection whose flat ``qkv_flat`` split falls
+inside a head (or across heads the rules keep whole) is all-gathered on
+its flat dim first, and keys and values always are, since the cache
+holds every kv head. ``wo`` is row-parallel: its output holds partial
+sums for the caller to reduce. The decode caches are split by sequence
+(``("batch", "seq_shard")``): a token's entries are written on the shard
+that owns its position, and decode is a flash-decode merge: each shard
+scores every head over its own positions and keeps its maxima, sums and
+weighted values; an all-gather of the maxima and a reduce-scatter (an
+all-reduce where the heads are whole) of the rescaled sums and values
+give each shard its heads' attention.
 """
 from __future__ import annotations
 
@@ -136,6 +153,17 @@ def _sdpa_chunked(q, k, v, n_kv: int, causal: bool, window: int,
     return out.to(q.dtype)
 
 
+def _attend(q, k, v, window: int, causal: bool = True):
+    """Attention of (B, S, H, hd) queries over keys and values of as many
+    heads (causal, within ``window`` where one is given): ``_sdpa``, or
+    ``_sdpa_chunked`` past ``CHUNKED_THRESHOLD``."""
+    s, n = q.shape[1], q.shape[2]
+    if s > CHUNKED_THRESHOLD:
+        return _sdpa_chunked(q, k, v, n, causal, window)
+    mask = causal_mask(s, window, q.device) if causal else None
+    return _sdpa(q, k, v, mask, n)
+
+
 def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
     i = torch.arange(s, device=device)[:, None]
     j = torch.arange(s, device=device)[None, :]
@@ -161,12 +189,7 @@ def gqa_full(p, x, cfg, dtype, window: int = 0, causal: bool = True,
     if g > 1:
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
-    n_kv = cfg.n_heads
-    if s > CHUNKED_THRESHOLD:
-        out = _sdpa_chunked(q, k, v, n_kv, causal, window)
-    else:
-        mask = causal_mask(s, window, x.device) if causal else None
-        out = _sdpa(q, k, v, mask, n_kv)
+    out = _attend(q, k, v, window, causal)
     out = out.reshape(*x.shape[:2], -1) @ p["wo"].to(dtype)
     return (out, kv_compact) if return_kv else (out, None)
 
@@ -241,7 +264,13 @@ def _mla_q(p, x, cfg, dtype, positions):
     b, s, _ = x.shape
     h = cfg.n_heads
     qd = m.nope_head_dim + m.rope_head_dim
-    q = (x @ p["wq"].to(dtype)).reshape(b, s, h, qd)
+    return _mla_q_split((x @ p["wq"].to(dtype)).reshape(b, s, h, qd), cfg,
+                        positions)
+
+
+def _mla_q_split(q, cfg, positions):
+    """(B, S, H, nope + rope) queries as (nope part, rope part with RoPE)."""
+    m = cfg.mla
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     cos, sin = rope_angles(positions, m.rope_head_dim, cfg.rope_theta)
     return q_nope, apply_rope(q_rope, cos, sin)
@@ -274,10 +303,7 @@ def mla_full(p, x, cfg, dtype, return_kv: bool = False):
     kc = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         *k_rope.shape[:2], h, m.rope_head_dim)], dim=-1)
     del k_nope
-    if s > CHUNKED_THRESHOLD:
-        out = _sdpa_chunked(qc, kc, v, h, causal=True, window=0)
-    else:
-        out = _sdpa(qc, kc, v, causal_mask(s, device=x.device), h)
+    out = _attend(qc, kc, v, 0)
     out = out.reshape(b, s, -1) @ p["wo"].to(dtype)
     return (out, (latent, k_rope)) if return_kv else (out, None)
 
@@ -307,6 +333,260 @@ def mla_decode(p, x, cfg, dtype, cache_latent, cache_krope, pos: int):
     out = torch.einsum("bshl,lhv->bshv", ctx, p["w_uv"].to(dtype))
     out = out.reshape(b, 1, -1) @ p["wo"].to(dtype)
     return out, cache_latent, cache_krope
+
+
+# ---------------------------------------------------------------------------
+# The partitioned program (placed weights under a mesh)
+# ---------------------------------------------------------------------------
+
+def _project_sharded(p, w: str, bias: str, x, dtype):
+    """``x @ p[w] (+ p[bias])`` with ``x`` (B, S, d) whole on ``d``: the
+    weight's ``fsdp`` rows all-gathered for the call, its columns as the
+    rules split them."""
+    from ..parallel.sharding import gather, matmul, smap
+    y = matmul(x, gather(p[w], 0), dtype)
+    if bias in p:
+        y = smap(lambda a, c: a + c.to(dtype), y, p[bias], spec=y.spec)
+    return y
+
+
+def _heads_sharded(y, hd: int, own):
+    """``y`` (B, S, H·hd) as (B, S, H, hd), split by heads where its flat
+    split is ``own`` (the rules' heads split), else every head on every
+    shard: a flat dim split another way (inside a head, or across heads the
+    rules keep whole) is all-gathered first."""
+    from ..parallel.sharding import gather, smap
+    if y.spec[-1] is not None and y.spec[-1] != own:
+        y = gather(y, -1)
+    return smap(lambda a: a.reshape(*a.shape[:-1], -1, hd), y,
+                spec=y.spec[:-1] + (y.spec[-1], None))
+
+
+def _out_sharded(p, o, dtype):
+    """``o`` (B, S, H·hv), split by heads or whole, through ``wo``: cut to
+    ``wo``'s row split (no communication where the heads are whole), then a
+    row-parallel product of partial sums over those rows' axes."""
+    from ..parallel.sharding import gather, matmul, relayout
+    wo = gather(p["wo"], 1)
+    return matmul(relayout(o, o.spec[:-1] + (wo.spec[0],)), wo, dtype)
+
+
+def _positions(cache, block, at, pos: int, window: int = 0,
+               slot_pos=None):
+    """Which slots of ``block``, ``cache``'s block at ``at`` (split along
+    dim 1), a decode at ``pos`` attends: the positions at or before it
+    (and within ``window``); in a ring (``slot_pos``, the (W,) position
+    each slot holds, -1 empty) the slots holding one within the window."""
+    from ..parallel.sharding import entry_pos
+    n, entry = block.shape[1], cache.spec[1]
+    lo = entry_pos(entry, cache.mesh, at) * n if entry is not None else 0
+    if slot_pos is not None:
+        t = slot_pos[lo:lo + n]
+        return (t >= 0) & (t > pos - window)
+    t = lo + torch.arange(n, device=block.device)
+    valid = t <= pos
+    if window:
+        valid = valid & (t > pos - window)
+    return valid
+
+
+def _merge_heads(m, l, acc, seq, own):
+    """The flash-decode merge: ``m``, ``l`` (B, H) and ``acc`` (B, H, hv),
+    float32, each shard's maxima, sums and weighted values over its block of
+    a cache split along ``seq`` (None: whole, nothing to merge). Every
+    shard's maxima are all-gathered; each rescales its sums and values to
+    the global maximum, and a reduce over ``seq``'s axes adds them, cut by
+    ``own`` heads. Returns the attention (B, H, hv), float32."""
+    from ..parallel.sharding import gather, relayout, smap, spec_axes
+    if seq is None:
+        return smap(lambda a, b: a / b[..., None], acc, l, spec=acc.spec)
+    bat = m.spec[0]
+    ms = gather(smap(lambda a: a[None], m, spec=(seq,) + m.spec), 0)
+
+    def rescale(mb, mall, lb, ab):
+        e = torch.exp(mb - mall.amax(0))
+        return torch.cat([ab * e[..., None], (lb * e)[..., None]], -1)
+    packed = smap(rescale, m, ms, l, acc, spec=acc.spec,
+                  partial=spec_axes(seq))
+    packed = relayout(packed, (bat, own, None))
+    return smap(lambda a: a[..., :-1] / a[..., -1:], packed,
+                spec=packed.spec)
+
+
+def gqa_full_sharded(p, x, cfg, dtype, rules, window: int = 0):
+    """Prefill on placed weights, ``x`` (B, S, d) with S and d whole on each
+    shard. Returns ``(out, (k, v))``: ``out`` (B, S, d) partial sums over
+    ``wo``'s row axes, ``k``/``v`` (B, S, KV, hd) with every kv head (keys
+    with RoPE), as the cache keeps them. A shard's query heads attend the
+    kv heads repeated to the head count and cut to its own."""
+    from ..parallel.sharding import entry_pos, smap
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    own = rules.resolve(("heads",), (h,))[0]
+    q = _heads_sharded(_project_sharded(p, "wq", "bq", x, dtype), hd, own)
+    k = _heads_sharded(_project_sharded(p, "wk", "bk", x, dtype), hd, None)
+    v = _heads_sharded(_project_sharded(p, "wv", "bv", x, dtype), hd, None)
+    heads, g, mesh = q.spec[2], h // kv, x.mesh
+
+    def core(qb, kb, vb, at):
+        cos, sin = rope_angles(torch.arange(qb.shape[1], device=qb.device),
+                               hd, cfg.rope_theta)
+        qb, kb = apply_rope(qb, cos, sin), apply_rope(kb, cos, sin)
+        kr, vr = kb, vb
+        if g > 1:
+            kr = torch.repeat_interleave(kb, g, dim=2)
+            vr = torch.repeat_interleave(vb, g, dim=2)
+        if heads is not None:
+            n = qb.shape[2]
+            lo = entry_pos(heads, mesh, at) * n
+            kr, vr = kr[:, :, lo:lo + n], vr[:, :, lo:lo + n]
+        out = _attend(qb, kr, vr, window)
+        return out.reshape(*out.shape[:2], -1), kb
+    bat = x.spec[0]
+    o, k = smap(core, q, k, v, spec=[(bat, None, heads),
+                                     (bat, None, None, None)], at=True)
+    return _out_sharded(p, o, dtype), (k, v)
+
+
+def gqa_decode_sharded(p, x, cfg, dtype, cache_k, cache_v, pos: int, rules,
+                       window: int = 0, slot_pos=None):
+    """One-token decode on placed weights against ``cache_k``/``cache_v``
+    (B, S_max, KV, hd) split by sequence; the token's entries are written
+    on the shard owning ``pos``. Every shard scores every head over its
+    positions (``_merge_heads``). With ``slot_pos`` (a ``Sharded`` (W,),
+    whole on every shard) the caches are ``gqa_decode_ring``'s ring of W
+    slots: the token goes to slot ``pos % W``. Returns ``out`` (B, 1, d),
+    partial sums over ``wo``'s row axes."""
+    from ..parallel.sharding import smap, write_index
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    own = rules.resolve(("heads",), (h,))[0]
+    q = _heads_sharded(_project_sharded(p, "wq", "bq", x, dtype), hd, None)
+    k = _heads_sharded(_project_sharded(p, "wk", "bk", x, dtype), hd, None)
+    v = _heads_sharded(_project_sharded(p, "wv", "bv", x, dtype), hd, None)
+
+    def rope(qb, kb):
+        cos, sin = rope_angles(_pos_tensor(pos, qb.device), hd,
+                               cfg.rope_theta)
+        return apply_rope(qb, cos, sin), apply_rope(kb, cos, sin)
+    q, k = smap(rope, q, k, spec=[q.spec, k.spec])
+    slot = pos if slot_pos is None else pos % cache_k.shape[1]
+    write_index(cache_k, 1, slot, k)
+    write_index(cache_v, 1, slot, v)
+    if slot_pos is not None:
+        for sp in slot_pos.blocks.values():
+            sp[slot] = pos
+
+    def part(qb, kb, vb, sp, at):
+        b, _, n, _ = qb.shape
+        valid = _positions(cache_k, kb, at, pos, window, sp)
+        s = torch.einsum("bskgh,btkh->bkgst", qb.reshape(b, 1, kv, n // kv,
+                                                         hd),
+                         kb).to(torch.float32) * (hd ** -0.5)
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(-1)
+        e = torch.exp(s - m[..., None])
+        acc = torch.einsum("bkgst,btkh->bkgsh", e.to(vb.dtype), vb)
+        return (m.reshape(b, n), e.sum(-1).reshape(b, n),
+                acc.to(torch.float32).reshape(b, n, -1))
+    bat = x.spec[0]
+    m, l, acc = smap(part, q, cache_k, cache_v, slot_pos,
+                     spec=[(bat, None), (bat, None), (bat, None, None)],
+                     at=True)
+    o = _merge_heads(m, l, acc, cache_k.spec[1], own)
+    o = smap(lambda a: a.to(dtype).reshape(a.shape[0], 1, -1), o,
+             spec=(bat, None, o.spec[1]))
+    return _out_sharded(p, o, dtype)
+
+
+def mla_full_sharded(p, x, cfg, dtype, rules):
+    """MLA prefill on placed weights, ``x`` (B, S, d) with S and d whole.
+    The latent and the shared rope key are computed on every shard (their
+    projection is not split over ``"model"``), each shard's heads from them
+    by its blocks of ``w_uk``/``w_uv``. Returns ``(out, (latent,
+    k_rope))``, ``out`` partial sums over ``wo``'s row axes."""
+    from ..parallel.sharding import gather, smap
+    m, h = cfg.mla, cfg.n_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    own = rules.resolve(("heads",), (h,))[0]
+    q = _heads_sharded(_project_sharded(p, "wq", "bq", x, dtype), qd, own)
+    heads = q.spec[2]
+    if p["w_uk"].spec[1] != heads or p["w_uv"].spec[1] != heads:
+        raise ValueError(f"MLA queries by heads {heads!r} against w_uk "
+                         f"{p['w_uk'].spec} and w_uv {p['w_uv'].spec}")
+
+    def core(xb, qb, wd, kvn, wuk, wuv):
+        s, n = qb.shape[1], qb.shape[2]
+        positions = torch.arange(s, device=xb.device)
+        q_nope, q_rope = _mla_q_split(qb, cfg, positions)
+        latent, k_rope = _mla_latent({"w_dkv": wd, "kv_norm": kvn}, xb, cfg,
+                                     dtype, positions)
+        k_nope = torch.einsum("bsl,lhn->bshn", latent, wuk.to(dtype))
+        v = torch.einsum("bsl,lhv->bshv", latent, wuv.to(dtype))
+        qc = torch.cat([q_nope, q_rope], dim=-1)
+        kc = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            *k_rope.shape[:2], n, m.rope_head_dim)], dim=-1)
+        out = _attend(qc, kc, v, 0)
+        return out.reshape(*out.shape[:2], -1), latent, k_rope
+    bat = x.spec[0]
+    o, latent, k_rope = smap(core, x, q, gather(p["w_dkv"], 0), p["kv_norm"],
+                             p["w_uk"], p["w_uv"],
+                             spec=[(bat, None, heads), (bat, None, None),
+                                   (bat, None, None)])
+    return _out_sharded(p, o, dtype), (latent, k_rope)
+
+
+def mla_decode_sharded(p, x, cfg, dtype, cache_latent, cache_krope,
+                       pos: int, rules):
+    """Absorbed MLA decode on placed weights against the latent caches
+    (B, S_max, kv_lora) and (B, S_max, rope_d) split by sequence: each
+    shard folds ``w_uk`` into its heads' queries, the folded queries of all
+    heads are gathered where the cache is split, and the flash-decode merge
+    gives each shard its heads' latent context, which its ``w_uv`` block
+    and ``wo``'s rows turn into partial sums."""
+    from ..parallel.sharding import gather, smap, write_index
+    m, h = cfg.mla, cfg.n_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    own = rules.resolve(("heads",), (h,))[0]
+    q = _heads_sharded(_project_sharded(p, "wq", "bq", x, dtype), qd, own)
+    heads = q.spec[2]
+
+    def local(xb, qb, wd, kvn, wuk):
+        posv = _pos_tensor(pos, xb.device)
+        q_nope, q_rope = _mla_q_split(qb, cfg, posv)
+        latent, krope = _mla_latent({"w_dkv": wd, "kv_norm": kvn}, xb, cfg,
+                                    dtype, posv)
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope, wuk.to(dtype))
+        return q_lat, q_rope, latent, krope
+    bat = x.spec[0]
+    q_lat, q_rope, latent, krope = smap(
+        local, x, q, gather(p["w_dkv"], 0), p["kv_norm"], p["w_uk"],
+        spec=[(bat, None, heads, None)] * 2 + [(bat, None, None)] * 2)
+    write_index(cache_latent, 1, pos, latent)
+    write_index(cache_krope, 1, pos, krope)
+    seq = cache_latent.spec[1]
+    if seq is not None:
+        q_lat, q_rope = gather(q_lat, 2), gather(q_rope, 2)
+    scale = qd ** -0.5
+
+    def part(ql, qr, cl, ck, at):
+        s = (torch.einsum("bshl,btl->bhst", ql, cl)
+             + torch.einsum("bshr,btr->bhst", qr, ck)).to(torch.float32)
+        s = torch.where(_positions(cache_latent, cl, at, pos), s * scale,
+                        NEG_INF)
+        mx = s.amax(-1)
+        e = torch.exp(s - mx[..., None])
+        acc = torch.einsum("bhst,btl->bhsl", e.to(cl.dtype), cl)
+        return mx[..., 0], e.sum(-1)[..., 0], acc[:, :, 0].to(torch.float32)
+    hs = q_lat.spec[2]
+    mx, l, acc = smap(part, q_lat, q_rope, cache_latent, cache_krope,
+                      spec=[(bat, hs), (bat, hs), (bat, hs, None)], at=True)
+    ctx = _merge_heads(mx, l, acc, seq, heads)
+
+    def values(c, wuv):
+        out = torch.einsum("bshl,lhv->bshv", c.to(dtype)[:, None],
+                           wuv.to(dtype))
+        return out.reshape(c.shape[0], 1, -1)
+    o = smap(values, ctx, p["w_uv"], spec=(bat, None, heads))
+    return _out_sharded(p, o, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,14 @@
 The casts come in the reference's order, which is what keeps bfloat16
 results alongside its: ``rmsnorm`` reduces in float32 and multiplies in
 ``x.dtype``, RoPE rotates in float32 and casts back, the losses work in
-float32. The reference's ``maybe_shard`` annotations do nothing without a
-mesh, and the port has none here.
+float32.
+
+Under a mesh, with the weights placed (``models.params.place_params``),
+the partitioned program embeds and unembeds by vocab block
+(``embed_lookup_sharded``, ``unembed_sharded``): the tables' ``fsdp`` dim
+gathered over the data axes for the call, each ``"model"`` shard looking
+up or scoring its own rows of the vocab. A vocab the rules leave whole
+runs unsplit.
 """
 from __future__ import annotations
 
@@ -111,6 +117,46 @@ def unembed(params: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     else:
         w = params["tok"].to(compute_dtype).T
     return x @ w
+
+
+def embed_lookup_sharded(params: dict, tokens, compute_dtype):
+    """Token embeddings from placed tables: ``tokens`` a ``Sharded`` (B, S)
+    laid out on batch. Where the rules split the vocab, each shard looks its
+    tokens up in its block of rows and zeros the others: the result holds
+    partial sums over the vocab's axes, each row one shard's lookup and
+    zeros, so their sum (a reduce) is exact."""
+    from ..parallel.sharding import entry_pos, gather, smap, spec_axes
+    tok = gather(params["tok"], 1)
+    vocab = tok.spec[0]
+    spec = tokens.spec + (None,)
+    if vocab is None:
+        return smap(lambda t, w: w[t.long()].to(compute_dtype), tokens, tok,
+                    spec=spec)
+    mesh = tok.mesh
+
+    def look(t, w, at):
+        n = w.shape[0]
+        i = t.long() - entry_pos(vocab, mesh, at) * n
+        mine = (i >= 0) & (i < n)
+        return torch.where(mine[..., None],
+                           w[i.clamp(0, n - 1)].to(compute_dtype), 0)
+    return smap(look, tokens, tok, spec=spec, partial=spec_axes(vocab),
+                at=True)
+
+
+def unembed_sharded(params: dict, x, compute_dtype):
+    """Logits from placed tables, ``x`` a ``Sharded`` (B, S, d) with ``d``
+    whole: each shard scores its vocab block, then an all-gather over the
+    vocab's axes gives every shard the whole vocab (the reference's
+    outputs' layout, batch split, vocab whole)."""
+    from ..parallel.sharding import gather, matmul, relayout, smap
+    if "out" in params:
+        y = matmul(x, gather(params["out"], 0), compute_dtype)
+    else:
+        tok = gather(params["tok"], 1)
+        y = smap(lambda a, w: a @ w.to(compute_dtype).T, x, tok,
+                 spec=x.spec[:-1] + (tok.spec[0],))
+    return relayout(y, x.spec[:-1] + (None,))
 
 
 # --- losses -----------------------------------------------------------------

@@ -25,6 +25,16 @@ included. Without a mesh there is one group and one body. ``'ellpack'``,
 as one program: their layout under a mesh is the reference's partitioner's
 choice and changes no value.
 
+With the weights placed on the mesh (``models.params.place_params``) the
+partitioned program runs ``swiglu_apply_sharded`` and
+``gelu_mlp_apply_sharded`` (column-parallel over ``ff``, the ``fsdp`` rows
+all-gathered for the call, row-parallel back to partial sums) and
+``moe_apply_sharded``: ``'sort'``'s region runs at
+every mesh coordinate on that coordinate's own blocks of the placed expert
+weights, so it copies no weight a call; ``'ellpack'`` and ``'spmm'``
+gather the layer whole (``Sharded.whole``, counted) onto the mesh's first
+device and place its output back.
+
 Parameters are dicts of tensors in the reference's layouts
 (``core.formats.params_from_numpy`` carries the reference's over):
 ``router`` (d, E), ``w_gate``/``w_up`` (E, d, f), ``w_down`` (E, f, d) and,
@@ -64,6 +74,18 @@ def swiglu_apply(p, x: torch.Tensor, dtype) -> torch.Tensor:
     return h @ p["w_down"].to(dtype)
 
 
+def swiglu_apply_sharded(p, x, dtype):
+    """SwiGLU on placed weights, ``x`` a ``Sharded`` (..., d) with ``d``
+    whole: ``w_gate``/``w_up`` column-parallel by the rules' ``ff`` split,
+    ``w_down`` row-parallel. Returns partial sums over the ``ff`` axes (a
+    whole product where ``ff`` is not split)."""
+    from ..parallel.sharding import gather, matmul, smap
+    wg, wu = gather(p["w_gate"], 0), gather(p["w_up"], 0)
+    h = smap(lambda a, g, u: F.silu(a @ g.to(dtype)) * (a @ u.to(dtype)),
+             x, wg, wu, spec=x.spec[:-1] + (wg.spec[1],))
+    return matmul(h, gather(p["w_down"], 1), dtype)
+
+
 def gelu_mlp_specs(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
@@ -79,6 +101,22 @@ def gelu_mlp_apply(p, x: torch.Tensor, dtype) -> torch.Tensor:
     h = F.gelu(x @ p["w_in"].to(dtype) + p["b_in"].to(dtype),
                approximate="tanh")
     return h @ p["w_out"].to(dtype) + p["b_out"].to(dtype)
+
+
+def gelu_mlp_apply_sharded(p, x, dtype):
+    """The GELU MLP on placed weights, ``x`` a ``Sharded`` (..., d) with
+    ``d`` whole: ``w_in`` and ``b_in`` column-parallel by the ``ff`` split,
+    ``w_out`` row-parallel, ``b_out`` added once, on the first shard of the
+    ``ff`` axes. Returns partial sums over them."""
+    from ..parallel.sharding import gather, matmul, smap
+    wi = gather(p["w_in"], 0)
+    h = smap(lambda a, w, b: F.gelu(a @ w.to(dtype) + b.to(dtype),
+                                    approximate="tanh"),
+             x, wi, p["b_in"], spec=x.spec[:-1] + (wi.spec[1],))
+    y = matmul(h, gather(p["w_out"], 1), dtype)
+    return smap(lambda a, b, at: a + b.to(dtype)
+                if all(at[ax] == 0 for ax in y.partial) else a,
+                y, p["b_out"], spec=y.spec, partial=y.partial, at=True)
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +436,85 @@ def moe_apply(p, x: torch.Tensor, cfg, dtype) -> Tuple[torch.Tensor,
     if cfg.moe.n_shared:
         y = y + swiglu_apply(p["shared"], x_grp, dtype)
     return y.reshape(b, s, d), aux
+
+
+def moe_apply_sharded(p, x, cfg, dtype, rules):
+    """The MoE layer on placed weights: ``x`` a ``Sharded`` (B, S, d) in the
+    residual stream's layout, the result in the same. The tokens form
+    ``min(axis_size("batch"), B)`` groups, as ``moe_apply``'s. ``'sort'``
+    runs its region at each coordinate (``_moe_sort_partitioned``); the
+    shared experts run column- and row-parallel, their partial sums added
+    to the region's before one reduce where both are split over the same
+    axes. ``'ellpack'`` and ``'spmm'`` run ``moe_apply`` whole on the
+    mesh's first device."""
+    from ..parallel.sharding import add, axis_size, relayout, shard
+    from .params import tree_map
+    b, s, d = x.shape
+    groups = max(1, min(axis_size("batch"), b))
+    if b * s % groups:
+        raise ValueError(f"{b} x {s} tokens do not split into {groups} "
+                         "groups (the reference's reshape fails alike)")
+    if cfg.moe.dispatch != "sort":
+        whole = tree_map(lambda t: t.whole(), p)
+        y, _ = moe_apply(whole, x.whole(), cfg, dtype)
+        return shard(y, x.spec, x.mesh)
+    xg = relayout(x, (x.spec[0], None, None))
+    with _obs.span("moe.dispatch", strategy="sort", tokens=b * s,
+                   experts=cfg.moe.n_experts):
+        y = _moe_sort_partitioned(p, xg, cfg, dtype, rules, groups)
+    if cfg.moe.n_shared:
+        sh = swiglu_apply_sharded(p["shared"], xg, dtype)
+        if sh.partial != y.partial:
+            y, sh = relayout(y, x.spec), relayout(sh, x.spec)
+        y = add(y, sh)
+    return relayout(y, x.spec)
+
+
+def _moe_sort_partitioned(p, xg, cfg, dtype, rules, groups: int):
+    """The ``'sort'`` region of the partitioned program: ``xg`` (B, S, d)
+    whole on S and d. Each coordinate takes its groups (its own tokens
+    where the batch and the groups split over the same axes, its cut of
+    all of them where the batch is whole), the router whole (an all-gather
+    over its expert split) and its own blocks of the placed expert weights,
+    and runs ``_moe_sort_body`` with ``e_off`` its ``"model"`` block's first
+    expert. Returns (B, S, d) by batch: partial sums over the experts'
+    axes where the rules split them."""
+    from ..parallel.sharding import (entry_pos, gather, relayout,
+                                     shard_shape, smap, spec_axes, split)
+    b, s, d = xg.shape
+    e, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+    tg = b * s // groups
+    gspec = rules.resolve(("batch", None, None), (groups, tg, d))
+    wg_spec, wd_spec = p["w_gate"].spec, p["w_down"].spec
+    waxes = {ax for sp in (wg_spec, wd_spec) for entry in sp
+             for ax in spec_axes(entry)}
+    if waxes - {"model"} or "model" in spec_axes(gspec[0]):
+        raise ValueError(f"the 'sort' region splits groups over the data "
+                         f"axes and experts over 'model' only; the rules "
+                         f"give groups {gspec[0]!r}, experts {waxes}")
+    bat = xg.spec[0]
+    if bat == gspec[0]:
+        x_grp = smap(lambda a: a.reshape(-1, tg, d), xg,
+                     spec=(bat, None, None))
+    elif bat is None:
+        x_grp = split(smap(lambda a: a.reshape(groups, tg, d), xg,
+                           spec=(None, None, None)), 0, gspec[0])
+    else:
+        raise ValueError(f"the batch splits as {bat!r} and its {groups} "
+                         f"token groups as {gspec[0]!r}")
+    e_loc, _, f_loc = shard_shape(wg_spec, (e, d, fe), xg.mesh)
+    mesh = xg.mesh
+
+    def body(xl, router, wg, wu, wd, at):
+        e_off = entry_pos(wg_spec[0], mesh, at) * e_loc if e_loc < e else 0
+        return _moe_sort_body(xl, router, wg, wu, wd, cfg, dtype, e_off)[0]
+    y = smap(body, x_grp, relayout(p["router"], (None, None)), p["w_gate"],
+             p["w_up"], p["w_down"], spec=(gspec[0], None, None),
+             partial=("model",) if e_loc < e or f_loc < fe else (), at=True)
+    if gspec[0] != bat:
+        y = gather(y, 0)
+    return smap(lambda a: a.reshape(-1, s, d), y, spec=(bat, None, None),
+                partial=y.partial)
 
 
 class SparseMLP:

@@ -187,6 +187,40 @@ def param_shardings(spec_tree: Tree) -> Tree:
                     spec_tree, is_spec)
 
 
+def place_params(params: Tree, spec_tree: Tree) -> Tree:
+    """``params`` (a whole tree, as ``init_params`` or
+    ``core.formats.params_from_numpy`` gives it, on any device, or meta
+    tensors) laid out on the active mesh (``sharding_rules(mesh)``): each
+    leaf a ``parallel.sharding.Sharded`` by its spec's resolved layout,
+    every block on its mesh device. A block that is all of its leaf, on the
+    leaf's device, is the leaf itself; every other one is a copy of its
+    own, so once the caller drops ``params`` no whole leaf stays anywhere
+    beyond what the rules replicate."""
+    from ..parallel.sharding import mesh_rules, shard
+    rules = mesh_rules()
+
+    def place(t, s: Spec):
+        if tuple(t.shape) != s.shape:
+            raise ValueError(f"a leaf of shape {tuple(t.shape)} against its "
+                             f"spec's {s.shape}")
+        return shard(t, rules.resolve(s.axes, s.shape), rules.mesh)
+
+    def walk(p, s):
+        if is_spec(s):
+            return place(p, s)
+        if isinstance(s, dict):
+            return {k: walk(p[k], v) for k, v in s.items()}
+        return type(s)(walk(p[i], v) for i, v in enumerate(s))
+    return walk(params, spec_tree)
+
+
+def is_placed(params: Tree) -> bool:
+    """Whether ``params``' leaves are laid out on a mesh
+    (``place_params``)."""
+    from ..parallel.sharding import Sharded
+    return isinstance(next(iter(tree_leaves(params)), None), Sharded)
+
+
 def count_params(spec_tree: Tree) -> int:
     return sum(int(math.prod(s.shape))
                for s in tree_leaves(spec_tree, is_spec))

@@ -30,6 +30,22 @@ grad enabled and no cache wanted each layer's block runs under
 saves the matmul outputs (a selective-checkpoint policy, the counterpart of
 ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest. Remat
 changes memory, never values.
+
+The partitioned serving program. Under ``sharding_rules(mesh)`` with the
+weights placed on the mesh (``params.place_params``; the serving engine
+places them), ``decoder_prefill`` and ``decoder_decode_step`` run
+``parallel.sharding.Sharded`` tensors through the ``*_sharded`` layers of
+``attention``, ``ffn`` and ``common``. Between blocks the residual stream
+is held as the rules hold it, ``("batch", "seq_act", None)``: batch over
+the data axes, the sequence over ``"model"`` where it divides. Each shard
+runs its norms on its own rows; an all-gather over the sequence precedes
+each column-parallel product, and a reduce-scatter back to the stream's
+layout (an all-reduce where the sequence is whole, as in decode) follows
+each row-parallel one. The caches are zeros laid out by
+``launch.steps.cache_shardings`` (batch, and the sequence over
+``"model"``). Without a mesh, or with whole weights (training), every
+path is the one above. Block kinds without a partitioned program (the
+SSM, RG-LRU and local-attention ones) raise.
 """
 from __future__ import annotations
 
@@ -44,7 +60,8 @@ from . import attention as attn
 from . import ffn, rglru, ssm
 from .common import (embed_lookup, embed_specs, rmsnorm,
                      sharded_softmax_xent, unembed)
-from .params import Spec, stack, torch_dtype, tree_map
+from .params import (Spec, is_placed, stack, torch_dtype, tree_leaves,
+                     tree_map, tree_unflatten)
 
 # ---------------------------------------------------------------------------
 # Segment planning
@@ -382,7 +399,11 @@ def decoder_loss(params, tokens, cfg, prefix_embed=None) -> torch.Tensor:
 
 def decoder_prefill(params, tokens, cfg, s_max: int, prefix_embed=None):
     """Prefill: the cache filled at ``s_max`` and the logits of the final
-    position only (full-sequence logits would be (B·S, V))."""
+    position only (full-sequence logits would be (B·S, V)). Placed weights
+    run the partitioned program: the logits are then a ``Sharded`` (B, V)
+    split by batch, the cache's leaves ``Sharded`` too."""
+    if is_placed(params):
+        return _prefill_sharded(params, tokens, cfg, s_max, prefix_embed)
     dtype = torch_dtype(cfg.compute_dtype)
     hidden, _, caches = decoder_forward(params, tokens, cfg,
                                         prefix_embed=prefix_embed,
@@ -394,10 +415,22 @@ def decoder_prefill(params, tokens, cfg, s_max: int, prefix_embed=None):
     return logits[:, 0], {"layers": caches, "pos": pos}
 
 
-def decoder_cache_zeros(cfg, batch: int, s_max: int, device=None):
+def decoder_cache_zeros(cfg, batch: int, s_max: int, device=None,
+                        mesh=None):
     """The decode cache, zeros at ``s_max``: a segment of several repeats
     keeps its per-layer caches stacked on a leading dim, as its
-    parameters are."""
+    parameters are. With ``mesh`` (under ``sharding_rules(mesh)``) each
+    leaf is a ``Sharded`` laid out by ``launch.steps.cache_shardings``,
+    one zero block a device, no whole leaf made."""
+    if mesh is not None:
+        from ..launch.steps import cache_shardings
+        from ..parallel.sharding import sharded_zeros
+        shapes = decoder_cache_zeros(cfg, batch, s_max, device="meta")
+        laid = cache_shardings(shapes)
+        flat = [sharded_zeros(t.shape, t.dtype, sh.spec, mesh) for t, sh in
+                zip(tree_leaves(shapes["layers"]),
+                    tree_leaves(laid["layers"]))]
+        return {"layers": tree_unflatten(shapes["layers"], flat), "pos": 0}
     dtype = torch_dtype(cfg.compute_dtype)
     caches = []
     for unit, reps in segment_plan(cfg):
@@ -413,7 +446,10 @@ def decoder_cache_zeros(cfg, batch: int, s_max: int, device=None):
 
 def decoder_decode_step(params, cache, tokens, cfg):
     """tokens: (B,1). Returns (logits (B,V), cache): the cache's tensors are
-    written in place and ``pos`` advances by one."""
+    written in place and ``pos`` advances by one. Placed weights run the
+    partitioned program (``decoder_prefill``)."""
+    if is_placed(params):
+        return _decode_step_sharded(params, cache, tokens, cfg)
     dtype = torch_dtype(cfg.compute_dtype)
     pos = int(cache["pos"])
     x = embed_lookup(params["embed"], tokens, dtype)
@@ -427,3 +463,165 @@ def decoder_decode_step(params, cache, tokens, cfg):
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     logits = unembed(params["embed"], x, dtype)
     return logits[:, 0], {"layers": cache["layers"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# The partitioned serving program (placed weights under a mesh)
+# ---------------------------------------------------------------------------
+
+def _rules_of(params):
+    """The active rules, whose mesh must be the one ``params`` lie on."""
+    from ..parallel.sharding import current_rules
+    rules = current_rules()
+    mesh = tree_leaves(params)[0].mesh
+    if rules is None or rules.mesh is not mesh:
+        raise RuntimeError("placed weights run under the sharding_rules of "
+                           "the mesh they were placed on")
+    return rules
+
+
+def _stream_spec(rules, shape):
+    """The residual stream's layout: batch, the sequence over ``seq_act``."""
+    return rules.resolve(("batch", "seq_act", None), shape)
+
+
+def _embed_sharded(params, tokens, cfg, rules, prefix_embed=None):
+    """The token embeddings (and the VLM prefix before them) in the
+    residual stream's layout."""
+    from ..parallel.sharding import relayout, shard, smap
+    from .common import embed_lookup_sharded
+    dtype = torch_dtype(cfg.compute_dtype)
+    mesh = rules.mesh
+    tok = shard(tokens, rules.resolve(("batch", None), tokens.shape), mesh)
+    x = embed_lookup_sharded(params["embed"], tok, dtype)
+    if prefix_embed is not None:
+        # the prefix shifts the tokens' positions: add the vocab's partial
+        # sums over the whole sequence before cutting it
+        x = relayout(x, x.spec)
+        pre = shard(prefix_embed.to(dtype), x.spec, mesh)
+        x = smap(lambda a, b: torch.cat([a, b], dim=1), pre, x, spec=x.spec)
+    return relayout(x, _stream_spec(rules, x.shape))
+
+
+def _norm_sharded(x, w, cfg):
+    from ..parallel.sharding import smap
+    return smap(lambda a, b: rmsnorm(a, b, cfg.norm_eps), x, w, spec=x.spec)
+
+
+def _ffn_sharded(p, h, cfg, kind, dtype, rules):
+    """The block's FFN on ``h`` in the stream's layout, back in it."""
+    from ..parallel.sharding import relayout
+    if kind in ("attn_moe", "mla_moe"):
+        return ffn.moe_apply_sharded(p, h, cfg, dtype, rules)
+    y = ffn.swiglu_apply_sharded(p, relayout(h, (h.spec[0], None, None)),
+                                 dtype)
+    return relayout(y, h.spec)
+
+
+_PARTITIONED = ("attn", "attn_moe", "mla_dense", "mla_moe")
+
+
+def partitioned(cfg) -> bool:
+    """Whether every block of ``cfg``'s decoder has a partitioned program."""
+    return all(k in _PARTITIONED for unit, _ in segment_plan(cfg)
+               for k in unit)
+
+
+def _check_kind(kind: str):
+    if kind not in _PARTITIONED:
+        raise ValueError(f"block kind {kind!r} has no partitioned program: "
+                         "the SSM, RG-LRU and local-attention blocks run "
+                         "with whole weights")
+
+
+def _block_full_sharded(p, x, cfg, kind, dtype, cache, rules):
+    """``block_apply_full`` with a cache, partitioned: ``x`` in the stream's
+    layout, the cache's blocks written at their positions."""
+    from ..parallel.sharding import add, relayout, write_prefix
+    _check_kind(kind)
+    h = relayout(_norm_sharded(x, p["ln1"], cfg), (x.spec[0], None, None))
+    s = x.shape[1]
+    if kind in ("attn", "attn_moe"):
+        out, (k, v) = attn.gqa_full_sharded(p["attn"], h, cfg, dtype, rules,
+                                            window=cfg.attn_window)
+        write_prefix(cache["k"], 1, k)
+        write_prefix(cache["v"], 1, v)
+        for sp in cache["slot_pos"].blocks.values():
+            t = torch.arange(sp.shape[0], dtype=torch.int32, device=sp.device)
+            sp.copy_(torch.where(t < s, t, -1))
+    else:
+        out, (latent, krope) = attn.mla_full_sharded(p["attn"], h, cfg, dtype,
+                                                     rules)
+        write_prefix(cache["latent"], 1, latent)
+        write_prefix(cache["krope"], 1, krope)
+    x = add(x, relayout(out, x.spec))
+    return add(x, _ffn_sharded(p["ffn"], _norm_sharded(x, p["ln2"], cfg),
+                               cfg, kind, dtype, rules))
+
+
+def _block_decode_sharded(p, x, cfg, kind, dtype, cache, pos, rules):
+    """``block_apply_decode``, partitioned."""
+    from ..parallel.sharding import add, relayout
+    _check_kind(kind)
+    h = _norm_sharded(x, p["ln1"], cfg)
+    if kind in ("attn", "attn_moe"):
+        out = attn.gqa_decode_sharded(p["attn"], h, cfg, dtype, cache["k"],
+                                      cache["v"], pos, rules,
+                                      window=cfg.attn_window)
+        for sp in cache["slot_pos"].blocks.values():
+            sp[pos] = pos
+    else:
+        out = attn.mla_decode_sharded(p["attn"], h, cfg, dtype,
+                                      cache["latent"], cache["krope"], pos,
+                                      rules)
+    x = add(x, relayout(out, x.spec))
+    return add(x, _ffn_sharded(p["ffn"], _norm_sharded(x, p["ln2"], cfg),
+                               cfg, kind, dtype, rules))
+
+
+def _logits_sharded(params, x, cfg):
+    """(B, 1, d) hidden, whole on d, to (B, V) logits split by batch."""
+    from ..parallel.sharding import smap
+    from .common import unembed_sharded
+    y = unembed_sharded(params["embed"], x, torch_dtype(cfg.compute_dtype))
+    return smap(lambda a: a[:, 0], y, spec=y.spec[:1] + y.spec[2:])
+
+
+def _prefill_sharded(params, tokens, cfg, s_max: int, prefix_embed=None):
+    from ..parallel.sharding import gather, smap
+    rules = _rules_of(params)
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = _embed_sharded(params, tokens, cfg, rules, prefix_embed)
+    b, s, _ = x.shape
+    cache = decoder_cache_zeros(cfg, b, s_max or s, mesh=rules.mesh)
+    for seg_params, seg_cache, (unit, reps) in zip(
+            params["segments"], cache["layers"], segment_plan(cfg)):
+        for p_slice, c_slice in zip(_layers(seg_params, reps),
+                                    _layers(seg_cache, reps)):
+            for i, kind in enumerate(unit):
+                x = _block_full_sharded(p_slice[f"u{i}"], x, cfg, kind,
+                                        dtype, c_slice[f"u{i}"], rules)
+    x = _norm_sharded(x, params["ln_f"], cfg)
+    # the last position: each shard's last row, the sequence's last shard's
+    last = gather(smap(lambda a: a[:, -1:], x, spec=x.spec), 1)
+    last = smap(lambda a: a[:, -1:], last, spec=last.spec)
+    cache["pos"] = s
+    return _logits_sharded(params, last, cfg), cache
+
+
+def _decode_step_sharded(params, cache, tokens, cfg):
+    rules = _rules_of(params)
+    dtype = torch_dtype(cfg.compute_dtype)
+    pos = int(cache["pos"])
+    x = _embed_sharded(params, tokens, cfg, rules)
+    for seg_params, seg_cache, (unit, reps) in zip(
+            params["segments"], cache["layers"], segment_plan(cfg)):
+        for p_slice, c_slice in zip(_layers(seg_params, reps),
+                                    _layers(seg_cache, reps)):
+            for i, kind in enumerate(unit):
+                x = _block_decode_sharded(p_slice[f"u{i}"], x, cfg, kind,
+                                          dtype, c_slice[f"u{i}"], pos,
+                                          rules)
+    x = _norm_sharded(x, params["ln_f"], cfg)
+    return _logits_sharded(params, x, cfg), {"layers": cache["layers"],
+                                             "pos": pos + 1}

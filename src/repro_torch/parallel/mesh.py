@@ -29,11 +29,32 @@ the device groups along one axis, and the sharded paths run on the first
 group (``axis_devices``), the other axes replicating. ``make_mesh`` defaults to the CUDA devices; a CPU mesh exists
 only where the caller passes CPU devices.
 
+The partitioned LM program (``parallel.sharding.Sharded``) adds three
+collectives over the groups of one or more mesh axes:
+
+  * ``all_gather(groups, dim)`` — each group's shards concatenated along
+    ``dim``, in group order, on every shard of the group.
+  * ``reduce_scatter(groups, dim)`` — each group's shards summed in group
+    order (shard 0 first) and cut along ``dim``: piece ``i`` on shard ``i``.
+  * ``all_reduce(groups)`` — the sum, in the same order, on every shard.
+
+Each takes every group of its axes at once, as one SPMD op of the
+reference's program is: it adds one op of its kind, and one device's
+output bytes, to ``collectives()`` (the reference dry run's kinds and
+measure, ``src/repro/launch/dryrun.py:47-72``). On ``meta`` tensors (the
+dry run) each group holds one shard standing for all ``size`` of them:
+the op computes its output's shape, counts it, and loops over nothing.
+``ppermute`` counts as a ``collective-permute`` and ``psum`` as an
+``all-reduce``.
+
 ``moved_bytes()`` reads, and ``reset_moved_bytes()`` zeroes, the bytes the
 collectives have copied between shards (the tensors' sizes: what
-``ppermute`` delivers and what ``psum`` brings to the first device), and
-what ``place`` copies to another device (a block already on its device is
-taken as a view and counts nothing).
+``ppermute`` delivers, what ``psum`` brings to the first device, each
+piece another shard's ``all_gather`` or ``reduce_scatter`` reads and each
+copy of an ``all_reduce``'s sum), and what ``place`` copies to another
+device (a block already on its device is taken as a view and counts
+nothing). ``collectives()`` reads, and ``reset_collectives()`` zeroes, the
+op counter.
 """
 from __future__ import annotations
 
@@ -133,6 +154,9 @@ def make_mesh(shape: Sequence[int], axis_names, devices=None) -> Mesh:
 
 
 _MOVED = [0]
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+_OPS = {k: [0, 0] for k in KINDS}
 
 
 def moved_bytes() -> int:
@@ -144,6 +168,23 @@ def reset_moved_bytes() -> None:
     _MOVED[0] = 0
 
 
+def collectives() -> Tuple[dict, dict]:
+    """``(bytes, count)`` by kind since the last reset: one device's output
+    bytes of every collective op, and the ops."""
+    return ({k: v[0] for k, v in _OPS.items()},
+            {k: v[1] for k, v in _OPS.items()})
+
+
+def reset_collectives() -> None:
+    for v in _OPS.values():
+        v[0] = v[1] = 0
+
+
+def _count(kind: str, out: torch.Tensor) -> None:
+    _OPS[kind][0] += out.numel() * out.element_size()
+    _OPS[kind][1] += 1
+
+
 def ring_perm(n: int) -> List[Tuple[int, int]]:
     """Each device to its successor on the ring."""
     return [(i, (i + 1) % n) for i in range(n)]
@@ -152,6 +193,14 @@ def ring_perm(n: int) -> List[Tuple[int, int]]:
 def _copy(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     _MOVED[0] += x.numel() * x.element_size()
     return x.to(dev, non_blocking=True, copy=True)
+
+
+def arrive(x: torch.Tensor, dev) -> torch.Tensor:
+    """``x`` read by a shard on ``dev`` that does not hold it: moved there
+    (a view where it lies there already, the reader copying it into its
+    output), counted in ``moved_bytes``."""
+    _MOVED[0] += x.numel() * x.element_size()
+    return x.to(dev, non_blocking=True)
 
 
 def place(x: torch.Tensor, dev) -> torch.Tensor:
@@ -175,6 +224,7 @@ def ppermute(shards: Shards, perm) -> Shards:
     a fresh copy on ``shards[dst]``'s device; zeros where nothing
     arrives."""
     dst_of = _receivers(shards, perm)
+    _count("collective-permute", shards[0])
     return [_copy(shards[dst_of[d]], x.device) if d in dst_of
             else torch.zeros_like(x) for d, x in enumerate(shards)]
 
@@ -199,6 +249,7 @@ def ppermute_start(shards: Shards, perm) -> Pending:
     on the current streams end (``record_stream``). CPU shards are copied
     at once."""
     dst_of = _receivers(shards, perm)
+    _count("collective-permute", shards[0])
     out, streams = [], []
     for d, x in enumerate(shards):
         if d not in dst_of:
@@ -225,12 +276,77 @@ def psum(shards: Shards) -> torch.Tensor:
     (device 0 first), as a new tensor."""
     acc = shards[0].clone()
     for x in shards[1:]:
-        if x.device != acc.device:
-            x = _copy(x, acc.device)
-        else:
-            _MOVED[0] += x.numel() * x.element_size()
-        acc += x
+        acc += arrive(x, acc.device)
+    _count("all-reduce", acc)
     return acc
+
+
+def _size(groups, size) -> int:
+    return size or len(groups[0])
+
+
+def all_gather(groups: Sequence[Shards], dim: int,
+               size: int = 0) -> List[Shards]:
+    """Each group's shards concatenated along ``dim`` in group order, a
+    fresh tensor on each shard's device. ``size``: the group's size where a
+    meta group holds one shard standing for all."""
+    n = _size(groups, size)
+    x0 = groups[0][0]
+    if x0.is_meta:
+        shape = list(x0.shape)
+        shape[dim] *= n
+        out = [[x0.new_empty(shape) for _ in g] for g in groups]
+    else:
+        out = [[torch.cat([y if j == i else arrive(y, x.device)
+                           for j, y in enumerate(g)], dim)
+                for i, x in enumerate(g)] for g in groups]
+    _count("all-gather", out[0][0])
+    return out
+
+
+def reduce_scatter(groups: Sequence[Shards], dim: int,
+                   size: int = 0) -> List[Shards]:
+    """Each group's shards summed in group order (shard 0 first) and cut
+    into ``n`` pieces along ``dim``: piece ``i`` on shard ``i``."""
+    n = _size(groups, size)
+    x0 = groups[0][0]
+    if x0.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x0.shape)} "
+                         f"does not split {n} ways")
+    c = x0.shape[dim] // n
+    if x0.is_meta:
+        out = [[x0.narrow(dim, 0, c).clone() for _ in g] for g in groups]
+    else:
+        out = []
+        for g in groups:
+            row = []
+            for i, x in enumerate(g):
+                acc = None
+                for j, y in enumerate(g):
+                    part = y.narrow(dim, i * c, c)
+                    part = part if j == i else arrive(part, x.device)
+                    acc = part.clone() if acc is None else acc + part
+                row.append(acc)
+            out.append(row)
+    _count("reduce-scatter", out[0][0])
+    return out
+
+
+def all_reduce(groups: Sequence[Shards], size: int = 0) -> List[Shards]:
+    """Each group's sum, added in group order (shard 0 first) on shard 0's
+    device, then copied to every other shard of the group."""
+    x0 = groups[0][0]
+    if x0.is_meta:
+        out = [[x.clone() for x in g] for g in groups]
+    else:
+        out = []
+        for g in groups:
+            acc = g[0].clone()
+            for y in g[1:]:
+                acc += arrive(y, acc.device)
+            out.append([acc] + [_copy(acc, x.device) for x in g[1:]])
+    _count("all-reduce", out[0][0])
+    return out
 
 
 def ring_all_to_all(shards: Shards) -> Shards:

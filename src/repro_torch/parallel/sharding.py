@@ -12,16 +12,22 @@ maps logical names to mesh axes, and ``resolve`` turns an array's logical
 axes into a spec, dropping a mapping that does not divide the dimension
 (yi-34b's 56 heads on a 16-way model axis are then replicated). Rules are
 set for a thread by the ``sharding_rules`` context, as the reference sets
-them. The port runs one eager program, with no partitioner: the resolved
-specs give each argument's per-device layout and bytes (``shard_shape``;
-the dry run, ``launch/dryrun.py``), and ``maybe_shard`` only checks its
-spec, as the reference's ``with_sharding_constraint`` would, and returns
-its input. Values change under a mesh only where the reference's do: the
-MoE layer groups its tokens by data shard (``axis_size("batch")``) and
-runs its ``'sort'`` region shard by shard (``shard_block`` slices its
-inputs as ``shard_map`` would; ``models/ffn.py``). ``logical_to_pspec``
-and ``maybe_shard`` keep the reference's API: no code of the port calls
-them.
+them. The resolved specs give each argument's per-device layout and bytes
+(``shard_shape``; the dry run, ``launch/dryrun.py``). Values change under
+a mesh only where the reference's do: the MoE layer groups its tokens by
+data shard (``axis_size("batch")``) and runs its ``'sort'`` region shard
+by shard (``shard_block`` slices its inputs as ``shard_map`` would;
+``models/ffn.py``).
+
+The port has no partitioner for a constraint to steer: ``maybe_shard``
+only checks its spec, as the reference's ``with_sharding_constraint``
+would, and returns its input. The partitioned program lays itself out
+explicitly instead. A ``Sharded`` is a tensor laid out on a mesh by a
+spec, one block a mesh coordinate (``shard`` places one, ``smap`` computes
+block by block), and its layout changes only through counted collectives
+(``gather``, ``reduce``; ``relayout`` picks them) or local cuts
+(``split``). ``logical_to_pspec`` and ``maybe_shard`` keep the reference's
+API: no code of the port calls them.
 
 A ``ShardedEll`` is an ELLPACK operand placed on a mesh: one ``(val,
 idx)`` pair a device, split along one plane axis or held whole by every
@@ -33,8 +39,9 @@ import contextlib
 import dataclasses
 import math
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.formats import EllCols, EllRows
@@ -145,6 +152,16 @@ def spec_axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def entry_pos(entry, mesh: Mesh, coords: Dict[str, int]) -> int:
+    """The index of the block along one array axis split by ``entry`` that
+    the device at ``coords`` holds (its axes' coordinates, outermost
+    first)."""
+    pos = 0
+    for ax in spec_axes(entry):
+        pos = pos * mesh.shape[ax] + coords.get(ax, 0)
+    return pos
+
+
 def shard_block(x: torch.Tensor, spec: Spec, mesh: Mesh,
                 coords: Dict[str, int]) -> torch.Tensor:
     """The block of ``x`` laid out by ``spec`` that the device at ``coords``
@@ -152,11 +169,9 @@ def shard_block(x: torch.Tensor, spec: Spec, mesh: Mesh,
     ``x``: ``shard_map``'s in-spec slicing."""
     block = shard_shape(spec, x.shape, mesh)
     for i, entry in enumerate(spec):
-        pos = 0
-        for ax in spec_axes(entry):
-            pos = pos * mesh.shape[ax] + coords.get(ax, 0)
         if entry is not None:
-            x = x.narrow(i, pos * block[i], block[i])
+            x = x.narrow(i, entry_pos(entry, mesh, coords) * block[i],
+                         block[i])
     return x
 
 
@@ -233,6 +248,338 @@ def axis_size(logical_name: str) -> int:
     for ax in r.rules.get(logical_name, ()):
         total *= r.axis_size(ax)
     return total
+
+
+# ---------------------------------------------------------------------------
+# The partitioned program: tensors laid out on a mesh, and their layouts
+# ---------------------------------------------------------------------------
+
+Coord = Tuple[int, ...]
+
+
+def _meta(mesh: Mesh) -> bool:
+    return mesh.devices.flat[0].type == "meta"
+
+
+def mesh_coords(mesh: Mesh) -> List[Coord]:
+    """The coordinates a partitioned program runs at, row-major. On a mesh
+    of ``meta`` devices one, all zeros, stands for each: the dry run traces
+    one device's program."""
+    if _meta(mesh):
+        return [(0,) * len(mesh.axis_names)]
+    return list(np.ndindex(*mesh.devices.shape))
+
+
+def _at(mesh: Mesh, c: Coord) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, c))
+
+
+def _entry(axes: Sequence[str]):
+    """A spec entry naming ``axes`` (None for none)."""
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else tuple(axes)
+
+
+class Sharded:
+    """A tensor of global ``shape`` laid out on ``mesh`` by ``spec`` (a
+    ``jax.Array`` under a ``NamedSharding``): ``blocks[c]`` is the block the
+    device at mesh coordinate ``c`` holds, ``shard_block``'s cut of
+    ``shard_shape``'s shape, on that device. Where a tensor is placed
+    (``shard``, ``sharded_zeros``), coordinates holding one block on one
+    device (a replicated axis, a device repeated in the mesh) share its
+    storage; a computed one (``smap``) has a block a coordinate, as each
+    device of the reference's program computes its own. ``partial`` names
+    the mesh axes over which the blocks are partial sums still to be added
+    (a row-parallel product's output; ``reduce``). On a meta mesh one
+    coordinate stands for all (``mesh_coords``)."""
+
+    def __init__(self, mesh: Mesh, spec: Spec, shape: Sequence[int],
+                 blocks: Dict[Coord, torch.Tensor],
+                 partial: Tuple[str, ...] = ()):
+        self.mesh = mesh
+        self.shape = tuple(shape)
+        self.spec = tuple(spec) + (None,) * (len(self.shape) - len(spec))
+        self.blocks = blocks
+        self.partial = tuple(partial)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(iter(self.blocks.values())).dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={self.shape}, spec={self.spec}, "
+                f"partial={self.partial}, mesh={self.mesh.shape})")
+
+    def __getitem__(self, i: int) -> "Sharded":
+        """Layer ``i`` of a stacked leaf (its first dim whole): a view of
+        each block."""
+        if not isinstance(i, int) or self.spec[0] is not None:
+            raise TypeError(f"a Sharded takes an int index on a whole first "
+                            f"dim, not {i!r} on spec {self.spec}")
+        return Sharded(self.mesh, self.spec[1:], self.shape[1:],
+                       {c: b[i] for c, b in self.blocks.items()},
+                       self.partial)
+
+    def index(self, c: Coord) -> Tuple[slice, ...]:
+        """Where block ``c`` lies in the whole tensor."""
+        n = shard_shape(self.spec, self.shape, self.mesh)
+        at = _at(self.mesh, c)
+        return tuple(slice(entry_pos(e, self.mesh, at) * k,
+                           (entry_pos(e, self.mesh, at) + 1) * k)
+                     for e, k in zip(self.spec, n))
+
+    def whole(self) -> torch.Tensor:
+        """The tensor assembled on the mesh's first device (a meta tensor on
+        a meta mesh): each distinct block once, those the first coordinate
+        does not hold counted in ``moved_bytes``."""
+        from .mesh import arrive
+        if self.partial:
+            raise ValueError(f"partial sums over {self.partial}: reduce "
+                             "them first")
+        first = self.mesh.devices.flat[0]
+        if _meta(self.mesh):
+            return torch.empty(self.shape, dtype=self.dtype, device="meta")
+        out = torch.empty(self.shape, dtype=self.dtype, device=first)
+        coords = mesh_coords(self.mesh)
+        key = (lambda c: tuple((s.start, s.stop) for s in self.index(c)))
+        own, done = key(coords[0]), set()
+        for c in coords:
+            k = key(c)
+            if k in done:
+                continue
+            done.add(k)
+            b = self.blocks[c]
+            out[self.index(c)] = b if k == own else arrive(b, first)
+        return out
+
+
+def _assemble(mesh: Mesh, spec: Spec, blocks: Dict[Coord, torch.Tensor],
+              partial=()) -> Sharded:
+    """A ``Sharded`` from its blocks: the global shape is a block's times the
+    ways ``spec`` splits each dim."""
+    b = next(iter(blocks.values()))
+    spec = tuple(spec) + (None,) * (b.dim() - len(spec))
+    return Sharded(mesh, spec, tuple(n * _split(e, mesh)
+                                     for n, e in zip(b.shape, spec)),
+                   blocks, partial)
+
+
+def _placed(shape, spec: Spec, mesh: Mesh, make) -> Sharded:
+    """One block a distinct (device, block) of each coordinate, from
+    ``make(device, coords)``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    made, blocks = {}, {}
+    for c in mesh_coords(mesh):
+        at = _at(mesh, c)
+        dev = mesh.devices[c]
+        key = (dev, tuple(entry_pos(e, mesh, at) for e in spec))
+        if key not in made:
+            made[key] = make(dev, at)
+        blocks[c] = made[key]
+    return Sharded(mesh, spec, shape, blocks)
+
+
+def shard(x: torch.Tensor, spec: Spec, mesh: Mesh) -> Sharded:
+    """``x`` placed on ``mesh`` by ``spec``: each block a contiguous copy of
+    its own on its device, or ``x`` itself where a block is all of ``x`` and
+    ``x`` lies on that device already, so dropping ``x`` frees it beyond
+    what the spec replicates. A placement is not a collective and counts
+    nothing. On a meta mesh: one empty meta block."""
+    spec = tuple(spec) + (None,) * (x.dim() - len(spec))
+    block = shard_shape(spec, x.shape, mesh)
+
+    def make(dev, at):
+        if dev.type == "meta":
+            return torch.empty(block, dtype=x.dtype, device="meta")
+        if tuple(x.shape) == block and x.device == dev:
+            return x
+        return shard_block(x, spec, mesh, at).to(
+            dev, copy=True, memory_format=torch.contiguous_format)
+    return _placed(x.shape, spec, mesh, make)
+
+
+def sharded_zeros(shape, dtype, spec: Spec, mesh: Mesh) -> Sharded:
+    """Zeros laid out by ``spec``, one block a distinct (device, block)."""
+    block = shard_shape(spec, shape, mesh)
+    return _placed(tuple(shape), spec, mesh,
+                   lambda dev, at: torch.zeros(block, dtype=dtype,
+                                               device=dev))
+
+
+def smap(fn, *args, spec, partial=(), at: bool = False):
+    """``fn`` block by block: at each coordinate of the first ``Sharded``
+    argument's mesh it gets every ``Sharded`` argument's block there (the
+    others as they are) and, with ``at``, the coordinate as ``at={axis:
+    index}``. ``spec`` lays the result out (a list of specs where ``fn``
+    returns a tuple), ``partial`` marks its blocks as partial sums."""
+    mesh = next(a.mesh for a in args if isinstance(a, Sharded))
+    outs = {}
+    for c in mesh_coords(mesh):
+        vals = [a.blocks[c] if isinstance(a, Sharded) else a for a in args]
+        outs[c] = fn(*vals, **({"at": _at(mesh, c)} if at else {}))
+    if isinstance(spec, list):
+        return tuple(_assemble(mesh, sp, {c: o[i] for c, o in outs.items()},
+                               partial) for i, sp in enumerate(spec))
+    return _assemble(mesh, spec, outs, partial)
+
+
+def _groups(mesh: Mesh, axes: Sequence[str]):
+    """The coordinates that differ only on ``axes``, a group each, in block
+    order along them; and the groups' size (a meta mesh's one group holds
+    one coordinate standing for all)."""
+    n = math.prod(mesh.shape[a] for a in axes)
+    coords = mesh_coords(mesh)
+    if _meta(mesh):
+        return [coords], n
+    idx = {mesh.axis_names.index(a) for a in axes}
+    groups: Dict[Coord, List[Coord]] = {}
+    for c in coords:
+        groups.setdefault(tuple(v for i, v in enumerate(c) if i not in idx),
+                          []).append(c)
+    entry = _entry(axes)
+    return [sorted(g, key=lambda c: entry_pos(entry, mesh, _at(mesh, c)))
+            for g in groups.values()], n
+
+
+def _run(x: Sharded, axes, coll) -> Dict[Coord, torch.Tensor]:
+    """``coll(blocks by group, size)`` over ``axes``' groups, its results
+    back at their coordinates."""
+    groups, n = _groups(x.mesh, axes)
+    outs = coll([[x.blocks[c] for c in g] for g in groups], n)
+    return {c: o for g, og in zip(groups, outs) for c, o in zip(g, og)}
+
+
+def gather(x: Sharded, dim: int) -> Sharded:
+    """``x`` with ``dim`` whole: an all-gather over the axes its spec splits
+    ``dim`` over; nothing where ``dim`` is whole or those axes hold one
+    device."""
+    from .mesh import all_gather
+    dim %= x.ndim
+    axes = spec_axes(x.spec[dim])
+    if not axes:
+        return x
+    spec = x.spec[:dim] + (None,) + x.spec[dim + 1:]
+    if math.prod(x.mesh.shape[a] for a in axes) == 1:
+        return Sharded(x.mesh, spec, x.shape, x.blocks, x.partial)
+    return Sharded(x.mesh, spec, x.shape,
+                   _run(x, axes, lambda g, n: all_gather(g, dim, n)),
+                   x.partial)
+
+
+def reduce(x: Sharded, dim: Optional[int] = None) -> Sharded:
+    """``x``'s partial sums added over ``x.partial``: a reduce-scatter that
+    splits ``dim`` over those axes, or with ``dim`` None an all-reduce."""
+    from .mesh import all_reduce, reduce_scatter
+    axes = x.partial
+    if not axes:
+        return x
+    spec = list(x.spec)
+    if dim is not None:
+        dim %= x.ndim
+        if spec[dim] is not None:
+            raise ValueError(f"reduce-scatter along dim {dim}, split as "
+                             f"{spec[dim]!r} already")
+        spec[dim] = _entry(axes)
+    if math.prod(x.mesh.shape[a] for a in axes) == 1:
+        return Sharded(x.mesh, spec, x.shape, x.blocks)
+    coll = ((lambda g, n: all_reduce(g, n)) if dim is None
+            else (lambda g, n: reduce_scatter(g, dim, n)))
+    return Sharded(x.mesh, spec, x.shape, _run(x, axes, coll))
+
+
+def split(x: Sharded, dim: int, entry) -> Sharded:
+    """``x`` (whole along ``dim``, the same on every device of ``entry``'s
+    axes) cut along ``dim`` by ``entry``: each coordinate keeps its piece,
+    as a view. No communication."""
+    dim %= x.ndim
+    if x.spec[dim] is not None:
+        raise ValueError(f"dim {dim} is split already ({x.spec[dim]!r})")
+    n = _split(entry, x.mesh)
+    if x.shape[dim] % n:
+        raise ValueError(f"{entry!r} does not split dim {dim} of {x.shape}")
+    blocks = {}
+    for c, b in x.blocks.items():
+        k = b.shape[dim] // n
+        blocks[c] = b.narrow(dim, entry_pos(entry, x.mesh,
+                                            _at(x.mesh, c)) * k, k)
+    spec = x.spec[:dim] + (entry,) + x.spec[dim + 1:]
+    return Sharded(x.mesh, spec, x.shape, blocks, x.partial)
+
+
+def relayout(x: Sharded, spec: Spec) -> Sharded:
+    """``x`` laid out by ``spec``. Partial sums are added first: a
+    reduce-scatter along the dim ``spec`` splits over ``x.partial`` (where
+    ``x`` holds that dim whole), else an all-reduce. Then each dim whose
+    entry differs is gathered (where ``x`` splits it) and cut (where
+    ``spec`` does)."""
+    spec = tuple(spec) + (None,) * (x.ndim - len(spec))
+    if x.partial:
+        dims = [d for d, e in enumerate(spec)
+                if spec_axes(e) == x.partial and x.spec[d] is None]
+        x = reduce(x, dims[0] if dims else None)
+    for d in range(x.ndim):
+        if x.spec[d] != spec[d]:
+            x = gather(x, d)
+            if spec[d] is not None:
+                x = split(x, d, spec[d])
+    return x
+
+
+def add(a: Sharded, b: Sharded) -> Sharded:
+    """``a + b`` block by block; both laid out alike."""
+    if a.spec != b.spec or a.partial != b.partial:
+        raise ValueError(f"add: {a} and {b} are laid out differently")
+    return smap(torch.add, a, b, spec=a.spec, partial=a.partial)
+
+
+def matmul(x: Sharded, w: Sharded, dtype) -> Sharded:
+    """``x (..., K) @ w (K, N)`` block by block, ``w`` cast to ``dtype``.
+    ``K`` is whole on both or split alike; split, the blocks are partial
+    sums over its axes (a row-parallel product)."""
+    if x.spec[-1] != w.spec[0] or x.partial:
+        raise ValueError(f"matmul: {x} against {w}")
+    return smap(lambda a, b: a @ b.to(dtype), x, w,
+                spec=x.spec[:-1] + (w.spec[1],), partial=spec_axes(w.spec[0]))
+
+
+def index_owner(i: int, block: int) -> Tuple[int, int]:
+    """The block holding index ``i`` of an axis cut into blocks of
+    ``block``, and ``i``'s place in it."""
+    return divmod(i, block)
+
+
+def write_index(x: Sharded, dim: int, i: int, value: Sharded) -> None:
+    """``x``'s index ``i`` along ``dim`` set, in place, to ``value``'s only
+    one (``value`` whole along ``dim``), on the coordinates whose block
+    holds ``i`` (``index_owner``)."""
+    entry = x.spec[dim]
+    for c, b in x.blocks.items():
+        j = i
+        if entry is not None:
+            owner, j = index_owner(i, b.shape[dim])
+            if entry_pos(entry, x.mesh, _at(x.mesh, c)) != owner:
+                continue
+        b.select(dim, j).copy_(value.blocks[c].select(dim, 0))
+
+
+def write_prefix(x: Sharded, dim: int, value: Sharded) -> None:
+    """``x``'s first ``value.shape[dim]`` indices along ``dim`` set, in
+    place, to ``value`` (whole along ``dim``): each block takes the part
+    that falls in it."""
+    entry = x.spec[dim]
+    for c, b in x.blocks.items():
+        k = b.shape[dim]
+        lo = (entry_pos(entry, x.mesh, _at(x.mesh, c)) * k
+              if entry is not None else 0)
+        hi = min(lo + k, value.shape[dim])
+        if hi > lo:
+            b.narrow(dim, 0, hi - lo).copy_(
+                value.blocks[c].narrow(dim, lo, hi - lo))
 
 
 # ---------------------------------------------------------------------------

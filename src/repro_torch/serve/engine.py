@@ -9,6 +9,15 @@ reference's, on the host with its numpy generator seeded from ``cfg.seed``.
 There is nothing to compile and nothing donated: the model's functions run
 as they are, and the decode cache is written in place.
 
+Under ``sharding_rules(mesh)`` the engine serves the partitioned program
+where the model has one (``Model.partitioned``: the decoder-only
+configs): it places the weights on the mesh by the rules once
+(``Model.place``, when it is made under the rules or at its first wave
+under them), keeping no whole copy, and prefill lays the caches out by
+``launch.steps.cache_shardings``. Tokens and sampling stay on the mesh's
+first device: each wave's and step's logits are gathered there
+(``Sharded.whole``, counted in ``parallel.mesh.moved_bytes``).
+
 :class:`SparseGemmBatcher` packs heterogeneous per-request SpGEMMs that
 share shapes onto ``spgemm_coo_numeric_batched`` slots (structures recycled
 through the engine-level ``StructureCache``; fingerprints may differ within
@@ -265,7 +274,8 @@ class ServingEngine:
     """Token serving over ``model`` (a ``models.Model``) and its ``params``,
     and the SpGEMM lane over one shared ``StructureCache``. ``model`` and
     ``params`` may be None for an engine that serves SpGEMM requests only.
-    Token batches go to the device the parameters are on."""
+    Token batches go to the device the parameters are on, or the mesh's
+    first device where they are placed."""
 
     def __init__(self, model, params, cfg: ServeConfig):
         self.model = model
@@ -280,6 +290,24 @@ class ServingEngine:
         # heterogeneous sparse-request batching over the same cache/stats
         self.sparse_batcher = SparseGemmBatcher(
             self.structure_cache, max_slots=cfg.max_batch, stats=self.stats)
+        self._place()
+
+    def _place(self) -> None:
+        """Under ``sharding_rules(mesh)``, the weights laid out on that mesh
+        once, for a model with a partitioned program; weights placed on
+        another mesh raise."""
+        from ..models.params import is_placed, tree_leaves
+        from ..parallel.sharding import current_rules
+        rules = current_rules()
+        if self.model is None or rules is None or rules.mesh is None \
+                or not self.model.partitioned:
+            return
+        if is_placed(self.params):
+            if tree_leaves(self.params)[0].mesh is not rules.mesh:
+                raise ValueError("the weights are placed on another mesh "
+                                 "than the active rules'")
+            return
+        self.params = self.model.place(self.params)
 
     def spgemm(self, a: EllRows, b: EllCols, **structure_kwargs) -> Coo:
         """Two-phase SpGEMM through the engine's shared structure cache.
@@ -311,7 +339,9 @@ class ServingEngine:
         return self.structure_cache.stats()
 
     def _device(self) -> torch.device:
-        from ..models.params import tree_leaves
+        from ..models.params import is_placed, tree_leaves
+        if is_placed(self.params):
+            return tree_leaves(self.params)[0].mesh.devices.flat[0]
         return next(t for t in tree_leaves(self.params)
                     if isinstance(t, torch.Tensor)).device
 
@@ -326,7 +356,9 @@ class ServingEngine:
                         dtype=np.int32)
 
     @staticmethod
-    def _host(logits: torch.Tensor) -> np.ndarray:
+    def _host(logits) -> np.ndarray:
+        if not isinstance(logits, torch.Tensor):
+            logits = logits.whole()
         return logits.to(torch.float32).cpu().numpy()
 
     def generate_batch(self, prompts: List[np.ndarray]) -> List[List[int]]:
@@ -334,6 +366,7 @@ class ServingEngine:
         cfg = self.cfg
         assert len(prompts) <= cfg.max_batch
         b = len(prompts)
+        self._place()
         dev = self._device()
         t_enq = time.time()
         reqs = [Request(i, p, t_enq=t_enq) for i, p in enumerate(prompts)]

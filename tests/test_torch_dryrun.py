@@ -392,6 +392,38 @@ def test_dense_train_flops_near_6nd():
     assert set(rec["gaps"]) == {"collective_bytes", "temp_bytes"}
 
 
+def test_collectives_filled_for_decoder_serving_cells():
+    """qwen2-0.5b's prefill (32 x 512) and decode (128 at 512) cells count
+    the partitioned program's collectives on both production meshes: per
+    layer a reduce-scatter after ``wo`` and after the FFN in prefill (the
+    sequence splits 16 ways), plus the embedding's; in decode an
+    all-reduce for each and for the flash merge (14 heads do not split 16
+    ways). A train cell and an SSM cell keep null, their gaps naming the
+    slices to come."""
+    cfg = get_config("qwen2-0.5b")
+    kinds = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+             "collective-permute"}
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        for case, key, n in ((ShapeCase("p", 512, 32, "prefill"),
+                              "reduce-scatter", 2 * 24 + 1),
+                             (ShapeCase("d", 512, 128, "decode"),
+                              "all-reduce", 3 * 24 + 1)):
+            rec = dryrun.analyze_cell(cfg, case, mesh)
+            assert set(rec["collective_bytes"]) == kinds
+            assert rec["collective_count"][key] == n, (case.kind, multi_pod)
+            assert rec["collective_bytes"]["all-gather"] > 0
+            assert "collective_bytes" not in rec["gaps"]
+    small = small_mesh((1, 1), ("data", "model"))
+    for name, case in (("qwen2-0.5b-smoke", ShapeCase("t", 32, 4, "train")),
+                       ("falcon-mamba-7b-smoke",
+                        ShapeCase("d", 32, 2, "decode"))):
+        rec = dryrun.analyze_cell(get_config(name), case, small)
+        assert rec["collective_bytes"] is None
+        assert rec["collective_count"] is None
+        assert "item 9" in rec["gaps"]["collective_bytes"]
+
+
 # ---------------------------------------------------------------------------
 # (5) the entry point in a fresh process
 # ---------------------------------------------------------------------------

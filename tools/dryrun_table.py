@@ -3,7 +3,11 @@ column a shape, each cell ``argument GiB a device on (16,16)/(2,16,16)
 (flagged over one H100's 80 GiB) · TFLOP a device on each (an even
 split) · the whole program's peak live GiB · trace seconds on each``. The
 bytes and FLOPs are counts from the resolved layouts and
-``launch/op_analysis.py``, not times.
+``launch/op_analysis.py``, not times. A second table gives the
+partitioned program's collectives where the records have them (the
+decoder-only configs' prefill and decode cells): one device's GiB and the
+ops of each kind on each mesh, ``AG`` all-gather, ``AR`` all-reduce,
+``RS`` reduce-scatter (the other two kinds are zero).
 
 Run from the repository root after ``python -m repro_torch.launch.dryrun
 --all`` (or with the directory it wrote to):
@@ -41,6 +45,14 @@ def cell_text(by_mesh: dict) -> str:
         + " · " + both(lambda c: f"{c['trace_s']:.0f}"))
 
 
+def collectives_text(rec: dict) -> str:
+    """``AG GiB (ops) · AR · RS`` of one record."""
+    b, n = rec["collective_bytes"], rec["collective_count"]
+    return " · ".join(f"{short} {b[k] / GIB:.3g} ({n[k]})" for short, k in
+                      (("AG", "all-gather"), ("AR", "all-reduce"),
+                       ("RS", "reduce-scatter")))
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     root = Path(argv[0] if argv else "results/dryrun_torch")
@@ -55,6 +67,20 @@ def main(argv=None) -> int:
         row = [cell_text(recs[arch][sh]) if sh in recs[arch] else "—"
                for sh in SHAPES]
         print(f"| {arch} | " + " | ".join(row) + " |")
+    cols = [(sh, m) for sh in SHAPES for m in MESHES
+            if any(recs[a].get(sh, {}).get(m, {}).get("collective_bytes")
+                   for a in recs)]
+    if cols:
+        print()
+        print("| config | " + " | ".join(f"{sh} {m}" for sh, m in cols)
+              + " |")
+        print("|---" * (len(cols) + 1) + "|")
+        for arch in sorted(recs):
+            row = [recs[arch].get(sh, {}).get(m) for sh, m in cols]
+            if any(r and r.get("collective_bytes") for r in row):
+                print(f"| {arch} | " + " | ".join(
+                    collectives_text(r) if r and r.get("collective_bytes")
+                    else "—" for r in row) + " |")
     return 0
 
 
