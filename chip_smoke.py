@@ -17,7 +17,8 @@ over deepseek-v2-lite-16b, all 27 layers in bfloat16) and training on it
 (``launch.train.main`` over granite-moe-3b-a800m, all 32 layers in
 bfloat16), and both again under a ``("data", "model")`` mesh of four
 shards (``--model-parallel``), serving partitioned by the logical-axis
-rules, at a real size:
+rules, and training partitioned (``--model-parallel``), at a real
+size:
 C = A·Aᵀ for the paper's Table-I
 matrix bcsstk32 (dim 45,000, nnz 2.0M), regenerated from its published
 statistics exactly as ``benchmarks/common.py`` does (same seeds, same draws;
@@ -325,13 +326,7 @@ Phases (any failure exits non-zero before the last line):
    the same (2, 2) mesh on CPU devices, within MESH_TOL_A (loss
    relative, each grad against its max). Gate (b): each of two planted
    faults, every shard combining from expert 0 (``e_off = 0``) and no
-   ``psum``, must break gate (a). Gate (c): granite-moe-3b-a800m, all 32
-   layers, bfloat16, ``'sort'``, MESH_TRAIN's steps of 8 x 512 tokens
-   through ``launch.train.main(..., devices=...)`` at
-   ``--model-parallel`` 2 ((2, 2)) and 4 ((1, 4); 40 experts split
-   either way), then the hidden-dim split ((1, 16): 40 % 16 != 0, 512 %
-   16 = 0) through ``runtime.Trainer`` under the mesh: losses finite and
-   falling, ms a step, tokens/s, peak and ``moved_bytes()``. Gate (d):
+   ``psum``, must break gate (a). Gate (d):
    the cut's loss under ``'spmm'`` on (2, 2), K9 launched once a group
    (its grids counted exactly, the counters zeroed just before and read
    just after), within MESH_TOL_A of ``'ellpack'``'s on the same mesh
@@ -366,20 +361,61 @@ Phases (any failure exits non-zero before the last line):
    (``launch.dryrun.collective_trace``). Serving (d): dropping the
    program's second reduce and writing each decode token's cache entries
    on the next shard must each break serving (a) on qwen2-0.5b's (1, 4).
+   Then the partitioned training step (``mesh_train_cuts``,
+   ``mesh_train``), the weights placed on meshes of the same shards.
+   Training (a): 2-layer float32 cuts, TF32 off, MESH_TRAIN_TOKENS, one
+   step of ``launch.steps.make_train_step`` on placed weights (the loss
+   and every gradient from one backward through the collectives' duals,
+   ``sharding.leaf_grads``, then the ZeRO-1 update) against the same
+   step on whole weights under the same rules: granite-moe-3b-a800m with
+   ``'sort'``, ``'spmm'`` and ``'ellpack'`` on (1, 4) and (2, 2),
+   deepseek-v2-lite-16b (MLA, shared experts) and qwen2-0.5b (tied
+   vocab, a flat split inside a head) on (1, 4); the loss, every
+   gradient and both moments within MESH_TRAIN_TOL (of their max), the
+   params within MESH_TRAIN_PARAM_TOL where the gradient's sign is sure
+   and two steps' size elsewhere. Each of two planted faults on granite
+   ``'sort'``'s (2, 2), every all-gather's backward keeping its own
+   block (no sum over the group) and the moments one ``opt_shard`` block
+   off, must break it. Training (b): a placed forward of the ``'spmm'``
+   cut on (2, 2) with K9's wrapper recording: every coordinate's
+   dispatch and combine planes held bit for bit against the plain twin on
+   integer operands, and K9's grids, counted from zero just before the
+   forward, equal to coordinates x MoE layers x each call's grids.
+   Training (c): granite-moe-3b-a800m, all 32 layers, bfloat16,
+   MESH_TRAIN's steps of 8 x 512 through ``launch.train.main(...,
+   devices=...)``, partitioned, with ``'sort'`` then ``'spmm'``
+   (MESH_TRAIN_RUNS: ``--model-parallel`` 2 and 4, (2, 2) and (1, 4),
+   40 experts split either way), then the hidden-dim split
+   (MESH_HIDDEN: (1, 16), 40 % 16 != 0, 512 % 16 = 0) through
+   ``runtime.Trainer`` under the mesh: losses finite and falling, ms a
+   step, tokens/s, peak, ``moved_bytes()``, and the live
+   ``collectives()``, zeroed just before each run, equal kind by kind to
+   the steps times the dry run's meta trace of one step at the same
+   shapes (``launch.dryrun.collective_trace``, traced in two worker
+   processes beside the card's work); ``'spmm'`` launches K9's grids
+   more than once and at most twice a forward (the remat's recompute),
+   and K9 at one coordinate's recorded dispatch and combine planes joins
+   the kernels line, bit for bit on integer bfloat16 operands and timed.
+   Training (d): the cut's placed params and moments after a step on (2,
+   2), saved (``CheckpointManager``, the reference's format) and
+   restored onto (1, 4) and whole, bit for bit: save and restore ms.
    The phase's seconds.
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries, K9 with
-   its bfloat16 and training shapes, K10 with its bfloat16 entry), the
+   its bfloat16, training and partitioned training shapes, K10 with its
+   bfloat16 entry), the
    card's name and power limit, and as the last line ``{"ok": true,
    "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -4351,9 +4387,8 @@ def dryrun_phase(seed: int):
 MESH_SHARDS = 4               # the host mesh's shards (cards, or cuda:0 x 4)
 MESH_GATE_A = (2, 128)        # (a), (d): prompts x tokens on the float32 cut
 MESH_TOL_A = 1e-5             # (a): loss relative, each grad vs its max
-MESH_TRAIN = dict(batch=8, seq=512, steps=4)     # (c) through launch.train
-MESH_TRAIN_MP = (2, 4)        # (c): --model-parallel on four shards
-MESH_HIDDEN = (16, 32, 3)     # (c): model-parallel (40 % 16, 512 % 16 = 0),
+MESH_TRAIN = dict(batch=8, seq=512, steps=3)     # (c) through launch.train
+MESH_HIDDEN = (16, 8, 3)      # (c): model-parallel (40 % 16, 512 % 16 = 0),
                               # layers, steps: the hidden-dim split
 MESH_SERVE = ("deepseek-v2-lite-16b", 8, 32, 4)  # (e): arch, requests,
                               # max new tokens, --model-parallel
@@ -4522,16 +4557,150 @@ def mesh_train_steps(out, tokens: int, what: str) -> dict:
     return r
 
 
-def mesh_train(seed: int) -> tuple:
-    """(c): granite-moe-3b-a800m at all 32 layers, bfloat16, 'sort',
-    through ``launch.train.main(..., devices=...)`` on (2, 2) and (1, 4),
-    then the hidden-dim split through ``runtime.Trainer`` under
-    ``sharding_rules(make_host_mesh(16, ...))``. Returns (summary,
-    {path: counts})."""
+def k9_part_shape(what: str, val, idx, x_shape, dtype, n_rows: int,
+                  rng) -> dict:
+    """K9 at one coordinate's recorded planes of the partitioned
+    ``'spmm'`` step: integer operands in ``dtype`` (the combine's routing
+    weights replaced by integers on its valid lanes; every sum exact),
+    bit for bit against the plain twin; the kernel, the twin and
+    ``torch.sparse.mm`` of A as a CSR tensor timed (None where torch has
+    no such product on the card); bytes bound the kernel."""
+    import torch
+    from repro_torch.kernels import ell_spmm as k9
+    dev = idx.device
+    v = torch.where(idx >= 0, int_tensor(rng, val.shape, dev), 0.0).to(dtype)
+    x = int_tensor(rng, x_shape, dev).to(dtype)
+    d = x.shape[1]
+    valid = (idx >= 0) & (idx < n_rows)
+    n_used = int(valid.any(0).sum())
+    w = x.element_size()
+    a_csr = sparse_rows(v, idx, n_rows)
+    try:
+        torch.sparse.mm(a_csr, x)
+        library = (lambda: torch.sparse.mm(a_csr, x))
+    except RuntimeError:
+        library = None
+    r = held_pair(
+        "ell_spmm", lambda: k9.ell_spmm(v, idx, x, n_rows),
+        lambda: k9.ell_spmm_plain(v, idx, x, n_rows), library,
+        f"{what}: ({v.shape[0]},{v.shape[1]}) x ({x.shape[0]},{d}) -> "
+        f"({n_rows},{d}) {str(dtype).removeprefix('torch.')}, "
+        f"{int(valid.sum())} valid lanes, one coordinate of the "
+        "partitioned training step",
+        (4 + w) * v.numel() + w * n_used * d + w * n_rows * d,
+        2 * int(valid.sum()) * d)
+    r.update(dtype=str(dtype).removeprefix("torch."),
+             grids=k9.grids(*v.shape, n_rows, d))
+    del a_csr
+    return r
+
+
+def mesh_train_run(dispatch: str, mp: int, meta, record: bool = False):
+    """One full-width run of training (c) through ``launch.train.main``
+    (granite-moe-3b-a800m under ``dispatch``), the counters zeroed just
+    before it: its steps, the live collectives against ``meta`` (a future
+    of the dry run's count of one step) times the steps, and with
+    ``record`` K9's first dispatch and combine planes. Returns (summary,
+    counts, the recorded calls)."""
     import tempfile
     import torch
     from repro_torch import kernels
+    from repro_torch.kernels import ops
     from repro_torch.launch import train as tlaunch
+    from repro_torch.parallel import mesh as pmesh
+    a = MESH_TRAIN
+    tokens = a["batch"] * a["seq"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pmesh.reset_moved_bytes()
+    pmesh.reset_collectives()
+    kernels.reset_launch_counts()
+    orig_cfg, orig_k9, seen = tlaunch.get_config, ops.ell_spmm, []
+
+    def first_calls(val, idx, x, n_rows):
+        if len(seen) < 2:
+            seen.append((val.detach().clone(), idx.clone(), tuple(x.shape),
+                         x.dtype, n_rows))
+        return orig_k9(val, idx, x, n_rows)
+    tlaunch.get_config = (lambda name: train_config(dispatch))
+    if record:
+        ops.ell_spmm = first_calls
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            out = tlaunch.main([
+                "--arch", TRAIN_ARCH, "--steps", str(a["steps"]),
+                "--batch", str(a["batch"]), "--seq", str(a["seq"]),
+                "--ckpt-dir", d, "--ckpt-every", str(10 * a["steps"]),
+                "--no-resume", "--log-every", "1", "--model-parallel",
+                str(mp)], devices=mesh_devices(MESH_SHARDS))
+        torch.cuda.synchronize()
+    finally:
+        tlaunch.get_config, ops.ell_spmm = orig_cfg, orig_k9
+    live = pmesh.collectives()
+    c = kernels.launch_counts()
+    meta = meta.result()
+    what = f"{dispatch} on {out['mesh'].shape}"
+    r = mesh_train_steps(out, tokens, what)
+    want = tuple({k: a["steps"] * v for k, v in part.items()}
+                 for part in meta)
+    r.update(dispatch=dispatch, init_s=out["trainer"].init_s,
+             collective_bytes=live[0], collective_count=live[1],
+             dry_collective_bytes_a_step=meta[0],
+             dry_collective_count_a_step=meta[1])
+    cfg = train_config(dispatch)
+    if dispatch == "spmm":
+        n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+        coords = MESH_SHARDS
+        tg = tokens // (MESH_SHARDS // mp)     # a coordinate's group
+        from repro_torch.kernels import ell_spmm as k9
+        from repro_torch.models import ffn
+        e_loc = cfg.moe.n_experts // mp
+        slots = e_loc * ffn.moe_capacity(tg, cfg)
+        one = (k9.grids(cfg.moe.top_k, tg, slots, cfg.d_model)
+               + k9.grids(1, slots, tg, cfg.d_model))
+        fwd = a["steps"] * coords * n_moe * one
+        r.update(k9_grids=c["ell_spmm"], k9_grids_forward=fwd)
+        require(fwd < c["ell_spmm"] <= 2 * fwd,
+                f"training (c) {what}: K9's grids {c['ell_spmm']} not in "
+                f"({fwd}, {2 * fwd}] ({a['steps']} steps x {coords} "
+                f"coordinates x {n_moe} layers, forward and recompute)")
+    else:
+        require(c["ell_spmm"] == 0, f"training (c) {what} launched K9")
+    print(f"[mesh] training (c) {TRAIN_ARCH} {cfg.n_layers} layers bf16 "
+          f"'{dispatch}' {a['batch']} x {a['seq']} partitioned on "
+          f"{out['mesh'].shape}, {gpu_line()}: {json.dumps(r)}", flush=True)
+    require(live == want, f"training (c) {what}: the live collectives "
+            f"{live} against {a['steps']} x the dry run's {meta}")
+    del out
+    gc.collect()
+    return r, c, seen
+
+
+def train_meta_traces(pool) -> dict:
+    """Training (c)'s dry-run traces, submitted to ``pool``: futures by
+    (dispatch, model-parallel size), and ``"hidden"``."""
+    a = MESH_TRAIN
+    mp_h, layers, _ = MESH_HIDDEN
+    full = train_config("sort").n_layers
+    metas = {(dsp, mp): pool.submit(
+        train_meta_trace, dsp, (MESH_SHARDS // mp, mp), full, a["batch"],
+        a["seq"]) for dsp, mp in MESH_TRAIN_RUNS}
+    metas["hidden"] = pool.submit(train_meta_trace, "sort", (1, mp_h),
+                                  layers, a["batch"], a["seq"])
+    return metas
+
+
+def mesh_train(seed: int, metas: dict) -> tuple:
+    """Training (c): granite-moe-3b-a800m at all 32 layers, bfloat16,
+    through ``launch.train.main(..., devices=...)``, partitioned, on (2,
+    2) and (1, 4), ``'sort'`` then ``'spmm'``; then the hidden-dim split
+    through ``runtime.Trainer`` under ``sharding_rules(make_host_mesh(16,
+    ...))``. ``metas``: the dry run's meta traces of the same steps
+    (``train_meta_traces``), run in worker processes beside the card's
+    work. Returns (summary, {path: counts}, K9's shape entries)."""
+    import tempfile
+    import torch
+    from repro_torch import kernels
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
@@ -4541,37 +4710,28 @@ def mesh_train(seed: int) -> tuple:
     torch.backends.cuda.matmul.allow_tf32 = True
     a = MESH_TRAIN
     tokens = a["batch"] * a["seq"]
-    res, counts = {}, {}
-    for mp in MESH_TRAIN_MP:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        pmesh.reset_moved_bytes()
-        kernels.reset_launch_counts()
-        with tempfile.TemporaryDirectory() as d:
-            out = tlaunch.main([
-                "--arch", TRAIN_ARCH, "--steps", str(a["steps"]),
-                "--batch", str(a["batch"]), "--seq", str(a["seq"]),
-                "--ckpt-dir", d, "--ckpt-every", str(10 * a["steps"]),
-                "--no-resume", "--log-every", "1", "--model-parallel",
-                str(mp)], devices=mesh_devices(MESH_SHARDS))
-        torch.cuda.synchronize()
-        what = f"model_parallel_{mp}"
-        counts[f"mesh_train_{mp}"] = kernels.launch_counts()
-        res[what] = mesh_train_steps(out, tokens, what)
-        print(f"[mesh] (c) {TRAIN_ARCH} 32 layers bf16 'sort' {a['batch']} "
-              f"x {a['seq']} on {out['mesh'].shape}, {gpu_line()}: "
-              f"{json.dumps(res[what])}", flush=True)
-        del out
-        gc.collect()
-    mp, layers, steps = MESH_HIDDEN
+    mp_h, layers, steps = MESH_HIDDEN
+    res, counts, shapes = {}, {}, []
+    for dsp, mp in MESH_TRAIN_RUNS:
+        rec = dsp == "spmm" and mp == 2
+        r, c, seen = mesh_train_run(dsp, mp, metas[(dsp, mp)], record=rec)
+        res[f"{dsp}_model_parallel_{mp}"] = r
+        counts[f"mesh_train_{dsp}_{mp}"] = c
+        rng = np.random.default_rng(seed + 44)
+        for part, (val, idx, xs, dt, n_rows) in zip(("dispatch", "combine"),
+                                                    seen):
+            shapes.append(k9_part_shape(f"partitioned training {part}", val,
+                                        idx, xs, dt, n_rows, rng))
+        del seen
     cfg = train_config("sort", n_layers=layers)
-    require(cfg.moe.n_experts % mp and cfg.moe.d_ff_expert % mp == 0,
-            f"(c) {mp} shards do not split {cfg.name}'s hidden dim alone")
+    require(cfg.moe.n_experts % mp_h and cfg.moe.d_ff_expert % mp_h == 0,
+            f"(c) {mp_h} shards do not split {cfg.name}'s hidden dim alone")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pmesh.reset_moved_bytes()
+    pmesh.reset_collectives()
     kernels.reset_launch_counts()
-    mesh = make_host_mesh(mp, mesh_devices(mp))
+    mesh = make_host_mesh(mp_h, mesh_devices(mp_h))
     with tempfile.TemporaryDirectory() as d, sharding_rules(mesh):
         tr = Trainer(build_model(cfg), TrainerConfig(
             steps=steps, ckpt_dir=d, ckpt_every=10 * steps, log_every=1,
@@ -4579,17 +4739,23 @@ def mesh_train(seed: int) -> tuple:
             AdamWConfig(), device=mesh.devices.flat[0])
         out = tr.run(resume=False)
     torch.cuda.synchronize()
+    live = pmesh.collectives()
+    meta = metas["hidden"].result()
     counts["mesh_train_hidden"] = kernels.launch_counts()
-    res["hidden_split"] = mesh_train_steps(dict(out, mesh=mesh), tokens,
-                                           "hidden split")
-    res["hidden_split"]["layers"] = layers
-    print(f"[mesh] (c) hidden-dim split, {layers} layers bf16 on "
-          f"{mesh.shape}, {gpu_line()}: {json.dumps(res['hidden_split'])}",
+    r = res["hidden_split"] = mesh_train_steps(dict(out, mesh=mesh), tokens,
+                                               "hidden split")
+    want = tuple({k: steps * v for k, v in part.items()} for part in meta)
+    r.update(layers=layers, collective_bytes=live[0],
+             collective_count=live[1])
+    print(f"[mesh] training (c) hidden-dim split, {layers} layers bf16 "
+          f"partitioned on {mesh.shape}, {gpu_line()}: {json.dumps(r)}",
           flush=True)
+    require(live == want, f"training (c) hidden split: the live "
+            f"collectives {live} against {steps} x the dry run's {meta}")
     del out, tr
     gc.collect()
     torch.cuda.empty_cache()
-    return res, counts
+    return res, counts, shapes
 
 
 def mesh_serve(seed: int) -> tuple:
@@ -4889,6 +5055,352 @@ def mesh_part_full(seed: int) -> dict:
     return res
 
 
+MESH_TRAIN_CUTS = (("granite-moe-3b-a800m", "sort", ((1, 4), (2, 2))),
+                   ("granite-moe-3b-a800m", "spmm", ((1, 4), (2, 2))),
+                   ("granite-moe-3b-a800m", "ellpack", ((1, 4), (2, 2))),
+                   ("deepseek-v2-lite-16b", "sort", ((1, 4),)),
+                   ("qwen2-0.5b", None, ((1, 4),)))  # training (a): cuts
+MESH_TRAIN_TOKENS = (2, 128)  # training (a), (b), (d): prompts x tokens
+MESH_TRAIN_TOL = 1e-5         # training (a): loss relative; each gradient,
+                              # moment against its max; params below
+MESH_TRAIN_PARAM_TOL = 1e-6   # training (a): |p| where the gradient's sign
+                              # is sure (|mu| > 1e-3 of max), else two steps
+MESH_TRAIN_PLANTS = ("all-gather backward keeps its own block",
+                     "moments one opt_shard block off")
+MESH_TRAIN_RUNS = (("sort", 2), ("sort", 4), ("spmm", 2), ("spmm", 4))
+
+
+def train_part_config(arch: str, dispatch, **over):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), **over)
+    if dispatch:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch))
+    return cfg
+
+
+def train_meta_trace(dispatch: str, shape, layers: int, batch: int,
+                     seq: int) -> tuple:
+    """The dry run's count of one partitioned granite training step
+    (``launch.dryrun.collective_trace`` on a meta mesh of ``shape``),
+    ``(bytes, count)`` by kind. Runs on the CPU alone, in a worker process
+    beside the card's work."""
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.configs.base import ShapeCase
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import make_mesh, sharding_rules
+    model = build_model(train_part_config(TRAIN_ARCH, dispatch,
+                                          n_layers=layers))
+    case = ShapeCase("train", seq, batch, "train")
+    mesh = make_mesh(shape, ("data", "model"), ["meta"] * math.prod(shape))
+    with sharding_rules(mesh):
+        return dryrun.collective_trace(
+            model, case, steps.make_train_step(model, AdamWConfig()),
+            steps.abstract_train_args(model, case))
+
+
+def part_step(model, params, batch, mesh, placed: bool) -> dict:
+    """One training step (``launch.steps.make_train_step``) under
+    ``sharding_rules(mesh)`` on whole or placed weights: the loss, every
+    gradient (whole, in tree order) from one backward, then the params
+    and moments after the step, whole; float32 on the card."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import (tree_leaves, tree_map,
+                                           tree_unflatten)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding_rules
+    from repro_torch.parallel.sharding import grad_leaves, leaf_grads, reduce
+    step = make_train_step(model, AdamWConfig())
+    whole = (lambda t: t if isinstance(t, torch.Tensor) else t.whole())
+    with sharding_rules(mesh):
+        params = tree_map(torch.clone, params)
+        if placed:
+            params = model.place(params)
+            state = adamw_init(params, model.specs())
+            live = [grad_leaves(p) for p in tree_leaves(params)]
+            with torch.enable_grad():
+                loss = model.loss(tree_unflatten(params, live), batch)
+                grads = [reduce(g).whole() for g in leaf_grads(loss, live)]
+            loss = float(loss.first())
+            del live
+        else:
+            state = adamw_init(params)
+            leaves = tree_leaves(params)
+            for t in leaves:
+                t.requires_grad_(True)
+            with torch.enable_grad():
+                out = model.loss(params, batch)
+                grads = list(torch.autograd.grad(out, leaves))
+            loss = float(out)
+            del out
+        params, state, _ = step(params, state, batch)
+    return dict(loss=loss, grads=grads,
+                params=[whole(t).detach() for t in tree_leaves(params)],
+                mu=[whole(t) for t in tree_leaves(state["mu"])],
+                nu=[whole(t) for t in tree_leaves(state["nu"])])
+
+
+def part_step_apart(got, want) -> dict:
+    """Placed against whole: the loss relative; the worst gradient's,
+    first and second moment's max gap over its max; the params' worst gap
+    where the gradient's sign is sure and anywhere."""
+    def rel(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                     1e-30)
+                   for x, y in zip(a, b))
+    sure, every = 0.0, 0.0
+    for p, q, mu in zip(got["params"], want["params"], want["mu"]):
+        err = (p - q).abs()
+        mask = mu.abs() > 1e-3 * mu.abs().max()
+        sure = max(sure, float(err[mask].max()) if mask.any() else 0.0)
+        every = max(every, float(err.max()))
+    return dict(loss_rel=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                worst_grad_rel=rel(got["grads"], want["grads"]),
+                worst_mu_rel=rel(got["mu"], want["mu"]),
+                worst_nu_rel=rel(got["nu"], want["nu"]),
+                params_sure_abs=sure, params_abs=every)
+
+
+def part_step_ok(r: dict) -> bool:
+    from repro_torch.optim import AdamWConfig
+    cfg = AdamWConfig()
+    lr1 = cfg.lr / max(1, cfg.warmup_steps)
+    return (r["loss_rel"] <= MESH_TRAIN_TOL
+            and r["worst_grad_rel"] <= MESH_TRAIN_TOL
+            and r["worst_mu_rel"] <= MESH_TRAIN_TOL
+            and r["worst_nu_rel"] <= MESH_TRAIN_TOL
+            and r["params_sure_abs"] <= MESH_TRAIN_PARAM_TOL
+            and r["params_abs"] <= 2 * lr1 + MESH_TRAIN_PARAM_TOL)
+
+
+@contextlib.contextmanager
+def train_plant(fault: str):
+    """Training (a)'s planted faults, within the block: every all-gather's
+    backward keeping its own block of its own gradient (no sum over the
+    group), or each coordinate's gradient piece landing on the moment
+    block of the next ``"data"`` coordinate (moments placed one
+    ``opt_shard`` block off)."""
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import mesh as pmesh
+    from repro_torch.parallel.sharding import Sharded, spec_axes
+    if fault == MESH_TRAIN_PLANTS[0]:
+        def own(groups, dim, n):
+            c = groups[0][0].shape[dim] // n
+            out = [[x.narrow(dim, i * c, c).clone() for i, x in enumerate(g)]
+                   for g in groups]
+            pmesh._count("reduce-scatter", out[0][0])
+            return out
+        pmesh._RUN["own block"] = own
+        pmesh._DUAL["all-gather"] = "own block"
+        try:
+            yield
+        finally:
+            pmesh._DUAL["all-gather"] = "reduce-scatter"
+            del pmesh._RUN["own block"]
+        return
+    orig = adamw._to_layout
+
+    def shifted(g, spec):
+        out = orig(g, spec)
+        if "data" not in {a for e in spec for a in spec_axes(e)}:
+            return out
+        mesh = out.mesh
+        i, n = mesh.axis_names.index("data"), mesh.shape["data"]
+        blocks = {c: out.blocks[c[:i] + ((c[i] + 1) % n,) + c[i + 1:]]
+                  .to(b.device) for c, b in out.blocks.items()}
+        return Sharded(mesh, out.spec, out.shape, blocks)
+    adamw._to_layout = shifted
+    try:
+        yield
+    finally:
+        adamw._to_layout = orig
+
+
+def k9_recorder():
+    """A wrapper over ``kernels.ops.ell_spmm`` recording each call's
+    operands (``(val, idx, x, n_rows)``) and its result, and the way to
+    put the wrapper back."""
+    from repro_torch.kernels import ops
+    orig, calls = ops.ell_spmm, []
+
+    def record(val, idx, x, n_rows):
+        out = orig(val, idx, x, n_rows)
+        calls.append((val.detach(), idx, x.detach(), n_rows))
+        return out
+    ops.ell_spmm = record
+    return calls, (lambda: setattr(ops, "ell_spmm", orig))
+
+
+def k9_held_int(val, idx, x, n_rows: int, rng) -> float:
+    """K9 on one recorded call's planes with integer operands in the
+    call's dtype (the combine's routing weights replaced by integers on
+    its valid lanes), held bit for bit against its plain twin."""
+    from repro_torch.kernels import ell_spmm as k9
+    import torch
+    dev = x.device
+    v = torch.where(idx >= 0, int_tensor(rng, val.shape, dev), 0.0).to(
+        val.dtype)
+    xi = int_tensor(rng, x.shape, dev).to(x.dtype)
+    return same(f"K9 partitioned ({tuple(val.shape)}) -> {n_rows}",
+                k9.ell_spmm(v, idx, xi, n_rows),
+                k9.ell_spmm_plain(v, idx, xi, n_rows))
+
+
+def mesh_train_cuts(seed: int) -> tuple:
+    """Training (a), (b), (d) on the 2-layer float32 cuts, TF32 off.
+    Returns (summary, {path: counts})."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    b, sq = MESH_TRAIN_TOKENS
+    res, counts = {}, {}
+    for arch, dispatch, shapes in MESH_TRAIN_CUTS:
+        cfg = train_part_config(arch, dispatch, n_layers=2,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            seed + 41), dev)
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(
+            seed + 42).integers(3, cfg.vocab, (b, sq)).astype(np.int32))
+            .to(dev)}
+        for shape in shapes:
+            mesh = make_host_mesh(shape[1], mesh_devices(math.prod(shape)))
+            what = f"{arch} {dispatch or ''} 2-layer cut on {shape}"
+            want = part_step(model, params, batch, mesh, placed=False)
+            kernels.reset_launch_counts()
+            got = part_step(model, params, batch, mesh, placed=True)
+            torch.cuda.synchronize()
+            counts[f"mesh_train_cut_{arch}_{dispatch}_{shape[0]}x"
+                   f"{shape[1]}"] = kernels.launch_counts()
+            r = res[what] = part_step_apart(got, want)
+            require(part_step_ok(r), f"training (a) {what}: "
+                    f"{json.dumps(r)}")
+            if arch == TRAIN_ARCH and dispatch == "sort" and shape == (2, 2):
+                r["planted"] = {}
+                for fault in MESH_TRAIN_PLANTS:
+                    with train_plant(fault):
+                        bad = part_step_apart(part_step(
+                            model, params, batch, mesh, placed=True), want)
+                    r["planted"][fault] = bad
+                    require(not part_step_ok(bad), f"training (a) passed "
+                            f"with '{fault}' planted: {json.dumps(bad)}")
+                res["checkpoint"] = part_checkpoint(model, params, batch,
+                                                    mesh)
+            if dispatch == "spmm" and shape == (2, 2):
+                res["k9"] = part_k9(model, params, batch, mesh, seed)
+                counts["mesh_train_k9"] = res["k9"].pop("counts")
+            del got, want
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    print(f"[mesh] training (a) 2-layer float32 cuts, {b} x {sq} tokens, a "
+          f"placed step against the same step on whole weights under the "
+          f"same rules within {MESH_TRAIN_TOL} (params "
+          f"{MESH_TRAIN_PARAM_TOL} where the sign is sure); both planted "
+          f"faults caught; (b) K9 on each coordinate's own planes; (d) the "
+          f"checkpoint across meshes, {gpu_line()}: {json.dumps(res)}",
+          flush=True)
+    return res, counts
+
+
+def part_k9(model, params, batch, mesh, seed: int) -> dict:
+    """Training (b): a placed forward of the ``'spmm'`` cut with K9's
+    wrapper recording; each coordinate's dispatch and combine held bit for
+    bit against the plain twin on integer operands, and K9's grids,
+    counted from zero just before the forward, equal to coordinates × MoE
+    layers × each call's grids."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import ell_spmm as k9
+    from repro_torch.parallel import sharding_rules
+    from repro_torch.parallel.sharding import mesh_coords
+    cfg = model.cfg
+    with sharding_rules(mesh):
+        placed = model.place(params)
+        calls, restore = k9_recorder()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        try:
+            with torch.no_grad():
+                model.loss(placed, batch)
+            torch.cuda.synchronize()
+            c = kernels.launch_counts()
+        finally:
+            restore()
+    rng = np.random.default_rng(seed + 43)
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    coords = len(mesh_coords(mesh))
+    grids = [k9.grids(v.shape[0], v.shape[1], n, x.shape[1])
+             for v, _, x, n in calls]
+    err = max(k9_held_int(*call, rng) for call in calls)
+    r = dict(calls=len(calls), grids=c["ell_spmm"],
+             grids_want=sum(grids), coordinates=coords, moe_layers=n_moe,
+             max_abs_err=err, shapes=sorted({(tuple(v.shape), n)
+                                             for v, _, _, n in calls}),
+             counts=c)
+    require(len(calls) == 2 * coords * n_moe,
+            f"training (b) K9 called {len(calls)} times, not 2 x {coords} "
+            f"coordinates x {n_moe} MoE layers")
+    require(c["ell_spmm"] == sum(grids) == coords * n_moe * (
+        grids[0] + grids[1]), f"training (b) K9's grids {c['ell_spmm']} "
+            f"against {sum(grids)}")
+    del placed, calls
+    return r
+
+
+def part_checkpoint(model, params, batch, mesh) -> dict:
+    """Training (d): the placed cut after one step saved on ``mesh`` (2,
+    2) and restored onto (1, 4) and whole, bit for bit; save and restore
+    ms and the checkpoint's bytes."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding_rules
+    from repro_torch.parallel.sharding import Sharded
+    other = make_host_mesh(4, mesh_devices(4))
+    with tempfile.TemporaryDirectory() as d, sharding_rules(mesh):
+        placed = model.place(tree_map(torch.clone, params))
+        state = adamw_init(placed, model.specs())
+        placed, state, _ = make_train_step(model, AdamWConfig())(
+            placed, state, batch)
+        mgr = CheckpointManager(d)
+        _, save_ms = timed_ms(lambda: mgr.save(1, placed, state))
+        n_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                      if f.is_file())
+        with sharding_rules(other):
+            like = model.place(tree_map(torch.zeros_like, params),
+                               adamw_init(params))
+            (p14, o14, _), restore_ms = timed_ms(
+                lambda: mgr.restore(1, *like))
+        p1, o1, _ = mgr.restore(1, params, adamw_init(params))
+        held = (lambda t: t.whole() if isinstance(t, Sharded) else t)
+        ok = all(isinstance(t, Sharded) and t.mesh is other
+                 for t in tree_leaves((p14, o14["mu"], o14["nu"])))
+        for a, b14, b1 in zip(tree_leaves((placed, state)),
+                              tree_leaves((p14, o14)), tree_leaves((p1, o1))):
+            a = held(a)
+            ok = (ok and bool(torch.equal(bits(a), bits(held(b14))))
+                  and bool(torch.equal(bits(a), bits(b1.to(a.device)))))
+    r = dict(save_ms=save_ms, restore_onto_1x4_ms=restore_ms,
+             checkpoint_bytes=n_bytes, bit_equal=ok)
+    require(ok, f"training (d) a leaf restored on (1, 4) or whole differs "
+            f"from the one saved on (2, 2): {json.dumps(r)}")
+    del placed, state, p14, o14, p1, o1, like
+    return r
+
+
 def mesh_serving(seed: int) -> tuple:
     """The partitioned serving program: (a), (b), (d) on the cuts, then
     (b) and (c) at full width. Returns (summary, {path: counts})."""
@@ -4909,14 +5421,22 @@ def mesh_phase(seed: int):
                else f"cuda:0 x {MESH_SHARDS}"}
     print(f"[mesh] shards on {summary['shards_on']}", flush=True)
     counts = {}
-    for part, fn in (("cut", mesh_gates_ad), ("train", mesh_train),
-                     ("serve", mesh_serve), ("serving", mesh_serving)):
-        summary[part], c = fn(seed)
+    # the dry run's traces of training (c)'s steps: CPU work, in two
+    # worker processes beside the card's, stopped with the phase
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        metas = train_meta_traces(pool)
+        for part, fn in (("cut", mesh_gates_ad), ("training_cuts",
+                                                  mesh_train_cuts),
+                         ("serve", mesh_serve), ("serving", mesh_serving)):
+            summary[part], c = fn(seed)
+            counts.update(c)
+        summary["training"], c, shapes = mesh_train(seed, metas)
         counts.update(c)
     summary["phase_s"] = time.perf_counter() - t_phase
-    print(f"[mesh] gates (a)-(e) and serving (a)-(d) passed; phase "
-          f"{summary['phase_s']:.1f} s", flush=True)
-    return counts, summary
+    print(f"[mesh] gates (a), (b), (d), (e), serving (a)-(d) and training "
+          f"(a)-(d) passed; phase {summary['phase_s']:.1f} s", flush=True)
+    return counts, summary, shapes
 
 
 def main(argv=None) -> int:
@@ -5196,8 +5716,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"[mesh] resident before the phase: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
-    mesh_counts, mesh_summary = mesh_phase(args.seed)
+    mesh_counts, mesh_summary, mesh_shapes = mesh_phase(args.seed)
     counts.update(mesh_counts)
+    next(r for r in rows if r["name"] == "ell_spmm")["shapes"] += mesh_shapes
     print(json.dumps({"mesh": mesh_summary}), flush=True)
 
     # -- phase 7: the kernels line and the result ------------------------------

@@ -11,8 +11,17 @@ Layout (one directory per step):
 ``<path>`` is the reference's ``_flatten`` key: dict keys and list indices
 joined by ``/`` (``segments/0/u0/attn/wq``), as ``models.params.tree_items``
 gives it. A directory without a manifest or with the ``.tmp`` suffix is a
-partial write and is ignored; ``keep_n`` newest steps are kept. Leaves are saved whole from any device and restored
-onto the device asked for.
+partial write and is ignored; ``keep_n`` newest steps are kept. Leaves are
+saved whole from any device and restored onto the device asked for.
+
+Placed trees (``parallel.sharding.Sharded`` leaves, a training step's
+params and ZeRO-1 moments on a mesh) keep the same format: ``save``
+assembles each leaf on the host from its distinct blocks, each copied
+from its device once (no device gather), and ``restore`` places each leaf
+by the layout of its placed ``*_like`` leaf, on that leaf's mesh. So a
+checkpoint written on one mesh restores onto another, or whole, bit for
+bit, as the reference's ``restore(shardings=)`` does, and checkpoints
+still cross packages.
 
 numpy has no bfloat16 (and the card's machine has no ``ml_dtypes``): a
 bfloat16 leaf is stored as its raw 2-byte records (numpy ``|V2``, as the
@@ -37,7 +46,24 @@ from ..models.params import tree_items, tree_unflatten
 _RAW16 = np.dtype("V2")
 
 
+def _host(x) -> torch.Tensor:
+    """A placed leaf whole on the host: each distinct block (by its place
+    in the leaf) copied from its device once."""
+    out = torch.empty(x.shape, dtype=x.dtype)
+    done = set()
+    for c, b in x.blocks.items():
+        idx = x.index(c)
+        key = tuple((s.start, s.stop) for s in idx)
+        if key not in done:
+            done.add(key)
+            out[idx] = b.detach().cpu()
+    return out
+
+
 def _to_numpy(x) -> np.ndarray:
+    from ..parallel.sharding import Sharded
+    if isinstance(x, Sharded):
+        x = _host(x)
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
@@ -47,7 +73,8 @@ def _to_numpy(x) -> np.ndarray:
 
 
 def _dtype_name(x) -> str:
-    if isinstance(x, torch.Tensor):
+    from ..parallel.sharding import Sharded
+    if isinstance(x, (torch.Tensor, Sharded)):
         return str(x.dtype).removeprefix("torch.")
     return str(np.asarray(x).dtype)
 
@@ -117,8 +144,12 @@ class CheckpointManager:
                 device=None):
         """The checkpoint of ``step`` in the structure and dtypes of
         ``(params_like, opt_like)``, on ``device`` (the card unless the
-        caller asks for another). Returns ``(params, opt_state, extra)``."""
+        caller asks for another). A placed leaf of the ``*_like`` trees
+        (``Sharded``) gives its leaf's layout: the leaf is placed by its
+        spec on its mesh (``sharding.shard``), whatever mesh wrote it.
+        Returns ``(params, opt_state, extra)``."""
         from ..core.formats import resolve_device
+        from ..parallel.sharding import Sharded, shard
         dev = resolve_device(device)
         d = self.root / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
@@ -126,6 +157,8 @@ class CheckpointManager:
 
         def one(key, like):
             arr = _from_numpy(data[key], manifest["leaves"][key]["dtype"])
+            if isinstance(like, Sharded):
+                return shard(arr.to(like.dtype), like.spec, like.mesh)
             return arr.to(device=dev, dtype=like.dtype)
 
         def rebuild(tree, prefix):

@@ -29,12 +29,15 @@ execute) on them at the cell's global shapes under
     (all-gather, all-reduce, reduce-scatter, all-to-all,
     collective-permute): one device's output bytes of each collective op of
     the partitioned program, and the ops (``collective_trace``). Filled for
-    the prefill and decode cells of the configs with a partitioned program
-    (``Model.partitioned``: the decoder-only ones); null, with ``gaps``
-    saying why, for train cells and the SSM, RG-LRU and encoder-decoder
-    families, whose partitioned programs come later (ROADMAP queue 1
-    item 9). The layers are a Python loop here, so an op of a layer counts
-    once a layer; the reference's HLO counts a scanned layer's op once.
+    every cell of the configs with a partitioned program
+    (``Model.partitioned``: the decoder-only ones); a train cell's count
+    holds the forward, the backward (each collective's dual, and the
+    forward's again where the activation checkpoint recomputes a block)
+    and the ZeRO-1 update's. Null, with ``gaps`` saying why, for the SSM,
+    RG-LRU and encoder-decoder families, whose partitioned programs come
+    later (ROADMAP queue 1 item 9). The layers are a Python loop here, so
+    an op of a layer counts once a layer; the reference's HLO counts a
+    scanned layer's op once.
 
 A device's temporaries beyond the even split are not counted (``gaps``).
 A decode cell runs one step at the cache's last position (``seq_len -
@@ -111,12 +114,30 @@ def _output_bytes(model, case, step, out) -> int:
 def collective_trace(model, case: ShapeCase, step, args):
     """``(bytes, count)`` by kind of the partitioned program's collectives
     on ``args`` (meta, laid out by their ``sharding``): the weights placed
-    by the rules, the cache by its layout, the step traced under the active
-    mesh, where one device stands for all (``parallel.sharding.
-    mesh_coords``)."""
+    by the rules, the cache by its layout, the step traced on a meta mesh
+    of the active mesh's shape, where one device stands for all
+    (``parallel.sharding.mesh_coords``)."""
     from ..parallel import mesh as pmesh
-    from ..parallel.sharding import mesh_rules, shard
-    mesh = mesh_rules().mesh
+    from ..parallel.sharding import ShardingRules, mesh_rules, use_rules
+    rules = mesh_rules()
+    mesh = rules.mesh
+    if mesh.size == 1:              # one device: every collective skipped
+        return tuple({k: 0 for k in pmesh.KINDS} for _ in range(2))
+    if mesh.devices.flat[0].type != "meta":
+        mesh = pmesh.make_mesh(mesh.devices.shape, mesh.axis_names,
+                               ["meta"] * mesh.size)
+    with use_rules(ShardingRules(mesh, rules.rules)):
+        return _traced(model, case, step, args, mesh)
+
+
+def _traced(model, case, step, args, mesh):
+    from ..parallel import mesh as pmesh
+    from ..parallel.sharding import shard
+    if case.kind == "train":
+        params, opt_state = model.place(args[0], args[1])
+        pmesh.reset_collectives()
+        step(params, opt_state, args[2])
+        return pmesh.collectives()
     params = model.place(args[0])
     pmesh.reset_collectives()
     if case.kind == "prefill":
@@ -153,17 +174,15 @@ def analyze_cell(cfg, case: ShapeCase, mesh) -> dict:
         out, cost = analyze(step, *args)
         out_bytes = _output_bytes(model, case, step, out)
         coll = (collective_trace(model, case, step, args)
-                if case.kind != "train" and model.partitioned
-                else (None, None))
+                if model.partitioned else (None, None))
     gaps = dict(DRYRUN_GAPS)
     if coll[0] is not None:
         del gaps["collective_bytes"]
     else:
         gaps["collective_bytes"] = (
-            "the partitioned program covers the decoder-only configs' "
-            "prefill and decode; the training step's and the SSM, RG-LRU "
-            "and encoder-decoder families' come later (ROADMAP queue 1 "
-            "item 9)")
+            "the partitioned program covers the decoder-only configs; the "
+            "SSM, RG-LRU and encoder-decoder families' come later (ROADMAP "
+            "queue 1 item 9)")
     n_dev = mesh.size
     return {
         "n_devices": n_dev,

@@ -17,11 +17,12 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ShapeCase
-from ..models.params import (abstract_params, meta_tensor, torch_dtype,
-                             tree_items, tree_leaves, tree_map,
+from ..models.params import (abstract_params, is_placed, meta_tensor,
+                             torch_dtype, tree_items, tree_leaves, tree_map,
                              tree_unflatten)
 from ..optim import AdamWConfig, adamw_update, opt_state_specs
-from ..parallel.sharding import NamedSharding, mesh_rules
+from ..parallel.sharding import (NamedSharding, grad_leaves, leaf_grads,
+                                 mesh_rules)
 
 
 def make_train_step(model, opt_cfg: AdamWConfig):
@@ -33,10 +34,17 @@ def make_train_step(model, opt_cfg: AdamWConfig):
     were; one that fails inside the update raises
     ``optim.PartialUpdateError``, which the retry does not catch.
     ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as 0-d tensors.
-    The reference's ``param_specs`` (ZeRO-1 constraints) steer its
-    partitioner, which the eager step has not (``optim._shard_moment``)."""
+
+    Placed params (``Model.place``) run the partitioned step: the loss on
+    each coordinate's blocks (``Model.loss`` → a ``Sharded`` scalar), one
+    backward through the collectives' duals giving each placed leaf's
+    gradient laid out like the leaf (``parallel.sharding.leaf_grads``),
+    and the ZeRO-1 update on moments laid out by ``opt_state_specs``
+    (the reference's ``param_specs`` constraints, run explicitly)."""
 
     def train_step(params, opt_state, batch):
+        if is_placed(params):
+            return _placed_step(params, opt_state, batch)
         leaves = tree_leaves(params)
         for p in leaves:
             if not p.requires_grad:
@@ -50,6 +58,17 @@ def make_train_step(model, opt_cfg: AdamWConfig):
         params, opt_state, metrics = adamw_update(params, grads, opt_state,
                                                   opt_cfg)
         metrics["loss"] = loss.detach()
+        return params, opt_state, metrics
+
+    def _placed_step(params, opt_state, batch):
+        live = [grad_leaves(p) for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = model.loss(tree_unflatten(params, live), batch)
+            grads = leaf_grads(loss, live)
+        del live
+        params, opt_state, metrics = adamw_update(
+            params, tree_unflatten(params, grads), opt_state, opt_cfg)
+        metrics["loss"] = loss.first().detach()
         return params, opt_state, metrics
 
     return train_step
@@ -149,8 +168,10 @@ def _abstract_batch(model, case: ShapeCase) -> dict:
 
 def abstract_train_args(model, case: ShapeCase):
     """``(params, opt_state, batch)`` of a train cell as meta tensors with
-    their layouts: parameters in ``param_dtype``, float32 moments on the
-    ZeRO-1 axes (``opt_state_specs``), the int32 step counter."""
+    their layouts: parameters in ``param_dtype``, float32 moments laid out
+    on the ZeRO-1 axes (``opt_state_specs``: ``opt_shard`` on each
+    parameter's first free dim, as ``src/repro/launch/steps.py:108-120``
+    gives them), the int32 step counter."""
     specs = model.specs()
     aparams = abstract_params(specs, torch_dtype(model.cfg.param_dtype))
     aopt = abstract_params(opt_state_specs(specs), torch.float32)

@@ -3,12 +3,14 @@ architecture with uniform step functions.
 
   model.init(generator, device)             -> params (real tensors)
   model.abstract_params()                   -> tensors on the meta device
-  model.loss(params, batch)                 -> scalar (differentiable)
+  model.loss(params, batch)                 -> scalar (differentiable; a
+                                               Sharded one on placed weights)
   model.prefill(params, batch, s_max)       -> (last_logits, cache)
   model.decode_step(params, cache, tokens)  -> (logits, cache)
   model.input_specs(shape_case)             -> {name: (torch.Size, dtype)}
   model.cache_zeros(batch, s_max)           -> decode cache
-  model.place(params)                       -> params laid out on the mesh
+  model.place(params[, opt_state])          -> params (and AdamW's state)
+                                               laid out on the mesh
 
 ``batch`` is a dict: always "tokens" (B,S); plus "frames" (the audio
 stub's (B, encoder_seq, d_model) embeddings, whisper) or "patches" (the
@@ -57,15 +59,21 @@ class Model:
 
     @property
     def partitioned(self) -> bool:
-        """Whether prefill and decode have a partitioned program under a
-        mesh (``place_params``): the decoder-only configs whose every block
-        kind has one (``transformer.partitioned``)."""
+        """Whether prefill, decode and the training step have a partitioned
+        program under a mesh (``place_params``): the decoder-only configs
+        whose every block kind has one (``transformer.partitioned``)."""
         return not self._audio and transformer.partitioned(self.cfg)
 
-    def place(self, params):
+    def place(self, params, opt_state=None):
         """``params`` laid out on the active mesh by the rules
-        (``params.place_params``)."""
-        return place_params(params, self.specs())
+        (``params.place_params``). With ``opt_state`` (AdamW's, whole), the
+        pair ``(params, opt_state)``, the moments laid out by their ZeRO-1
+        specs (``optim.place_opt_state``)."""
+        placed = place_params(params, self.specs())
+        if opt_state is None:
+            return placed
+        from ..optim import place_opt_state
+        return placed, place_opt_state(opt_state, self.specs())
 
     # -- steps ---------------------------------------------------------------
     def _prefix(self, batch):

@@ -11,7 +11,9 @@ the partitioned program embeds and unembeds by vocab block
 (``embed_lookup_sharded``, ``unembed_sharded``): the tables' ``fsdp`` dim
 gathered over the data axes for the call, each ``"model"`` shard looking
 up or scoring its own rows of the vocab. A vocab the rules leave whole
-runs unsplit.
+runs unsplit. The training loss (``sharded_softmax_xent_partitioned``)
+keeps the logits by position, as the reference's does: the unembedding
+weight is gathered whole instead.
 """
 from __future__ import annotations
 
@@ -176,11 +178,7 @@ def sharded_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
                          z_loss: float = 1e-4) -> torch.Tensor:
     """The LM loss from the final hidden ``x`` (B, S, d): targets rolled by
     one, the final position masked out."""
-    b = x.shape[0]
-    targets = torch.cat([tokens[:, 1:], torch.full((b, 1), -1,
-                                                   dtype=tokens.dtype,
-                                                   device=tokens.device)],
-                        dim=1)
+    targets = rolled_targets(tokens)
     logits = (x @ w_out).to(torch.float32)             # (B, S, V)
     lse, gold = _lse_gold(logits, targets)
     valid = (targets >= 0).to(torch.float32)
@@ -189,6 +187,59 @@ def sharded_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
     if z_loss:
         loss = loss + z_loss * torch.sum(torch.square(lse) * valid) / cnt
     return loss
+
+
+def rolled_targets(tokens: torch.Tensor, prefix: int = 0) -> torch.Tensor:
+    """The next-token targets of ``tokens`` (B, S): rolled by one, the final
+    position -1 (masked), after ``prefix`` masked positions (a VLM's patch
+    prefix, which has no targets)."""
+    b = tokens.shape[0]
+    fill = (lambda n: torch.full((b, n), -1, dtype=tokens.dtype,
+                                 device=tokens.device))
+    return torch.cat([fill(prefix), tokens[:, 1:], fill(1)], dim=1)
+
+
+def unembed_weight_sharded(params: dict, compute_dtype):
+    """The unembedding weight (d, V) whole on every coordinate: ``out``, or
+    the tied table transposed, all-gathered over its ``fsdp`` and vocab
+    splits (their backwards reduce-scatter its gradient to the blocks)."""
+    from ..parallel.sharding import gather, smap
+    if "out" in params:
+        w = gather(gather(params["out"], 0), 1)
+        return smap(lambda a: a.to(compute_dtype), w, spec=(None, None))
+    t = gather(gather(params["tok"], 1), 0)
+    return smap(lambda a: a.to(compute_dtype).T, t, spec=(None, None))
+
+
+def sharded_softmax_xent_partitioned(x, w_out, targets,
+                                     z_loss: float = 1e-4):
+    """``sharded_softmax_xent`` on the partitioned program, as the
+    reference partitions it: ``x`` a ``Sharded`` (B, S, d) in the stream's
+    layout (``("batch", "seq_act")``, ``d`` whole), ``w_out`` the whole
+    (d, V) weight on every coordinate (``unembed_weight_sharded``),
+    ``targets`` (B, S) laid out like ``x`` (``rolled_targets``, -1
+    masked). Each coordinate scores its own positions: its logits, lse,
+    gold and z-loss terms are local; the three sums (loss, z-loss, count)
+    are all-reduced over the axes splitting the positions, in one op.
+    Returns the loss, a ``Sharded`` scalar every coordinate holds."""
+    from ..parallel.sharding import Sharded, reduce, smap, spec_axes
+
+    def sums(xb, wb, tb):
+        logits = (xb @ wb).to(torch.float32)              # (b, s, V)
+        lse, gold = _lse_gold(logits, tb)
+        valid = (tb >= 0).to(torch.float32)
+        return torch.stack([torch.sum((lse - gold) * valid),
+                            torch.sum(torch.square(lse) * valid),
+                            torch.sum(valid)])
+    part = smap(sums, x, w_out, targets, spec=(None,))
+    axes = tuple(a for e in x.spec[:2] for a in spec_axes(e))
+    tot = reduce(Sharded(part.mesh, part.spec, part.shape, part.blocks,
+                         axes))
+
+    def loss(t):
+        out = t[0] / t[2]
+        return out + z_loss * t[1] / t[2] if z_loss else out
+    return smap(loss, tot, spec=())
 
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,

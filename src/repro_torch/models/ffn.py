@@ -29,11 +29,14 @@ With the weights placed on the mesh (``models.params.place_params``) the
 partitioned program runs ``swiglu_apply_sharded`` and
 ``gelu_mlp_apply_sharded`` (column-parallel over ``ff``, the ``fsdp`` rows
 all-gathered for the call, row-parallel back to partial sums) and
-``moe_apply_sharded``: ``'sort'``'s region runs at
-every mesh coordinate on that coordinate's own blocks of the placed expert
-weights, so it copies no weight a call; ``'ellpack'`` and ``'spmm'``
-gather the layer whole (``Sharded.whole``, counted) onto the mesh's first
-device and place its output back.
+``moe_apply_sharded``: every dispatch runs at every mesh coordinate on
+that coordinate's own blocks of the placed expert weights, so it copies
+no weight a call and gathers nothing whole. ``'spmm'`` routes each
+coordinate's groups over every expert, keeps in its ELLPACK planes the
+pairs bound for its own experts' capacity slots (the other lanes dead)
+and runs K9 there, dispatch and combine (``_moe_spmm_local``);
+``'ellpack'`` cuts its one-hot tensors to the local experts. Everything
+runs under autograd, the aux loss (``aux=True``) included.
 
 Parameters are dicts of tensors in the reference's layouts
 (``core.formats.params_from_numpy`` carries the reference's over):
@@ -44,6 +47,7 @@ with shared experts, ``shared`` = {``w_gate``, ``w_up`` (d, n_shared·f),
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -438,58 +442,133 @@ def moe_apply(p, x: torch.Tensor, cfg, dtype) -> Tuple[torch.Tensor,
     return y.reshape(b, s, d), aux
 
 
-def moe_apply_sharded(p, x, cfg, dtype, rules):
+def moe_apply_sharded(p, x, cfg, dtype, rules, aux: bool = False):
     """The MoE layer on placed weights: ``x`` a ``Sharded`` (B, S, d) in the
     residual stream's layout, the result in the same. The tokens form
-    ``min(axis_size("batch"), B)`` groups, as ``moe_apply``'s. ``'sort'``
-    runs its region at each coordinate (``_moe_sort_partitioned``); the
-    shared experts run column- and row-parallel, their partial sums added
-    to the region's before one reduce where both are split over the same
-    axes. ``'ellpack'`` and ``'spmm'`` run ``moe_apply`` whole on the
-    mesh's first device."""
-    from ..parallel.sharding import add, axis_size, relayout, shard
-    from .params import tree_map
+    ``min(axis_size("batch"), B)`` groups, as ``moe_apply``'s. Every
+    dispatch runs at each coordinate on that coordinate's own expert
+    blocks (``_moe_partitioned``); the shared experts run column- and
+    row-parallel, their partial sums added to the region's before one
+    reduce where both are split over the same axes. Returns ``(y, aux)``:
+    with ``aux`` the load-balancing loss as the reference computes it
+    under a mesh (a ``Sharded`` scalar every coordinate holds), else
+    None."""
+    from ..parallel.sharding import add, axis_size, relayout
     b, s, d = x.shape
     groups = max(1, min(axis_size("batch"), b))
     if b * s % groups:
         raise ValueError(f"{b} x {s} tokens do not split into {groups} "
                          "groups (the reference's reshape fails alike)")
-    if cfg.moe.dispatch != "sort":
-        whole = tree_map(lambda t: t.whole(), p)
-        y, _ = moe_apply(whole, x.whole(), cfg, dtype)
-        return shard(y, x.spec, x.mesh)
     xg = relayout(x, (x.spec[0], None, None))
-    with _obs.span("moe.dispatch", strategy="sort", tokens=b * s,
+    with _obs.span("moe.dispatch", strategy=cfg.moe.dispatch, tokens=b * s,
                    experts=cfg.moe.n_experts):
-        y = _moe_sort_partitioned(p, xg, cfg, dtype, rules, groups)
+        y, a = _moe_partitioned(p, xg, cfg, dtype, rules, groups, aux)
     if cfg.moe.n_shared:
         sh = swiglu_apply_sharded(p["shared"], xg, dtype)
         if sh.partial != y.partial:
             y, sh = relayout(y, x.spec), relayout(sh, x.spec)
         y = add(y, sh)
-    return relayout(y, x.spec)
+    return relayout(y, x.spec), a
 
 
-def _moe_sort_partitioned(p, xg, cfg, dtype, rules, groups: int):
-    """The ``'sort'`` region of the partitioned program: ``xg`` (B, S, d)
-    whole on S and d. Each coordinate takes its groups (its own tokens
-    where the batch and the groups split over the same axes, its cut of
-    all of them where the batch is whole), the router whole (an all-gather
-    over its expert split) and its own blocks of the placed expert weights,
-    and runs ``_moe_sort_body`` with ``e_off`` its ``"model"`` block's first
-    expert. Returns (B, S, d) by batch: partial sums over the experts'
-    axes where the rules split them."""
-    from ..parallel.sharding import (entry_pos, gather, relayout,
-                                     shard_shape, smap, spec_axes, split)
+def _moe_spmm_local(x_grp, router, w_gate, w_up, w_down, cfg, dtype,
+                    e_off: int):
+    """``_moe_spmm`` on one coordinate's expert blocks (``w_gate.shape[0]``
+    = e_loc experts from ``e_off``, all of them where the hidden dim is
+    split): the groups are routed over every expert with the router whole,
+    and the dispatch and combine planes keep only the pairs bound for the
+    local experts' capacity slots, renumbered from 0; the other lanes are
+    dead (index -1, weight 0). K9 dispatches, the local experts run, K9
+    combines: a partial sum where the experts were split. Returns (y,
+    the aux loss's sums (2, E): routed counts and probabilities over the
+    groups' tokens)."""
+    g, tg, d = x_grp.shape
+    e_loc = w_gate.shape[0]
+    cap = moe_capacity(tg, cfg)
+    logits = x_grp @ router.to(dtype)                       # (G,Tg,E)
+    w, ids, onehot, kept, slot = _spmm_route(logits, cfg)
+    loc = slot - e_off * cap
+    mine = kept & (loc >= 0) & (loc < e_loc * cap)
+    ys = []
+    for i in range(g):
+        disp = dispatch_planes(mine[i], loc[i], e_loc * cap, dtype)
+        xe = _spmm_ell_auto(disp, x_grp[i].contiguous()).reshape(
+            e_loc, cap, d)
+        h = torch.bmm(xe, w_gate.to(dtype))
+        u = torch.bmm(xe, w_up.to(dtype))
+        ye = torch.bmm(F.silu(h) * u, w_down.to(dtype)) \
+            .reshape(e_loc * cap, d)
+        comb = combine_planes(mine[i], loc[i], w[i], e_loc * cap, dtype)
+        ys.append(_spmm_ell_auto(comb, ye))                 # (Tg, d)
+    return torch.stack(ys), _aux_sums(logits, onehot)
+
+
+def _moe_ellpack_local(x_grp, router, w_gate, w_up, w_down, cfg, dtype,
+                       e_off: int):
+    """``_moe_ellpack`` on one coordinate's expert blocks: the (G, Tg, E,
+    C) dispatch and combine tensors cut to the local experts. Returns (y,
+    the aux loss's sums), as ``_moe_spmm_local``."""
+    m = cfg.moe
+    g, tg, d = x_grp.shape
+    e, k = m.n_experts, m.top_k
+    e_loc = w_gate.shape[0]
+    cap = moe_capacity(tg, cfg)
+    logits = x_grp @ router.to(dtype)
+    w, ids = _topk_routing(logits, k)
+    onehot = F.one_hot(ids.long(), e).to(torch.float32)
+    pos = torch.cumsum(onehot.reshape(g, tg * k, e), dim=1).reshape(
+        g, tg, k, e) - 1.0
+    keep = (pos < cap) & (onehot > 0)
+    pos = torch.where(keep, pos, 0).to(torch.int64)
+    disp = (keep.to(torch.float32)[..., None]
+            * F.one_hot(pos, cap).to(torch.float32))[:, :, :,
+                                                     e_off:e_off + e_loc]
+    comb = (disp * w[..., None, None]).sum(2)
+    disp = disp.sum(2)
+    xe = torch.einsum("gtec,gtd->gecd", disp.to(dtype), x_grp)
+    h = torch.einsum("gecd,edf->gecf", xe, w_gate.to(dtype))
+    u = torch.einsum("gecd,edf->gecf", xe, w_up.to(dtype))
+    ye = torch.einsum("gecf,efd->gecd", F.silu(h) * u, w_down.to(dtype))
+    y = torch.einsum("gtec,gecd->gtd", comb.to(dtype), ye)
+    return y, _aux_sums(logits, onehot)
+
+
+def _aux_sums(logits: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
+    """The sums behind ``_aux_loss``'s means over a block of groups: (2, E)
+    routed counts and router probabilities, float32."""
+    return torch.stack([onehot.sum(2).sum(dim=(0, 1)),
+                        torch.softmax(logits.to(torch.float32), -1)
+                        .sum(dim=(0, 1))])
+
+
+def _moe_partitioned(p, xg, cfg, dtype, rules, groups: int, aux: bool):
+    """The MoE region of the partitioned program: ``xg`` (B, S, d) whole on
+    S and d. Each coordinate takes its groups (its own tokens where the
+    batch and the groups split over the same axes, its cut of all of them
+    where the batch is whole), the router whole (an all-gather over its
+    expert split) and its own blocks of the placed expert weights, and
+    runs the config's dispatch there with ``e_off`` its ``"model"``
+    block's first expert: ``_moe_sort_body`` (``'sort'``, the reference's
+    ``shard_map`` region), ``_moe_spmm_local`` (``'spmm'``, K9) or
+    ``_moe_ellpack_local``. Nothing is gathered whole. Returns ((B, S, d)
+    by batch, partial sums over the experts' axes where the rules split
+    them; the aux loss or None). The aux loss is the reference's under a
+    mesh: ``'sort'``'s the mean of the group shards' (its ``pmean``), the
+    others' from the sums over every group (an all-reduce of the (2, E)
+    sums over the groups' axes)."""
+    from ..parallel.sharding import (Sharded, entry_pos, gather, reduce,
+                                     relayout, shard_shape, smap, spec_axes,
+                                     split)
     b, s, d = xg.shape
-    e, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+    m = cfg.moe
+    e, fe = m.n_experts, m.d_ff_expert
     tg = b * s // groups
     gspec = rules.resolve(("batch", None, None), (groups, tg, d))
     wg_spec, wd_spec = p["w_gate"].spec, p["w_down"].spec
     waxes = {ax for sp in (wg_spec, wd_spec) for entry in sp
              for ax in spec_axes(entry)}
     if waxes - {"model"} or "model" in spec_axes(gspec[0]):
-        raise ValueError(f"the 'sort' region splits groups over the data "
+        raise ValueError(f"the MoE region splits groups over the data "
                          f"axes and experts over 'model' only; the rules "
                          f"give groups {gspec[0]!r}, experts {waxes}")
     bat = xg.spec[0]
@@ -504,17 +583,32 @@ def _moe_sort_partitioned(p, xg, cfg, dtype, rules, groups: int):
                          f"token groups as {gspec[0]!r}")
     e_loc, _, f_loc = shard_shape(wg_spec, (e, d, fe), xg.mesh)
     mesh = xg.mesh
+    run = {"sort": _moe_sort_body, "spmm": _moe_spmm_local}.get(
+        m.dispatch, _moe_ellpack_local)
 
     def body(xl, router, wg, wu, wd, at):
         e_off = entry_pos(wg_spec[0], mesh, at) * e_loc if e_loc < e else 0
-        return _moe_sort_body(xl, router, wg, wu, wd, cfg, dtype, e_off)[0]
-    y = smap(body, x_grp, relayout(p["router"], (None, None)), p["w_gate"],
-             p["w_up"], p["w_down"], spec=(gspec[0], None, None),
-             partial=("model",) if e_loc < e or f_loc < fe else (), at=True)
+        return run(xl, router, wg, wu, wd, cfg, dtype, e_off)
+    gaxes = spec_axes(gspec[0])
+    y, st = smap(body, x_grp, relayout(p["router"], (None, None)),
+                 p["w_gate"], p["w_up"], p["w_down"],
+                 spec=[(gspec[0], None, None), ()],
+                 partial=("model",) if e_loc < e or f_loc < fe else (),
+                 at=True)
     if gspec[0] != bat:
         y = gather(y, 0)
-    return smap(lambda a: a.reshape(-1, s, d), y, spec=(bat, None, None),
-                partial=y.partial)
+    y = smap(lambda a: a.reshape(-1, s, d), y, spec=(bat, None, None),
+             partial=y.partial)
+    if not aux:
+        return y, None
+    st = Sharded(mesh, st.spec, st.shape, st.blocks, gaxes)
+    n = math.prod(mesh.shape[a] for a in gaxes)
+    if m.dispatch == "sort":
+        return y, smap(lambda a: a / n, reduce(st), spec=())
+    tot = reduce(st)
+    return y, smap(lambda a: e * torch.sum(a[0] / (groups * tg)
+                                           * (a[1] / (groups * tg))),
+                   tot, spec=())
 
 
 class SparseMLP:

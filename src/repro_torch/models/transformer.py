@@ -383,7 +383,11 @@ def decoder_forward(params, tokens, cfg, *, prefix_embed=None,
 
 def decoder_loss(params, tokens, cfg, prefix_embed=None) -> torch.Tensor:
     """LM loss through ``sharded_softmax_xent``, differentiable in
-    ``params`` (leaves that require grad)."""
+    ``params`` (leaves that require grad). Placed weights run the
+    partitioned program (``_loss_sharded``): the loss is then a
+    ``Sharded`` scalar every coordinate holds."""
+    if is_placed(params):
+        return _loss_sharded(params, tokens, cfg, prefix_embed)
     dtype = torch_dtype(cfg.compute_dtype)
     hidden, aux, _ = decoder_forward(params, tokens, cfg,
                                      prefix_embed=prefix_embed,
@@ -508,14 +512,15 @@ def _norm_sharded(x, w, cfg):
     return smap(lambda a, b: rmsnorm(a, b, cfg.norm_eps), x, w, spec=x.spec)
 
 
-def _ffn_sharded(p, h, cfg, kind, dtype, rules):
-    """The block's FFN on ``h`` in the stream's layout, back in it."""
+def _ffn_sharded(p, h, cfg, kind, dtype, rules, aux: bool = False):
+    """The block's FFN on ``h`` in the stream's layout, back in it, and
+    with ``aux`` an MoE layer's aux loss (else None)."""
     from ..parallel.sharding import relayout
     if kind in ("attn_moe", "mla_moe"):
-        return ffn.moe_apply_sharded(p, h, cfg, dtype, rules)
+        return ffn.moe_apply_sharded(p, h, cfg, dtype, rules, aux)
     y = ffn.swiglu_apply_sharded(p, relayout(h, (h.spec[0], None, None)),
                                  dtype)
-    return relayout(y, h.spec)
+    return relayout(y, h.spec), None
 
 
 _PARTITIONED = ("attn", "attn_moe", "mla_dense", "mla_moe")
@@ -534,9 +539,12 @@ def _check_kind(kind: str):
                          "with whole weights")
 
 
-def _block_full_sharded(p, x, cfg, kind, dtype, cache, rules):
-    """``block_apply_full`` with a cache, partitioned: ``x`` in the stream's
-    layout, the cache's blocks written at their positions."""
+def _block_full_sharded(p, x, cfg, kind, dtype, cache, rules,
+                        aux: bool = False):
+    """``block_apply_full``, partitioned: ``x`` in the stream's layout; with
+    a ``cache`` (prefill) its blocks written at their positions, with
+    ``cache`` None (training) none kept. Returns (x, the MoE aux loss
+    where ``aux`` asks for it, else None)."""
     from ..parallel.sharding import add, relayout, write_prefix
     _check_kind(kind)
     h = relayout(_norm_sharded(x, p["ln1"], cfg), (x.spec[0], None, None))
@@ -544,19 +552,29 @@ def _block_full_sharded(p, x, cfg, kind, dtype, cache, rules):
     if kind in ("attn", "attn_moe"):
         out, (k, v) = attn.gqa_full_sharded(p["attn"], h, cfg, dtype, rules,
                                             window=cfg.attn_window)
-        write_prefix(cache["k"], 1, k)
-        write_prefix(cache["v"], 1, v)
-        for sp in cache["slot_pos"].blocks.values():
-            t = torch.arange(sp.shape[0], dtype=torch.int32, device=sp.device)
-            sp.copy_(torch.where(t < s, t, -1))
+        if cache is not None:
+            write_prefix(cache["k"], 1, k)
+            write_prefix(cache["v"], 1, v)
+            for sp in cache["slot_pos"].blocks.values():
+                t = torch.arange(sp.shape[0], dtype=torch.int32,
+                                 device=sp.device)
+                sp.copy_(torch.where(t < s, t, -1))
     else:
         out, (latent, krope) = attn.mla_full_sharded(p["attn"], h, cfg, dtype,
                                                      rules)
-        write_prefix(cache["latent"], 1, latent)
-        write_prefix(cache["krope"], 1, krope)
+        if cache is not None:
+            write_prefix(cache["latent"], 1, latent)
+            write_prefix(cache["krope"], 1, krope)
+    del h
     x = add(x, relayout(out, x.spec))
-    return add(x, _ffn_sharded(p["ffn"], _norm_sharded(x, p["ln2"], cfg),
-                               cfg, kind, dtype, rules))
+    y, a = _ffn_sharded(p["ffn"], _norm_sharded(x, p["ln2"], cfg), cfg, kind,
+                        dtype, rules, aux)
+    return add(x, y), a
+
+
+def _train_block_sharded(p, x, cfg, kind, dtype, rules):
+    """A training block: no cache, the aux loss kept."""
+    return _block_full_sharded(p, x, cfg, kind, dtype, None, rules, aux=True)
 
 
 def _block_decode_sharded(p, x, cfg, kind, dtype, cache, pos, rules):
@@ -576,7 +594,7 @@ def _block_decode_sharded(p, x, cfg, kind, dtype, cache, pos, rules):
                                       rules)
     x = add(x, relayout(out, x.spec))
     return add(x, _ffn_sharded(p["ffn"], _norm_sharded(x, p["ln2"], cfg),
-                               cfg, kind, dtype, rules))
+                               cfg, kind, dtype, rules)[0])
 
 
 def _logits_sharded(params, x, cfg):
@@ -599,8 +617,9 @@ def _prefill_sharded(params, tokens, cfg, s_max: int, prefix_embed=None):
         for p_slice, c_slice in zip(_layers(seg_params, reps),
                                     _layers(seg_cache, reps)):
             for i, kind in enumerate(unit):
-                x = _block_full_sharded(p_slice[f"u{i}"], x, cfg, kind,
-                                        dtype, c_slice[f"u{i}"], rules)
+                x, _ = _block_full_sharded(p_slice[f"u{i}"], x, cfg,
+                                           kind, dtype, c_slice[f"u{i}"],
+                                           rules)
     x = _norm_sharded(x, params["ln_f"], cfg)
     # the last position: each shard's last row, the sequence's last shard's
     last = gather(smap(lambda a: a[:, -1:], x, spec=x.spec), 1)
@@ -625,3 +644,38 @@ def _decode_step_sharded(params, cache, tokens, cfg):
     x = _norm_sharded(x, params["ln_f"], cfg)
     return _logits_sharded(params, x, cfg), {"layers": cache["layers"],
                                              "pos": pos + 1}
+
+
+def _loss_sharded(params, tokens, cfg, prefix_embed=None):
+    """``decoder_loss`` on placed weights: the embedding, every block in
+    the stream's layout (each under ``_remat`` when grad is enabled, its
+    recompute re-entering the rules), ``ln_f`` and the partitioned loss
+    (``common.sharded_softmax_xent_partitioned``, targets rolled with the
+    patch prefix masked), plus 0.01 · the MoE layers' aux losses. Returns
+    a ``Sharded`` scalar every coordinate holds; its backward runs every
+    collective's dual (``parallel.mesh``)."""
+    from ..parallel.sharding import add, shard, smap
+    from .common import (rolled_targets, sharded_softmax_xent_partitioned,
+                         unembed_weight_sharded)
+    rules = _rules_of(params)
+    dtype = torch_dtype(cfg.compute_dtype)
+    x = _embed_sharded(params, tokens, cfg, rules, prefix_embed)
+    run = _remat(_train_block_sharded, cfg) if torch.is_grad_enabled() \
+        else None
+    run = run or _train_block_sharded
+    aux = None
+    for seg_params, (unit, reps) in zip(params["segments"],
+                                        segment_plan(cfg)):
+        for p_slice in _unstack(seg_params, reps):
+            for i, kind in enumerate(unit):
+                x, a = run(p_slice[f"u{i}"], x, cfg, kind, dtype, rules)
+                if a is not None:
+                    aux = a if aux is None else add(aux, a)
+    x = _norm_sharded(x, params["ln_f"], cfg)
+    prefix = prefix_embed.shape[1] if prefix_embed is not None else 0
+    targets = shard(rolled_targets(tokens, prefix), x.spec[:2], rules.mesh)
+    loss = sharded_softmax_xent_partitioned(
+        x, unembed_weight_sharded(params["embed"], dtype), targets)
+    if aux is None:
+        return loss
+    return smap(lambda a, b: a + 0.01 * b, loss, aux, spec=())

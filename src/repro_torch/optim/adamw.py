@@ -17,8 +17,21 @@ a time, and a stacked leaf (ndim ≥ 3) one slice of its first dim at a time
 whole stacked expert matrix of granite-moe-3b is 1,006,632,960 elements,
 4.03 GB a float32 temporary. ``opt_state_specs`` keeps the reference's
 ZeRO-1 axes, from which the dry run lays the moments out
-(``launch/steps.py::abstract_train_args``); ``_shard_moment``, the
-reference's constraint on them, returns its input (see there).
+(``launch/steps.py::abstract_train_args``).
+
+ZeRO-1 on placed leaves (``parallel.sharding.Sharded``; ``place_opt_state``
+and ``adamw_init(params, specs)`` lay the moments out by
+``opt_state_specs``: the parameter's layout with ``opt_shard`` on its
+first free dim). The schedule the reference's partitioner derives from
+its moments' constraint, run explicitly: each gradient (partial sums over
+the axes its leaf is replicated over, ``sharding.leaf_grads``) is
+reduce-scattered to its moment's block where the moment splits one of
+those axes, all-reduced over the rest, and relaid to the moment's layout;
+the moments and the update are computed on that block; the new parameter
+blocks go back to the parameter's layout (an all-gather over the
+``opt_shard`` axes where the parameter is replicated over them) and are
+written into each distinct storage once. ``global_norm`` sums each
+distinct block once and runs one counted all-reduce.
 
 Leaves are visited in the reference's order (dict keys sorted, the order
 ``jax.tree.leaves`` gives), which fixes the order of ``global_norm``'s sum.
@@ -68,27 +81,46 @@ def opt_state_specs(param_specs) -> Any:
     }
 
 
-def _shard_moment(x: torch.Tensor, spec: Optional[Spec]) -> torch.Tensor:
-    """The reference's ZeRO-1 ``with_sharding_constraint`` on a moment:
-    ``x`` itself. The eager program has no partitioner for a constraint to
-    steer (the dry run reads the moments' layout from ``opt_state_specs``
-    instead); under ``sharding_rules(mesh)`` the moment axes are resolved
-    against ``x``'s shape, so a moment of the wrong rank raises."""
-    from ..parallel.sharding import current_rules
-    rules = current_rules()
-    if rules is not None and rules.mesh is not None and spec is not None:
-        rules.resolve(_moment_axes(spec), x.shape)
-    return x
-
-
-def adamw_init(params) -> Any:
+def adamw_init(params, param_specs=None) -> Any:
     """Zero float32 moments beside each leaf, and the step counter (int32,
-    0-d) on the first leaf's device."""
+    0-d) on the first leaf's device. Placed ``params`` take their
+    ``param_specs`` (the model's ``Spec`` tree): the moments are then laid
+    out by ``opt_state_specs`` under the active rules, one zero block a
+    distinct (device, block), and the counter lies on the mesh's first
+    device."""
+    from ..models.params import is_placed
+    if is_placed(params):
+        from ..parallel.sharding import mesh_rules, sharded_zeros
+        if param_specs is None:
+            raise ValueError("placed params need their param_specs to lay "
+                             "the moments out")
+        rules = mesh_rules()
+        specs = opt_state_specs(param_specs)
+
+        def zeros(s: Spec):
+            return sharded_zeros(s.shape, torch.float32,
+                                 rules.resolve(s.axes, s.shape), rules.mesh)
+        return {"mu": tree_map(zeros, specs["mu"], is_spec),
+                "nu": tree_map(zeros, specs["nu"], is_spec),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=rules.mesh.devices.flat[0])}
     dev = sorted_leaves(params)[0].device
     zeros = (lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                    device=p.device))
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def place_opt_state(state, param_specs) -> Any:
+    """``state`` (whole moments, as ``adamw_init`` or a checkpoint gives
+    them) laid out on the active mesh: each moment by its
+    ``opt_state_specs`` spec (``models.params.place_params``), the step
+    counter as it is."""
+    from ..models.params import place_params
+    specs = opt_state_specs(param_specs)
+    return {"mu": place_params(state["mu"], specs["mu"]),
+            "nu": place_params(state["nu"], specs["nu"]),
+            "step": state["step"]}
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -107,13 +139,44 @@ def _slices(x: torch.Tensor):
     return x.unbind(0) if x.dim() >= 3 else (x,)
 
 
+def _sq(x: torch.Tensor) -> torch.Tensor:
+    return sum(torch.sum(torch.square(part.to(torch.float32)))
+               for part in _slices(x))
+
+
+def _global_norm_sharded(leaves):
+    """``global_norm`` of placed leaves (complete sums, no partial): each
+    coordinate sums the squares of the blocks it holds first
+    (``sharding.canonical``), one all-reduce over the mesh adds the
+    coordinates' sums. A ``Sharded`` scalar every coordinate holds."""
+    from ..parallel.sharding import (Sharded, canonical, mesh_coords,
+                                     reduce, smap)
+    mesh = leaves[0].mesh
+    if any(x.partial for x in leaves):
+        raise ValueError("global_norm of partial sums: reduce them first")
+    blocks = {}
+    for c in mesh_coords(mesh):
+        dev = leaves[0].blocks[c].device
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for x in leaves:
+            if canonical(x, c):
+                total = total + _sq(x.blocks[c])
+        blocks[c] = total
+    axes = tuple(a for a in mesh.axis_names if mesh.shape[a] > 1)
+    return smap(torch.sqrt, reduce(Sharded(mesh, (), (), blocks, axes)),
+                spec=())
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the float32 sum of every leaf's squares, leaves summed in the
-    reference's order."""
+    reference's order. Of placed leaves: a ``Sharded`` scalar
+    (``_global_norm_sharded``)."""
+    from ..models.params import is_placed
+    if is_placed(tree):
+        return _global_norm_sharded(sorted_leaves(tree))
     total = None
     for x in sorted_leaves(tree):
-        sq = sum(torch.sum(torch.square(part.to(torch.float32)))
-                 for part in _slices(x))
+        sq = _sq(x)
         total = sq if total is None else total + sq.to(total.device)
     return torch.sqrt(total)
 
@@ -122,12 +185,15 @@ class PartialUpdateError(Exception):
     """An ``adamw_update`` that failed after its first in-place write."""
 
 
-def _update_leaf(p, g, mu, nu, cfg: AdamWConfig, scale, b1c, b2c, lr):
-    """One leaf's update in place, a first-dim slice at a time for a
-    stacked leaf."""
+def _update_leaf(p, g, mu, nu, cfg: AdamWConfig, scale, b1c, b2c, lr,
+                 out=None):
+    """One leaf's (or a block's) update, a first-dim slice at a time for a
+    stacked leaf: the moments in place, the new parameter into ``out``
+    (``p`` itself by default)."""
     decay = bool(cfg.weight_decay) and p.dim() >= 2
-    for ps, gs, ms, ns in zip(_slices(p), _slices(g), _slices(mu),
-                              _slices(nu)):
+    out = p if out is None else out
+    for ps, gs, ms, ns, os_ in zip(_slices(p), _slices(g), _slices(mu),
+                                   _slices(nu), _slices(out)):
         d = ps.device
         g32 = gs.to(torch.float32) * scale.to(d)
         ms.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
@@ -137,8 +203,74 @@ def _update_leaf(p, g, mu, nu, cfg: AdamWConfig, scale, b1c, b2c, lr):
         p32 = ps.to(torch.float32)
         if decay:
             upd = upd + cfg.weight_decay * p32
-        ps.copy_(p32 - lr.to(d) * upd)
+        os_.copy_(p32 - lr.to(d) * upd)
         del upd, p32
+
+
+def _to_layout(g, spec):
+    """A gradient (``sharding.leaf_grads``: partial over its leaf's
+    replicated axes) summed and laid out by ``spec``, its moment's:
+    reduce-scattered along the dim ``spec`` splits over some of those axes
+    (the ``opt_shard`` dim), all-reduced over the others, then relaid."""
+    from ..parallel.sharding import reduce, relayout, spec_axes
+    for d, e in enumerate(spec):
+        axes = spec_axes(e)
+        if g.spec[d] is None and axes and set(axes) <= set(g.partial):
+            g = reduce(g, d, axes)
+            break
+    return relayout(reduce(g), spec)
+
+
+def _update_sharded(p, g, mu, nu, cfg, scale, b1c, b2c, lr):
+    """One placed leaf's ZeRO-1 update: ``g`` laid out like ``mu`` and
+    ``nu``. Each distinct moment storage is updated once, on the
+    parameter's cut to the moment's layout (a view where that is a local
+    cut); the new blocks go back to the parameter's layout and into each
+    distinct parameter storage once."""
+    from ..parallel.sharding import Sharded, mesh_coords, relayout
+    pm = relayout(p, mu.spec)
+    new, blocks = {}, {}
+    for c in mesh_coords(p.mesh):
+        key = id(mu.blocks[c])
+        if key not in new:
+            pb = pm.blocks[c]
+            new[key] = torch.empty_like(pb)
+            _update_leaf(pb, g.blocks[c], mu.blocks[c], nu.blocks[c], cfg,
+                         scale.blocks[c], b1c, b2c, lr, out=new[key])
+        blocks[c] = new[key]
+    del pm, new
+    back = relayout(Sharded(p.mesh, mu.spec, p.shape, blocks), p.spec)
+    done = set()
+    for c, b in p.blocks.items():
+        if id(b) not in done:
+            done.add(id(b))
+            b.copy_(back.blocks[c])
+
+
+def _adamw_update_sharded(params, grads, state, cfg: AdamWConfig):
+    """``adamw_update`` on placed leaves (see the module docstring). The
+    collectives of the gradients and the norm run before any write."""
+    from ..parallel.sharding import smap
+    step = state["step"] + 1
+    lr = _schedule(cfg, step)
+    sf = step.to(torch.float32)
+    b1c = 1 - torch.pow(cfg.b1, sf)
+    b2c = 1 - torch.pow(cfg.b2, sf)
+    mus, nus = sorted_leaves(state["mu"]), sorted_leaves(state["nu"])
+    gm = [_to_layout(g, mu.spec) for g, mu in zip(sorted_leaves(grads), mus)]
+    gnorm = global_norm(gm)
+    scale = smap(lambda n: torch.clamp(cfg.clip_norm / (n + 1e-9), max=1.0),
+                 gnorm, spec=())
+    try:
+        for p, g, mu, nu in zip(sorted_leaves(params), gm, mus, nus):
+            _update_sharded(p, g, mu, nu, cfg, scale, b1c, b2c, lr)
+    except Exception as e:
+        raise PartialUpdateError(
+            "adamw_update failed after it began writing params and "
+            "optimizer state in place; they are half updated, so the step "
+            "cannot be retried: restore the last checkpoint") from e
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm.first(), "lr": lr}
 
 
 @torch.no_grad()
@@ -151,7 +283,12 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     the first leaf is written leaves them half updated (``state["step"]``
     not yet advanced), and is raised as ``PartialUpdateError``, which is
     not a ``RuntimeError``, so ``runtime.fault.retry_with_backoff`` does
-    not retry from that state."""
+    not retry from that state. Placed leaves take the ZeRO-1 update
+    (``_adamw_update_sharded``): ``grads`` as ``sharding.leaf_grads``
+    gives them, ``state`` as ``adamw_init(params, specs)`` lays it out."""
+    from ..models.params import is_placed
+    if is_placed(params):
+        return _adamw_update_sharded(params, grads, state, cfg)
     step = state["step"] + 1
     lr = _schedule(cfg, step)
     gnorm = global_norm(grads)

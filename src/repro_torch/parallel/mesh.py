@@ -41,7 +41,13 @@ collectives over the groups of one or more mesh axes:
 Each takes every group of its axes at once, as one SPMD op of the
 reference's program is: it adds one op of its kind, and one device's
 output bytes, to ``collectives()`` (the reference dry run's kinds and
-measure, ``src/repro/launch/dryrun.py:47-72``). On ``meta`` tensors (the
+measure, ``src/repro/launch/dryrun.py:47-72``). Under autograd each is one
+``torch.autograd.Function`` whose backward runs its dual collective on the
+gradients, counted the same way: an all-gather's backward is a
+reduce-scatter and the reverse, an all-reduce's an all-reduce. So a
+shard's gradient of a value every shard holds is a partial sum, whose
+total over the shards is the gradient (the transposes of
+``shard_map``'s collectives). On ``meta`` tensors (the
 dry run) each group holds one shard standing for all ``size`` of them:
 the op computes its output's shape, counts it, and loops over nothing.
 ``ppermute`` counts as a ``collective-permute`` and ``psum`` as an
@@ -281,16 +287,7 @@ def psum(shards: Shards) -> torch.Tensor:
     return acc
 
 
-def _size(groups, size) -> int:
-    return size or len(groups[0])
-
-
-def all_gather(groups: Sequence[Shards], dim: int,
-               size: int = 0) -> List[Shards]:
-    """Each group's shards concatenated along ``dim`` in group order, a
-    fresh tensor on each shard's device. ``size``: the group's size where a
-    meta group holds one shard standing for all."""
-    n = _size(groups, size)
+def _all_gather(groups: Sequence[Shards], dim: int, n: int) -> List[Shards]:
     x0 = groups[0][0]
     if x0.is_meta:
         shape = list(x0.shape)
@@ -304,11 +301,8 @@ def all_gather(groups: Sequence[Shards], dim: int,
     return out
 
 
-def reduce_scatter(groups: Sequence[Shards], dim: int,
-                   size: int = 0) -> List[Shards]:
-    """Each group's shards summed in group order (shard 0 first) and cut
-    into ``n`` pieces along ``dim``: piece ``i`` on shard ``i``."""
-    n = _size(groups, size)
+def _reduce_scatter(groups: Sequence[Shards], dim: int,
+                    n: int) -> List[Shards]:
     x0 = groups[0][0]
     if x0.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x0.shape)} "
@@ -332,9 +326,7 @@ def reduce_scatter(groups: Sequence[Shards], dim: int,
     return out
 
 
-def all_reduce(groups: Sequence[Shards], size: int = 0) -> List[Shards]:
-    """Each group's sum, added in group order (shard 0 first) on shard 0's
-    device, then copied to every other shard of the group."""
+def _all_reduce(groups: Sequence[Shards], dim: int, n: int) -> List[Shards]:
     x0 = groups[0][0]
     if x0.is_meta:
         out = [[x.clone() for x in g] for g in groups]
@@ -347,6 +339,74 @@ def all_reduce(groups: Sequence[Shards], size: int = 0) -> List[Shards]:
             out.append([acc] + [_copy(acc, x.device) for x in g[1:]])
     _count("all-reduce", out[0][0])
     return out
+
+
+_RUN = {"all-gather": _all_gather, "reduce-scatter": _reduce_scatter,
+        "all-reduce": _all_reduce}
+# the collective whose op is each one's transpose: its backward
+_DUAL = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
+         "all-reduce": "all-reduce"}
+
+
+def _regroup(flat, lens) -> List[list]:
+    out, i = [], 0
+    for n in lens:
+        out.append(list(flat[i:i + n]))
+        i += n
+    return out
+
+
+class _Collective(torch.autograd.Function):
+    """One collective op over every group at once, under autograd: the
+    shards go in flat (``lens`` the groups' sizes), and the backward runs
+    the dual collective (``_DUAL``) on the outputs' gradients, counted
+    like a forward op. A gradient autograd does not deliver is zeros."""
+
+    @staticmethod
+    def forward(ctx, kind, dim, n, lens, *flat):
+        ctx.kind, ctx.dim, ctx.n, ctx.lens = kind, dim, n, lens
+        out = _RUN[kind](_regroup(flat, lens), dim, n)
+        return tuple(x for g in out for x in g)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = _RUN[_DUAL[ctx.kind]](_regroup(grads, ctx.lens), ctx.dim,
+                                    ctx.n)
+        return (None, None, None, None) + tuple(x for g in out for x in g)
+
+
+def _collective(kind: str, groups: Sequence[Shards], dim: int,
+                size: int) -> List[Shards]:
+    n = size or len(groups[0])
+    flat = [x for g in groups for x in g]
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in flat)):
+        return _RUN[kind](groups, dim, n)
+    lens = [len(g) for g in groups]
+    return _regroup(_Collective.apply(kind, dim, n, lens, *flat), lens)
+
+
+def all_gather(groups: Sequence[Shards], dim: int,
+               size: int = 0) -> List[Shards]:
+    """Each group's shards concatenated along ``dim`` in group order, a
+    fresh tensor on each shard's device. ``size``: the group's size where a
+    meta group holds one shard standing for all. Its backward is a
+    ``reduce_scatter`` of the gradients along ``dim``."""
+    return _collective("all-gather", groups, dim, size)
+
+
+def reduce_scatter(groups: Sequence[Shards], dim: int,
+                   size: int = 0) -> List[Shards]:
+    """Each group's shards summed in group order (shard 0 first) and cut
+    into ``n`` pieces along ``dim``: piece ``i`` on shard ``i``. Its
+    backward is an ``all_gather`` of the gradients along ``dim``."""
+    return _collective("reduce-scatter", groups, dim, size)
+
+
+def all_reduce(groups: Sequence[Shards], size: int = 0) -> List[Shards]:
+    """Each group's sum, added in group order (shard 0 first) on shard 0's
+    device, then copied to every other shard of the group. Its backward is
+    an ``all_reduce`` of the gradients."""
+    return _collective("all-reduce", groups, 0, size)
 
 
 def ring_all_to_all(shards: Shards) -> Shards:

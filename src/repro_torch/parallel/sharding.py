@@ -26,8 +26,13 @@ explicitly instead. A ``Sharded`` is a tensor laid out on a mesh by a
 spec, one block a mesh coordinate (``shard`` places one, ``smap`` computes
 block by block), and its layout changes only through counted collectives
 (``gather``, ``reduce``; ``relayout`` picks them) or local cuts
-(``split``). ``logical_to_pspec`` and ``maybe_shard`` keep the reference's
-API: no code of the port calls them.
+(``split``). All of them run under autograd: a collective's backward is
+its dual (``parallel.mesh``), so a value every coordinate holds gets
+partial cotangents. ``grad_leaves`` makes each coordinate's block of a
+placed leaf an autograd leaf of its own and ``leaf_grads`` gives, from
+one backward, each leaf's gradient laid out like it, partial over the
+axes it is replicated over. ``logical_to_pspec`` and ``maybe_shard`` keep
+the reference's API: no code of the port calls them.
 
 A ``ShardedEll`` is an ELLPACK operand placed on a mesh: one ``(val,
 idx)`` pair a device, split along one plane axis or held whole by every
@@ -325,6 +330,23 @@ class Sharded:
                        {c: b[i] for c, b in self.blocks.items()},
                        self.partial)
 
+    def unbind(self, dim: int = 0) -> List["Sharded"]:
+        """The layers of a stacked leaf (its first dim whole), each block
+        split once with ``unbind``, whose backward stacks the layers'
+        gradients once (indexing layer by layer would add a zero-filled
+        block-sized gradient for every layer)."""
+        if dim != 0 or self.spec[0] is not None:
+            raise TypeError(f"unbind splits a whole first dim, not dim "
+                            f"{dim} of spec {self.spec}")
+        parts = {c: b.unbind(0) for c, b in self.blocks.items()}
+        return [Sharded(self.mesh, self.spec[1:], self.shape[1:],
+                        {c: p[i] for c, p in parts.items()}, self.partial)
+                for i in range(self.shape[0])]
+
+    def first(self) -> torch.Tensor:
+        """The block of the mesh's first coordinate."""
+        return self.blocks[mesh_coords(self.mesh)[0]]
+
     def index(self, c: Coord) -> Tuple[slice, ...]:
         """Where block ``c`` lies in the whole tensor."""
         n = shard_shape(self.spec, self.shape, self.mesh)
@@ -471,11 +493,17 @@ def gather(x: Sharded, dim: int) -> Sharded:
                    x.partial)
 
 
-def reduce(x: Sharded, dim: Optional[int] = None) -> Sharded:
-    """``x``'s partial sums added over ``x.partial``: a reduce-scatter that
-    splits ``dim`` over those axes, or with ``dim`` None an all-reduce."""
+def reduce(x: Sharded, dim: Optional[int] = None,
+           axes: Optional[Sequence[str]] = None) -> Sharded:
+    """``x``'s partial sums added over ``axes`` (default: all of
+    ``x.partial``; the rest stay partial): a reduce-scatter that splits
+    ``dim`` over those axes, or with ``dim`` None an all-reduce."""
     from .mesh import all_reduce, reduce_scatter
-    axes = x.partial
+    axes = x.partial if axes is None else tuple(axes)
+    if set(axes) - set(x.partial):
+        raise ValueError(f"reduce over {axes}: {x} is partial over "
+                         f"{x.partial}")
+    rest = tuple(a for a in x.partial if a not in axes)
     if not axes:
         return x
     spec = list(x.spec)
@@ -486,10 +514,10 @@ def reduce(x: Sharded, dim: Optional[int] = None) -> Sharded:
                              f"{spec[dim]!r} already")
         spec[dim] = _entry(axes)
     if math.prod(x.mesh.shape[a] for a in axes) == 1:
-        return Sharded(x.mesh, spec, x.shape, x.blocks)
+        return Sharded(x.mesh, spec, x.shape, x.blocks, rest)
     coll = ((lambda g, n: all_reduce(g, n)) if dim is None
             else (lambda g, n: reduce_scatter(g, dim, n)))
-    return Sharded(x.mesh, spec, x.shape, _run(x, axes, coll))
+    return Sharded(x.mesh, spec, x.shape, _run(x, axes, coll), rest)
 
 
 def split(x: Sharded, dim: int, entry) -> Sharded:
@@ -516,17 +544,26 @@ def relayout(x: Sharded, spec: Spec) -> Sharded:
     reduce-scatter along the dim ``spec`` splits over ``x.partial`` (where
     ``x`` holds that dim whole), else an all-reduce. Then each dim whose
     entry differs is gathered (where ``x`` splits it) and cut (where
-    ``spec`` does)."""
+    ``spec`` does), a cut waiting until no other dim is split over its
+    axes (moving a split from one dim to another)."""
     spec = tuple(spec) + (None,) * (x.ndim - len(spec))
     if x.partial:
         dims = [d for d, e in enumerate(spec)
                 if spec_axes(e) == x.partial and x.spec[d] is None]
         x = reduce(x, dims[0] if dims else None)
+    pending = []
     for d in range(x.ndim):
         if x.spec[d] != spec[d]:
             x = gather(x, d)
             if spec[d] is not None:
-                x = split(x, d, spec[d])
+                pending.append(d)
+        # a cut waits while another dim is still split over its axes
+        for p in list(pending):
+            busy = {a for i, e in enumerate(x.spec) if i != p
+                    for a in spec_axes(e)}
+            if not busy & set(spec_axes(spec[p])):
+                x = split(x, p, spec[p])
+                pending.remove(p)
     return x
 
 
@@ -545,6 +582,58 @@ def matmul(x: Sharded, w: Sharded, dtype) -> Sharded:
         raise ValueError(f"matmul: {x} against {w}")
     return smap(lambda a, b: a @ b.to(dtype), x, w,
                 spec=x.spec[:-1] + (w.spec[1],), partial=spec_axes(w.spec[0]))
+
+
+def replicated_axes(x: Sharded) -> Tuple[str, ...]:
+    """The mesh axes of more than one device that ``x``'s spec does not
+    split: the coordinates along them hold the same blocks."""
+    named = {a for e in x.spec for a in spec_axes(e)}
+    return tuple(a for a in x.mesh.axis_names
+                 if a not in named and x.mesh.shape[a] > 1)
+
+
+def canonical(x: Sharded, c: Coord) -> bool:
+    """Whether ``c`` is the first coordinate holding its block of ``x``
+    (index 0 along every axis ``x`` is replicated over): summing the
+    blocks of the canonical coordinates counts each block once."""
+    at = _at(x.mesh, c)
+    return all(at[a] == 0 for a in replicated_axes(x))
+
+
+def grad_leaves(x: Sharded) -> Sharded:
+    """``x`` with each coordinate's block an autograd leaf of its own (a
+    ``detach`` sharing the block's storage, made to require grad), so a
+    backward gives each coordinate its own gradient: the coordinates
+    sharing a storage (a replicated axis, a device repeated in the mesh)
+    are not summed by autograd, and ``leaf_grads`` adds them with one
+    counted all-reduce on any mesh, cards or repeats alike."""
+    return Sharded(x.mesh, x.spec, x.shape,
+                   {c: b.detach().requires_grad_(True)
+                    for c, b in x.blocks.items()}, x.partial)
+
+
+def leaf_grads(loss: Sharded, leaves: Sequence[Sharded]) -> List[Sharded]:
+    """The gradient of ``loss`` (a scalar every coordinate holds) in each
+    of ``leaves`` (``grad_leaves``), by one backward seeded at the mesh's
+    first coordinate: the collectives' backwards spread it, and a value
+    every coordinate holds gets partial sums whose total is its gradient.
+    Each gradient is laid out like its leaf, partial over the leaf's
+    ``replicated_axes`` (``reduce`` adds them: one counted all-reduce, or
+    a reduce-scatter to a finer layout). A block the loss does not reach
+    gets zeros."""
+    coords = mesh_coords(loss.mesh)
+    flat = [b for x in leaves for b in (x.blocks[c] for c in coords)]
+    got = torch.autograd.grad([loss.first()], flat, allow_unused=True)
+    out, i = [], 0
+    for x in leaves:
+        blocks = {}
+        for c in coords:
+            g = got[i]
+            blocks[c] = torch.zeros_like(flat[i]) if g is None else g
+            i += 1
+        out.append(Sharded(x.mesh, x.spec, x.shape, blocks,
+                           replicated_axes(x)))
+    return out
 
 
 def index_owner(i: int, block: int) -> Tuple[int, int]:

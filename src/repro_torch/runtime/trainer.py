@@ -9,7 +9,10 @@ Restart-safety comes from stateless data × atomic checkpoints:
 
 The step runs eagerly on ``device`` (the card unless the caller asks for
 another); the reference's ``jax.jit(donate_argnums)`` has no counterpart,
-the update being in place. ``history`` holds the reference's
+the update being in place. Under ``sharding_rules(mesh)`` of more than one
+device, a config with a partitioned program trains partitioned: params
+and moments placed on the mesh (``init_state``), a checkpoint restored
+onto the current mesh whatever mesh wrote it. ``history`` holds the reference's
 ``{"step", "loss"}`` at each logged step, plus its ``grad_norm`` and the
 step's host-clock ``ms`` (batch to loss read, which waits for the
 device).
@@ -30,6 +33,7 @@ from ..launch.steps import make_train_step
 from ..models import Model
 from ..models.params import tree_leaves
 from ..optim import AdamWConfig, adamw_init
+from ..parallel.sharding import current_rules
 from .fault import FaultTolerantStep
 
 
@@ -75,14 +79,27 @@ class Trainer:
             batch.update(self.extra_batch_fn(step))
         return batch
 
+    def partitioned(self) -> bool:
+        """Whether the step runs partitioned: under rules whose mesh has
+        more than one device, for a config with a partitioned program
+        (``Model.partitioned``)."""
+        rules = current_rules()
+        return (rules is not None and rules.mesh is not None
+                and rules.mesh.size > 1 and self.model.partitioned)
+
     def init_state(self, generator: Optional[torch.Generator] = None):
         """Parameters drawn by ``Model.init`` from ``generator`` (default: a
         ``torch.Generator`` on the device seeded ``tcfg.seed``), made to
-        require grad, and zero AdamW state."""
+        require grad, and zero AdamW state. Partitioned (``partitioned``):
+        the parameters placed on the mesh (``Model.place``), the moments
+        laid out by their ZeRO-1 specs."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
                 self.tcfg.seed)
         params = self.model.init(generator, self.device)
+        if self.partitioned():
+            params = self.model.place(params)
+            return params, adamw_init(params, self.model.specs())
         for p in tree_leaves(params):
             p.requires_grad_(True)
         return params, adamw_init(params)
@@ -96,8 +113,9 @@ class Trainer:
             step = self.ckpt.latest_step()
             params, opt_state, extra = self.ckpt.restore(
                 step, params, opt_state, device=self.device)
-            for p in tree_leaves(params):
-                p.requires_grad_(True)
+            if not self.partitioned():
+                for p in tree_leaves(params):
+                    p.requires_grad_(True)
             start = extra.get("next_step", step)
             print(f"[trainer] resumed from checkpoint step {step}", flush=True)
 

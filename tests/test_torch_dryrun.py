@@ -144,9 +144,11 @@ def test_rules_without_a_mesh_and_wrong_rank():
         with pytest.raises(ValueError):
             tsh.maybe_shard(x, "batch")
         spec = tadamw.Spec((4, 8), ("heads", None))
-        assert tadamw._shard_moment(x, spec) is x
+        rules = tsh.current_rules()
+        assert rules.resolve(tadamw._moment_axes(spec), x.shape) == (
+            None, None)
         with pytest.raises(ValueError):
-            tadamw._shard_moment(torch.empty(4, device="meta"), spec)
+            rules.resolve(tadamw._moment_axes(spec), (4,))
         with pytest.raises(ValueError):
             tsh.shard_shape(("model",), (56,), make_production_mesh())
     assert tsh.current_rules() is None
@@ -388,8 +390,11 @@ def test_dense_train_flops_near_6nd():
     batch = 256 * 4096 * 4 // 16
     assert rec["mem_per_device"]["output_bytes"] == \
         rec["mem_per_device"]["argument_bytes"] - batch + 3 * 4
-    assert rec["collective_bytes"] is None
-    assert set(rec["gaps"]) == {"collective_bytes", "temp_bytes"}
+    # the partitioned step's collectives: the forward's, the backward's
+    # duals and the ZeRO-1 update's
+    assert rec["collective_count"]["reduce-scatter"] > 0
+    assert rec["collective_count"]["all-reduce"] > 0
+    assert set(rec["gaps"]) == {"temp_bytes"}
 
 
 def test_collectives_filled_for_decoder_serving_cells():
@@ -398,8 +403,9 @@ def test_collectives_filled_for_decoder_serving_cells():
     layer a reduce-scatter after ``wo`` and after the FFN in prefill (the
     sequence splits 16 ways), plus the embedding's; in decode an
     all-reduce for each and for the flash merge (14 heads do not split 16
-    ways). A train cell and an SSM cell keep null, their gaps naming the
-    slices to come."""
+    ways). A train cell of a decoder counts its step's collectives (none
+    on a mesh of one device); an SSM cell keeps null, its gaps naming the
+    slice to come."""
     cfg = get_config("qwen2-0.5b")
     kinds = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
              "collective-permute"}
@@ -415,13 +421,16 @@ def test_collectives_filled_for_decoder_serving_cells():
             assert rec["collective_bytes"]["all-gather"] > 0
             assert "collective_bytes" not in rec["gaps"]
     small = small_mesh((1, 1), ("data", "model"))
-    for name, case in (("qwen2-0.5b-smoke", ShapeCase("t", 32, 4, "train")),
-                       ("falcon-mamba-7b-smoke",
-                        ShapeCase("d", 32, 2, "decode"))):
-        rec = dryrun.analyze_cell(get_config(name), case, small)
-        assert rec["collective_bytes"] is None
-        assert rec["collective_count"] is None
-        assert "item 9" in rec["gaps"]["collective_bytes"]
+    rec = dryrun.analyze_cell(get_config("qwen2-0.5b-smoke"),
+                              ShapeCase("t", 32, 4, "train"), small)
+    assert set(rec["collective_count"]) == kinds
+    assert not any(rec["collective_count"].values())
+    assert "collective_bytes" not in rec["gaps"]
+    rec = dryrun.analyze_cell(get_config("falcon-mamba-7b-smoke"),
+                              ShapeCase("d", 32, 2, "decode"), small)
+    assert rec["collective_bytes"] is None
+    assert rec["collective_count"] is None
+    assert "item 9" in rec["gaps"]["collective_bytes"]
 
 
 # ---------------------------------------------------------------------------

@@ -434,8 +434,8 @@ def test_partitioned_equals_whole_weights(arch, dispatch, shape):
     """Paths the reference cases do not take, against the same program on
     whole weights under the same rules: internvl2-2b's patch prefix
     (concatenated before the tokens, then cut to the stream's layout),
-    ``'ellpack'`` and ``'spmm'`` (the layer gathered whole and placed
-    back), mistral's GQA, and a (2, 2, 2) mesh of ``("pod", "data",
+    ``'ellpack'`` and ``'spmm'`` (each coordinate's own expert blocks,
+    K9's plain twin on local planes), mistral's GQA, and a (2, 2, 2) mesh of ``("pod", "data",
     "model")``, whose batch splits over two axes. Prefill and two decode
     steps within 1e-5 of their max."""
     cfg = tcfg.get_config(arch).reduced()
