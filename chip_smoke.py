@@ -399,7 +399,29 @@ Phases (any failure exits non-zero before the last line):
    Training (d): the cut's placed params and moments after a step on (2,
    2), saved (``CheckpointManager``, the reference's format) and
    restored onto (1, 4) and whole, bit for bit: save and restore ms.
-   The phase's seconds.
+   Then the SSM, RG-LRU and encoder-decoder families' partitioned
+   programs (``mesh_families``), on meshes of the same shards. Families
+   (a): falcon-mamba-7b, recurrentgemma-9b and whisper-medium cut to
+   FAM_CUT's layers at full width, float32, TF32 off, placed on (1, 4)
+   and (2, 2) against whole weights under the same rules: MESH_FAM_A's
+   prompts (recurrentgemma also MESH_FAM_LONG's, past its 2,048-slot
+   window) and MESH_FAM_STEPS greedy steps within MESH_PART_TOL, tokens
+   equal; one training step as training (a) holds it; Mamba's ``w_x``
+   partial sums used without their all-reduce, and the ring's slots
+   rolled within each shard, must each break it; whisper's cut saved on
+   (2, 2) and restored onto (1, 4), bit for bit. Families (b): all
+   layers, bfloat16, on (1, 4): falcon-mamba-7b and recurrentgemma-9b
+   through ``ServingEngine.generate_batch`` (MESH_FAM_WAVES, recurrentgemma
+   also 2 prompts past its window), whisper-medium through
+   ``Model.prefill``/``decode_step`` (MESH_FAM_AUDIO): prefill ms, decode
+   ms a step, tokens/s, peak, ``moved_bytes()``, live collectives equal
+   to the dry run's of the same calls (traced in the worker processes).
+   Families (c): bfloat16, MESH_FAM_TRAIN_STEPS steps, falcon-mamba-7b
+   and recurrentgemma-9b cut to MESH_FAM_TRAIN's layers through
+   ``runtime.Trainer`` on (1, 4), whisper-medium whole through
+   ``launch.train.main(..., devices=...)`` on (1, 4) and (2, 2): ms a
+   step, tokens/s, peak, ``moved_bytes()``, live collectives equal to the
+   steps times the dry run's. The phase's seconds.
 7. A ``kernels`` JSON line (all ten kernels, K3 as its two entries, K9 with
    its bfloat16, training and partitioned training shapes, K10 with its
    bfloat16 entry), the
@@ -4810,14 +4832,17 @@ MESH_PART_WAVE = (8, 64, 512)   # (c): prompts, shortest, longest
 MESH_PART_SERVE = dict(max_batch=8, max_new_tokens=16, s_max=544)
 
 
-def part_greedy(model, params, toks, steps: int, s_max: int) -> tuple:
-    """Prefill ``toks`` and ``steps`` greedy decode steps, each fed the
-    argmax of the step before: (every step's logits on the CPU, float32;
-    the (B, steps) tokens; the cache)."""
+def part_greedy(model, params, toks, steps: int, s_max: int,
+                extra=None) -> tuple:
+    """Prefill ``toks`` (with ``extra`` inputs: whisper's frames) and
+    ``steps`` greedy decode steps, each fed the argmax of the step before:
+    (every step's logits on the CPU, float32; the (B, steps) tokens; the
+    cache)."""
     import torch
     host = (lambda t: (t if isinstance(t, torch.Tensor) else t.whole())
             .float().cpu())
-    logits, cache = model.prefill(params, {"tokens": toks}, s_max)
+    logits, cache = model.prefill(params, dict(extra or {}, tokens=toks),
+                                  s_max)
     outs, picks = [host(logits)], []
     for _ in range(steps):
         nxt = outs[-1].argmax(-1).to(torch.int32)
@@ -5101,11 +5126,44 @@ def train_meta_trace(dispatch: str, shape, layers: int, batch: int,
             steps.abstract_train_args(model, case))
 
 
-def part_step(model, params, batch, mesh, placed: bool) -> dict:
-    """One training step (``launch.steps.make_train_step``) under
-    ``sharding_rules(mesh)`` on whole or placed weights: the loss, every
-    gradient (whole, in tree order) from one backward, then the params
-    and moments after the step, whole; float32 on the card."""
+def part_step(model, params, batch, mesh) -> dict:
+    """One training step (``launch.steps.make_train_step``) on whole
+    weights under ``sharding_rules(mesh)``: the loss, every gradient (in
+    tree order) from one backward, then the params and moments after the
+    step, each copied to the host as it is made (a full-width cut's would
+    not fit on the card beside a placed step's state: recurrentgemma's
+    256,000-row table)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import sharding_rules
+    step = make_train_step(model, AdamWConfig())
+    with sharding_rules(mesh):
+        params = tree_map(torch.clone, params)
+        state = adamw_init(params)
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        with torch.enable_grad():
+            out = model.loss(params, batch)
+            grads = [g.cpu() for g in torch.autograd.grad(out, leaves)]
+        loss = float(out.detach())
+        del out, leaves
+        params, state, _ = step(params, state, batch)
+    return dict(loss=loss, grads=grads,
+                params=[t.detach().cpu() for t in tree_leaves(params)],
+                mu=[t.cpu() for t in tree_leaves(state["mu"])],
+                nu=[t.cpu() for t in tree_leaves(state["nu"])])
+
+
+def part_step_apart(model, params, batch, mesh, want) -> dict:
+    """The same step on ``params`` placed under ``sharding_rules(mesh)``
+    against ``want`` (``part_step``'s): the loss relative; the worst
+    gradient's, first and second moment's max gap over its max; the
+    params' worst gap where the gradient's sign is sure and anywhere. Each
+    placed leaf is made whole, compared and dropped in turn: a full-width
+    cut has no room for all of them at once."""
     import torch
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.params import (tree_leaves, tree_map,
@@ -5113,65 +5171,48 @@ def part_step(model, params, batch, mesh, placed: bool) -> dict:
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.parallel import sharding_rules
     from repro_torch.parallel.sharding import grad_leaves, leaf_grads, reduce
-    step = make_train_step(model, AdamWConfig())
-    whole = (lambda t: t if isinstance(t, torch.Tensor) else t.whole())
+    card = (lambda t: t.to(torch.device("cuda")))
+
+    def gap(x, y):
+        y = card(y)
+        return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
     with sharding_rules(mesh):
-        params = tree_map(torch.clone, params)
-        if placed:
-            params = model.place(params)
-            state = adamw_init(params, model.specs())
-            live = [grad_leaves(p) for p in tree_leaves(params)]
-            with torch.enable_grad():
-                loss = model.loss(tree_unflatten(params, live), batch)
-                grads = [reduce(g).whole() for g in leaf_grads(loss, live)]
-            loss = float(loss.first())
-            del live
-        else:
-            state = adamw_init(params)
-            leaves = tree_leaves(params)
-            for t in leaves:
-                t.requires_grad_(True)
-            with torch.enable_grad():
-                out = model.loss(params, batch)
-                grads = list(torch.autograd.grad(out, leaves))
-            loss = float(out)
-            del out
-        params, state, _ = step(params, state, batch)
-    return dict(loss=loss, grads=grads,
-                params=[whole(t).detach() for t in tree_leaves(params)],
-                mu=[whole(t) for t in tree_leaves(state["mu"])],
-                nu=[whole(t) for t in tree_leaves(state["nu"])])
-
-
-def part_step_apart(got, want) -> dict:
-    """Placed against whole: the loss relative; the worst gradient's,
-    first and second moment's max gap over its max; the params' worst gap
-    where the gradient's sign is sure and anywhere."""
-    def rel(a, b):
-        return max(float((x - y).abs().max()) / max(float(y.abs().max()),
-                                                     1e-30)
-                   for x, y in zip(a, b))
+        placed = model.place(tree_map(torch.clone, params))
+        state = adamw_init(placed, model.specs())
+        live = [grad_leaves(p) for p in tree_leaves(placed)]
+        with torch.enable_grad():
+            loss = model.loss(tree_unflatten(placed, live), batch)
+            grads = leaf_grads(loss, live)
+        loss = float(loss.first().detach())
+        del live
+        r = dict(loss_rel=abs(loss - want["loss"]) / abs(want["loss"]),
+                 worst_grad_rel=max(gap(reduce(g).whole(), w)
+                                    for g, w in zip(grads, want["grads"])))
+        del grads
+        placed, state, _ = make_train_step(model, AdamWConfig())(
+            placed, state, batch)
+    for k in ("mu", "nu"):
+        r[f"worst_{k}_rel"] = max(gap(t.whole(), w) for t, w in zip(
+            tree_leaves(state[k]), want[k]))
     sure, every = 0.0, 0.0
-    for p, q, mu in zip(got["params"], want["params"], want["mu"]):
-        err = (p - q).abs()
+    for p, q, mu in zip(tree_leaves(placed), want["params"], want["mu"]):
+        err = (p.whole().detach() - card(q)).abs()
+        mu = card(mu)
         mask = mu.abs() > 1e-3 * mu.abs().max()
         sure = max(sure, float(err[mask].max()) if mask.any() else 0.0)
         every = max(every, float(err.max()))
-    return dict(loss_rel=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
-                worst_grad_rel=rel(got["grads"], want["grads"]),
-                worst_mu_rel=rel(got["mu"], want["mu"]),
-                worst_nu_rel=rel(got["nu"], want["nu"]),
-                params_sure_abs=sure, params_abs=every)
+    return dict(r, params_sure_abs=sure, params_abs=every)
 
 
-def part_step_ok(r: dict) -> bool:
+def part_step_ok(r: dict, tol: float = MESH_TRAIN_TOL) -> bool:
+    """Training (a)'s limits; ``tol`` for the gradients and moments."""
     from repro_torch.optim import AdamWConfig
     cfg = AdamWConfig()
     lr1 = cfg.lr / max(1, cfg.warmup_steps)
     return (r["loss_rel"] <= MESH_TRAIN_TOL
-            and r["worst_grad_rel"] <= MESH_TRAIN_TOL
-            and r["worst_mu_rel"] <= MESH_TRAIN_TOL
-            and r["worst_nu_rel"] <= MESH_TRAIN_TOL
+            and r["worst_grad_rel"] <= tol
+            and r["worst_mu_rel"] <= tol
+            and r["worst_nu_rel"] <= tol
             and r["params_sure_abs"] <= MESH_TRAIN_PARAM_TOL
             and r["params_abs"] <= 2 * lr1 + MESH_TRAIN_PARAM_TOL)
 
@@ -5273,21 +5314,20 @@ def mesh_train_cuts(seed: int) -> tuple:
         for shape in shapes:
             mesh = make_host_mesh(shape[1], mesh_devices(math.prod(shape)))
             what = f"{arch} {dispatch or ''} 2-layer cut on {shape}"
-            want = part_step(model, params, batch, mesh, placed=False)
+            want = part_step(model, params, batch, mesh)
             kernels.reset_launch_counts()
-            got = part_step(model, params, batch, mesh, placed=True)
+            r = res[what] = part_step_apart(model, params, batch, mesh, want)
             torch.cuda.synchronize()
             counts[f"mesh_train_cut_{arch}_{dispatch}_{shape[0]}x"
                    f"{shape[1]}"] = kernels.launch_counts()
-            r = res[what] = part_step_apart(got, want)
             require(part_step_ok(r), f"training (a) {what}: "
                     f"{json.dumps(r)}")
             if arch == TRAIN_ARCH and dispatch == "sort" and shape == (2, 2):
                 r["planted"] = {}
                 for fault in MESH_TRAIN_PLANTS:
                     with train_plant(fault):
-                        bad = part_step_apart(part_step(
-                            model, params, batch, mesh, placed=True), want)
+                        bad = part_step_apart(model, params, batch, mesh,
+                                              want)
                     r["planted"][fault] = bad
                     require(not part_step_ok(bad), f"training (a) passed "
                             f"with '{fault}' planted: {json.dumps(bad)}")
@@ -5296,7 +5336,7 @@ def mesh_train_cuts(seed: int) -> tuple:
             if dispatch == "spmm" and shape == (2, 2):
                 res["k9"] = part_k9(model, params, batch, mesh, seed)
                 counts["mesh_train_k9"] = res["k9"].pop("counts")
-            del got, want
+            del want
         del params, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -5410,6 +5450,437 @@ def mesh_serving(seed: int) -> tuple:
     return res, {"mesh_serving": kernels.launch_counts()}
 
 
+# The SSM, RG-LRU and encoder-decoder families, partitioned
+MESH_FAM_MESHES = ((1, 4), (2, 2))
+MESH_FAM_A = {"falcon-mamba-7b": (2, 512),    # (a): prompts x tokens on the
+              "recurrentgemma-9b": (2, 128),  # float32 cuts (falcon: two
+              "whisper-medium": (2, 64)}      # scan chunks)
+MESH_FAM_LONG = (1, 3584)     # (a): recurrentgemma's prompt past its
+                              # 2,048-slot window (whole 512-token chunks)
+MESH_FAM_STEPS = 8            # (a): greedy decode steps after the prefill
+MESH_FAM_GRAD_TOL = 3e-5      # (a): a training step's gradients and
+                              # moments against their max: falcon-mamba's
+                              # cut's whole-weights gradients on the card
+                              # and on the CPU differ by 1.0e-5 of max
+                              # (the [families] gate (c)), the float32
+                              # floor of its scans' backward
+MESH_FAM_PLANTS = ("w_x partial sums not all-reduced",
+                   "ring rolled within each shard")
+# (a): where each is planted. On (2, 2) the ring's shards hold 1,024
+# slots: the window's roll by 3,584 % 2,048 = 1,536 cuts across them, and
+# its first decode write lands in the second shard, so a roll within each
+# shard is more than a permutation of the right ring
+MESH_FAM_PLANTED = {
+    ("falcon-mamba-7b", "prompt", (1, 4)): MESH_FAM_PLANTS[0],
+    ("recurrentgemma-9b", "past the window", (2, 2)): MESH_FAM_PLANTS[1]}
+MESH_FAM_SERVE = dict(max_batch=8, max_new_tokens=16, s_max=4128)
+MESH_FAM_WAVES = {"falcon-mamba-7b": ((8, 64, 512),),   # (b): prompts,
+                  "recurrentgemma-9b": ((8, 64, 512),   # shortest, longest
+                                        (2, 2049, 3072))}
+MESH_FAM_AUDIO = (8, 32, 448)  # (b) whisper: prompts, tokens, s_max
+MESH_FAM_TRAIN = {"falcon-mamba-7b": (16, 4, 512),      # (c): layers,
+                  "recurrentgemma-9b": (6, 4, 512),     # batch, seq
+                  "whisper-medium": (None, 8, 256)}
+MESH_FAM_TRAIN_STEPS = 3
+
+
+def fam_meta_trace(kind: str, arch: str, shape, batch: int, seq: int,
+                   layers=None, s_max=None) -> tuple:
+    """The dry run's count of one partitioned call of a family's full-width
+    config (bfloat16, ``layers`` kept): a prefill of ``batch`` x ``seq``
+    (its cache at ``s_max``), a decode step against a cache of ``seq``, or
+    a training step of ``batch`` x ``seq``
+    (``launch.dryrun.collective_trace`` on a meta mesh of ``shape``),
+    ``(bytes, count)`` by kind. Runs on the CPU alone, in a worker process
+    beside the card's work."""
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCase
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import make_mesh, sharding_rules
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg)
+    case = ShapeCase(kind, seq, batch, kind)
+    mesh = make_mesh(shape, ("data", "model"), ["meta"] * math.prod(shape))
+    with sharding_rules(mesh):
+        if kind == "train":
+            return dryrun.collective_trace(
+                model, case, steps.make_train_step(model, AdamWConfig()),
+                steps.abstract_train_args(model, case))
+        if kind == "prefill":
+            return dryrun.collective_trace(
+                model, case, steps.make_prefill_step(model, s_max or seq),
+                steps.abstract_prefill_args(model, case))
+        aparams, acache, tokens = steps.abstract_decode_args(model, case)
+        return dryrun.collective_trace(
+            model, case, steps.make_serve_step(model),
+            (aparams, {**acache, "pos": seq - 1}, tokens))
+
+
+def fam_meta_traces(pool) -> dict:
+    """The families' dry-run traces for serving (b) and training (c),
+    submitted to ``pool``: futures by (arch, what)."""
+    out, s_max = {}, MESH_FAM_SERVE["s_max"]
+    for arch, waves in MESH_FAM_WAVES.items():
+        for i, (n, _, hi) in enumerate(waves):
+            out[(arch, f"prefill{i}")] = pool.submit(
+                fam_meta_trace, "prefill", arch, (1, 4), n, hi, None, s_max)
+            out[(arch, f"decode{i}")] = pool.submit(
+                fam_meta_trace, "decode", arch, (1, 4), n, s_max)
+    n, s, s_max = MESH_FAM_AUDIO
+    out[("whisper-medium", "prefill0")] = pool.submit(
+        fam_meta_trace, "prefill", "whisper-medium", (1, 4), n, s, None,
+        s_max)
+    out[("whisper-medium", "decode0")] = pool.submit(
+        fam_meta_trace, "decode", "whisper-medium", (1, 4), n, s_max)
+    for arch, (layers, b, sq) in MESH_FAM_TRAIN.items():
+        for shape in ((1, 4), (2, 2)) if layers is None else ((1, 4),):
+            out[(arch, f"train{shape}")] = pool.submit(
+                fam_meta_trace, "train", arch, shape, b, sq, layers)
+    return out
+
+
+@contextlib.contextmanager
+def mesh_fam_plant(fault: str):
+    """(a)'s planted faults, within the block: each shard's Mamba mixer
+    using its own partial sums of ``w_x`` (the all-reduce dropped), or
+    each shard's slots of a ``local`` block's ring taken as its own piece
+    of the last W keys rolled within the shard by ``s % W`` (the whole
+    ring's roll, which crosses the shards' bounds)."""
+    import torch
+    from repro_torch.models import ssm, transformer
+    from repro_torch.parallel.sharding import matmul
+    if fault == MESH_FAM_PLANTS[0]:
+        mod, name = ssm, "x_proj_sharded"
+        bad = (lambda p, xc, dtype: matmul(xc, p["w_x"], dtype))
+    else:
+        mod, name = transformer, "_ring_block"
+        orig_ring = transformer._ring_block
+
+        def bad(kb, s, w, lo, n):
+            if s < w:
+                return orig_ring(kb, s, w, lo, n)
+            require(s % w % n and s % w >= n, f"a roll by {s % w} within "
+                    f"{n}-slot shards only permutes the ring's first slots")
+            return torch.roll(kb[:, s - w + lo:s - w + lo + n], s % w, 1)
+    orig = getattr(mod, name)
+    setattr(mod, name, bad)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def mesh_fam_cuts(seed: int) -> dict:
+    """The families' (a): float32 cuts at full width (FAM_CUT's layers),
+    TF32 off, placed on MESH_FAM_MESHES against whole weights under the
+    same rules: prefill and MESH_FAM_STEPS greedy steps (recurrentgemma
+    also past its window), one training step, both planted faults, and
+    whisper's checkpoint saved on (2, 2) and restored onto (1, 4)."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding_rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    res = {}
+    for arch in FAM_ARCHS:
+        cfg = fam_config(arch, param_dtype="float32", compute_dtype="float32",
+                         **FAM_CUT[arch])
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            seed + 51), dev)
+        rng = np.random.default_rng(seed + 52)
+        b, sq = MESH_FAM_A[arch]
+        extra = ({"frames": fam_frames(cfg, b, seed + 53)}
+                 if cfg.family == "audio" else {})
+        prompts = {"prompt": (b, sq)}
+        if cfg.family == "hybrid":
+            prompts["past the window"] = MESH_FAM_LONG
+        toks = {k: torch.from_numpy(rng.integers(3, cfg.vocab, shp).astype(
+            np.int32)).to(dev) for k, shp in prompts.items()}
+        r = res[arch] = {}
+        t_arch = time.perf_counter()
+        # no MoE: the whole-weights step does not depend on the mesh
+        batch = dict(extra, tokens=toks["prompt"])
+        want_step = part_step(model, params, batch, make_host_mesh(
+            1, mesh_devices(1)))
+        for shape in MESH_FAM_MESHES:
+            mesh = make_host_mesh(shape[1], mesh_devices(math.prod(shape)))
+            held = r[f"{shape}"] = {}
+            with sharding_rules(mesh):
+                placed = model.place(params)
+                for name, t in toks.items():
+                    s_max = t.shape[1] + 2 * MESH_FAM_STEPS
+                    want = part_greedy(model, params, t, MESH_FAM_STEPS,
+                                       s_max, extra)
+                    got = part_greedy(model, placed, t, MESH_FAM_STEPS,
+                                      s_max, extra)
+                    h = held[name] = part_apart(got, want)
+                    require(h["worst_rel"] <= MESH_PART_TOL
+                            and h["tokens_equal"],
+                            f"families (a) {arch} cut on {shape}, {name}: "
+                            f"{json.dumps(h)}")
+                    fault = MESH_FAM_PLANTED.get((arch, name, shape))
+                    if fault:
+                        with mesh_fam_plant(fault):
+                            bad = part_apart(part_greedy(
+                                model, placed, t, MESH_FAM_STEPS, s_max,
+                                extra), want)
+                        h["planted"] = {fault: bad}
+                        require(bad["worst_rel"] > MESH_PART_TOL
+                                or not bad["tokens_equal"],
+                                f"families (a) passed with '{fault}' "
+                                f"planted: {json.dumps(bad)}")
+                    del want, got
+                del placed
+            st = held["train_step"] = part_step_apart(model, params, batch,
+                                                       mesh, want_step)
+            require(part_step_ok(st, MESH_FAM_GRAD_TOL),
+                    f"families (a) {arch} cut on {shape}, training step: "
+                    f"{json.dumps(st)}")
+            if cfg.family == "audio" and shape == (2, 2):
+                r["checkpoint"] = part_checkpoint(model, params, batch, mesh)
+        del want_step
+        r["arch_s"] = time.perf_counter() - t_arch
+        print(f"[mesh] families (a) {arch}, {gpu_line()}: {json.dumps(r)}",
+              flush=True)
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    print(f"[mesh] families (a) passed: float32 cuts at full width, "
+          f"placed on {MESH_FAM_MESHES} against whole weights under the same "
+          f"rules, prefill and {MESH_FAM_STEPS} greedy steps within "
+          f"{MESH_PART_TOL} (recurrentgemma also {MESH_FAM_LONG} past its "
+          f"window), a training step within {MESH_FAM_GRAD_TOL}, both "
+          f"planted faults caught, whisper's checkpoint (2, 2) -> (1, 4) "
+          f"bit for bit", flush=True)
+    return res
+
+
+def fam_collectives(live, parts) -> tuple:
+    """The dry run's count of ``parts`` ((future, times) pairs) summed,
+    beside ``live``'s kinds."""
+    out = tuple({k: 0 for k in live[i]} for i in range(2))
+    for fut, times in parts:
+        meta = fut.result()
+        for i in range(2):
+            for k in out[i]:
+                out[i][k] += times * meta[i][k]
+    return out
+
+
+def mesh_fam_serve(seed: int, metas: dict) -> dict:
+    """The families' (b): full width, bfloat16, on (1, 4): falcon-mamba-7b
+    and recurrentgemma-9b through ``ServingEngine.generate_batch``
+    (MESH_FAM_WAVES), whisper-medium through ``Model.prefill`` /
+    ``decode_step`` (MESH_FAM_AUDIO); live collectives equal to the dry
+    run's of the same calls."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.parallel import mesh as pmesh
+    from repro_torch.parallel import sharding_rules
+    from repro_torch.parallel.sharding import Sharded
+    from repro_torch.serve import ServeConfig, ServingEngine
+    dev = torch.device("cuda")
+    mesh = make_host_mesh(4, mesh_devices(4))
+    res = {}
+    for arch in FAM_ARCHS:
+        cfg = fam_config(arch)
+        model = build_model(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with sharding_rules(mesh):
+            params = model.place(model.init(torch.Generator(
+                device=dev).manual_seed(seed + 54), dev))
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        require(all(isinstance(t, Sharded) for t in tree_leaves(params)),
+                f"families (b) {arch}: a weight is not placed")
+        if cfg.family == "audio":
+            waves = [None]
+        else:
+            waves = lm_prompts(seed, cfg.vocab, MESH_FAM_WAVES[arch])
+            eng = ServingEngine(model, params, ServeConfig(**MESH_FAM_SERVE))
+        for i, prompts in enumerate(waves):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pmesh.reset_moved_bytes()
+            pmesh.reset_collectives()
+            with sharding_rules(mesh):
+                if prompts is None:
+                    r = fam_audio_wave(model, params, seed)
+                else:
+                    r = fam_wave(eng, prompts)
+            torch.cuda.synchronize()
+            live = pmesh.collectives()
+            want = fam_collectives(live, (
+                (metas[(arch, f"prefill{i}")], 1),
+                (metas[(arch, f"decode{i}")], r["decode_steps"])))
+            what = f"{arch} {cfg.n_layers} layers bf16 on (1, 4), wave {i + 1}"
+            r.update(init_and_place_s=place_s,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     moved_bytes=pmesh.moved_bytes(),
+                     collective_bytes=live[0], collective_count=live[1],
+                     dry_collective_bytes=want[0],
+                     dry_collective_count=want[1])
+            res[what] = r
+            print(f"[mesh] families (b) {what}, {gpu_line()}: "
+                  f"{json.dumps(r)}", flush=True)
+            require(live == want, f"families (b) {what}: the live "
+                    f"collectives {live} against the dry run's {want}")
+        del params, model
+        if cfg.family != "audio":
+            del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def fam_wave(eng, prompts) -> dict:
+    """One wave through ``generate_batch`` on placed weights."""
+    st0 = dict(eng.stats())
+    outs = eng.generate_batch(prompts)
+    st = eng.stats()
+    d = {k: st[k] - st0.get(k, 0) for k in ("requests", "tokens",
+                                            "decode_steps", "prefill_s",
+                                            "decode_s")}
+    require(d["requests"] == len(prompts) and d["decode_steps"] > 0
+            and d["tokens"] == sum(len(o) for o in outs),
+            f"families (b): stats {d}")
+    return dict(requests=d["requests"], padded_len=max(map(len, prompts)),
+                prefill_ms=d["prefill_s"] * 1e3,
+                decode_ms_per_step=d["decode_s"] * 1e3 / d["decode_steps"],
+                decode_steps=d["decode_steps"], tokens=d["tokens"],
+                tokens_per_s=d["tokens"] / (d["prefill_s"] + d["decode_s"]))
+
+
+def fam_audio_wave(model, params, seed: int) -> dict:
+    """whisper on placed weights: MESH_FAM_AUDIO's prompts over frames
+    from ``seed``, then MESH_FAM_SERVE's token count of greedy steps, each
+    step's ids read on the host."""
+    import torch
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    n, s, s_max = MESH_FAM_AUDIO
+    toks = torch.from_numpy(np.random.default_rng(seed + 55).integers(
+        3, cfg.vocab, (n, s)).astype(np.int32)).to(dev)
+    frames = fam_frames(cfg, n, seed + 55)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks,
+                                               "frames": frames}, s_max)
+        cur = logits.whole().argmax(-1).cpu()
+        t1 = time.perf_counter()
+        outs = [cur]
+        for _ in range(MESH_FAM_SERVE["max_new_tokens"] - 1):
+            logits, cache = model.decode_step(
+                params, cache, cur[:, None].to(dev, torch.int32))
+            cur = logits.whole().argmax(-1).cpu()
+            outs.append(cur)
+        t2 = time.perf_counter()
+    ids = torch.stack(outs, 1)
+    require(bool(((ids >= 0) & (ids < cfg.vocab)).all()),
+            f"families (b) {cfg.name}: a token is out of the vocabulary")
+    steps = len(outs) - 1
+    return dict(requests=n, prompt_len=s, frames=list(frames.shape),
+                s_max=s_max, prefill_ms=(t1 - t0) * 1e3,
+                decode_ms_per_step=(t2 - t1) * 1e3 / steps,
+                decode_steps=steps, tokens=ids.numel(),
+                tokens_per_s=ids.numel() / (t2 - t0))
+
+
+def mesh_fam_train(seed: int, metas: dict) -> dict:
+    """The families' (c): bfloat16, MESH_FAM_TRAIN_STEPS steps each, the
+    counters zeroed just before each run: falcon-mamba-7b and
+    recurrentgemma-9b cut to MESH_FAM_TRAIN's layers through
+    ``runtime.Trainer`` on (1, 4), whisper-medium whole through
+    ``launch.train.main(..., devices=...)`` on (1, 4) and (2, 2); live
+    collectives equal to the steps times the dry run's of one step."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import mesh as pmesh
+    from repro_torch.parallel import sharding_rules
+    from repro_torch.runtime import Trainer, TrainerConfig
+    steps = MESH_FAM_TRAIN_STEPS
+    res = {}
+    for arch, (layers, b, sq) in MESH_FAM_TRAIN.items():
+        for shape in ((1, 4), (2, 2)) if layers is None else ((1, 4),):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            pmesh.reset_moved_bytes()
+            pmesh.reset_collectives()
+            with tempfile.TemporaryDirectory() as d:
+                if layers is None:
+                    out = tlaunch.main([
+                        "--arch", arch, "--steps", str(steps), "--batch",
+                        str(b), "--seq", str(sq), "--ckpt-dir", d,
+                        "--ckpt-every", str(10 * steps), "--no-resume",
+                        "--log-every", "1", "--model-parallel",
+                        str(shape[1])], devices=mesh_devices(4))
+                    mesh, init_s = out["mesh"], out["trainer"].init_s
+                else:
+                    mesh = make_host_mesh(shape[1], mesh_devices(4))
+                    with sharding_rules(mesh):
+                        tr = Trainer(build_model(fam_config(
+                            arch, n_layers=layers)), TrainerConfig(
+                            steps=steps, ckpt_dir=d, ckpt_every=10 * steps,
+                            log_every=1, global_batch=b, seq_len=sq,
+                            seed=seed), AdamWConfig(),
+                            device=mesh.devices.flat[0])
+                        out = dict(tr.run(resume=False), mesh=mesh)
+                    init_s = tr.init_s
+            torch.cuda.synchronize()
+            live = pmesh.collectives()
+            want = fam_collectives(live, (
+                (metas[(arch, f"train{shape}")], steps),))
+            what = (f"{arch} {layers or 'all'} layers bf16 {b} x {sq} on "
+                    f"{mesh.shape}")
+            r = mesh_train_steps(out, b * sq, what)
+            r.update(init_s=init_s, collective_bytes=live[0],
+                     collective_count=live[1], dry_collective_bytes=want[0],
+                     dry_collective_count=want[1])
+            res[what] = r
+            print(f"[mesh] families (c) {what}, {gpu_line()}: "
+                  f"{json.dumps(r)}", flush=True)
+            require(live == want, f"families (c) {what}: the live "
+                    f"collectives {live} against the dry run's {want}")
+            del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_families(seed: int, metas: dict) -> tuple:
+    """The SSM, RG-LRU and encoder-decoder families' partitioned programs:
+    (a) the cuts, (b) full-width serving, (c) full-width training.
+    Returns (summary, {path: counts})."""
+    import resource
+    from repro_torch import kernels
+    t0 = time.perf_counter()
+    print(f"[mesh] families: host peak RSS so far "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
+          f" GiB", flush=True)
+    kernels.reset_launch_counts()
+    res = {"cuts": mesh_fam_cuts(seed), "serve": mesh_fam_serve(seed, metas),
+           "train": mesh_fam_train(seed, metas)}
+    res["part_s"] = time.perf_counter() - t0
+    return res, {"mesh_families": kernels.launch_counts()}
+
+
 def mesh_phase(seed: int):
     """The LM under a mesh (see the module docstring, phase 6i). Returns
     ({path: counts}, summary)."""
@@ -5426,6 +5897,7 @@ def mesh_phase(seed: int):
     with concurrent.futures.ProcessPoolExecutor(
             2, mp_context=multiprocessing.get_context("spawn")) as pool:
         metas = train_meta_traces(pool)
+        fam_metas = fam_meta_traces(pool)
         for part, fn in (("cut", mesh_gates_ad), ("training_cuts",
                                                   mesh_train_cuts),
                          ("serve", mesh_serve), ("serving", mesh_serving)):
@@ -5433,9 +5905,12 @@ def mesh_phase(seed: int):
             counts.update(c)
         summary["training"], c, shapes = mesh_train(seed, metas)
         counts.update(c)
+        summary["families"], c = mesh_families(seed, fam_metas)
+        counts.update(c)
     summary["phase_s"] = time.perf_counter() - t_phase
-    print(f"[mesh] gates (a), (b), (d), (e), serving (a)-(d) and training "
-          f"(a)-(d) passed; phase {summary['phase_s']:.1f} s", flush=True)
+    print(f"[mesh] gates (a), (b), (d), (e), serving (a)-(d), training "
+          f"(a)-(d) and the families' (a)-(c) passed; phase "
+          f"{summary['phase_s']:.1f} s", flush=True)
     return counts, summary, shapes
 
 

@@ -29,15 +29,13 @@ execute) on them at the cell's global shapes under
     (all-gather, all-reduce, reduce-scatter, all-to-all,
     collective-permute): one device's output bytes of each collective op of
     the partitioned program, and the ops (``collective_trace``). Filled for
-    every cell of the configs with a partitioned program
-    (``Model.partitioned``: the decoder-only ones); a train cell's count
-    holds the forward, the backward (each collective's dual, and the
-    forward's again where the activation checkpoint recomputes a block)
-    and the ZeRO-1 update's. Null, with ``gaps`` saying why, for the SSM,
-    RG-LRU and encoder-decoder families, whose partitioned programs come
-    later (ROADMAP queue 1 item 9). The layers are a Python loop here, so
-    an op of a layer counts once a layer; the reference's HLO counts a
-    scanned layer's op once.
+    every cell of every config; a train cell's count holds the forward,
+    the backward (each collective's dual, and the forward's again where
+    the activation checkpoint recomputes a block) and the ZeRO-1
+    update's. The layers, and the scans' chunks, are a Python loop here,
+    so an op of a layer counts once a layer (once a chunk inside the SSM
+    and RG-LRU mixers); the reference's HLO counts a scanned layer's op
+    once.
 
 A device's temporaries beyond the even split are not counted (``gaps``).
 A decode cell runs one step at the cache's last position (``seq_len -
@@ -66,7 +64,7 @@ from ..models.params import tree_leaves, tree_unflatten
 from ..optim import AdamWConfig
 from ..parallel.sharding import NamedSharding, sharding_rules
 from .mesh import make_production_mesh
-from .op_analysis import GAPS, analyze
+from .op_analysis import analyze
 from .steps import (abstract_cache, abstract_decode_args,
                     abstract_prefill_args, abstract_train_args,
                     make_prefill_step, make_serve_step, make_train_step,
@@ -74,7 +72,7 @@ from .steps import (abstract_cache, abstract_decode_args,
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
-DRYRUN_GAPS = {**GAPS, "temp_bytes": "a device's temporaries beyond an "
+DRYRUN_GAPS = {"temp_bytes": "a device's temporaries beyond an "
                "even split of peak_live_bytes are not counted: the "
                "partitioned program is traced for its collectives only"}
 
@@ -173,16 +171,8 @@ def analyze_cell(cfg, case: ShapeCase, mesh) -> dict:
             args = (params, {**cache, "pos": case.seq_len - 1}, tokens)
         out, cost = analyze(step, *args)
         out_bytes = _output_bytes(model, case, step, out)
-        coll = (collective_trace(model, case, step, args)
-                if model.partitioned else (None, None))
+        coll = collective_trace(model, case, step, args)
     gaps = dict(DRYRUN_GAPS)
-    if coll[0] is not None:
-        del gaps["collective_bytes"]
-    else:
-        gaps["collective_bytes"] = (
-            "the partitioned program covers the decoder-only configs; the "
-            "SSM, RG-LRU and encoder-decoder families' come later (ROADMAP "
-            "queue 1 item 9)")
     n_dev = mesh.size
     return {
         "n_devices": n_dev,

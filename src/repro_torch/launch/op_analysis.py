@@ -32,7 +32,7 @@ The dict has ``analyze_hlo``'s keys. ``collective_bytes`` and
 ``collective_count`` are None: ``analyze`` counts the ops of whatever runs,
 and a collective is not an aten op here. The dry run counts the
 partitioned program's collectives itself (``launch.dryrun.
-collective_trace``) where one exists; ``gaps`` says so.
+collective_trace``); ``gaps`` says so.
 """
 from __future__ import annotations
 
@@ -45,8 +45,8 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 GAPS = {"collective_bytes": "analyze counts aten ops, not collectives: "
-        "the dry run traces the partitioned program for them where there "
-        "is one (ROADMAP queue 1 item 9 for the rest)"}
+        "the dry run traces the partitioned program for them "
+        "(launch.dryrun.collective_trace)"}
 
 _ALLOCATE_ONLY = {torch.ops.aten.empty.memory_format,
                   torch.ops.aten.empty_strided.default,

@@ -9,13 +9,13 @@ from ``numpy.random.default_rng(0)``, waves of ``max_batch``, all under
 ``sharding_rules(make_host_mesh(--model-parallel))`` as in the reference:
 a ("data", "model") mesh over every card, or over ``devices``
 (``main(argv, devices=...)``); a size that does not divide them raises
-``ValueError``. The decoder-only configs serve the partitioned program:
-the engine lays the weights out on the mesh by the rules (each device
-its blocks, no whole copy kept), prefill lays the caches out by batch and
-sequence, and attention, the FFNs, the MoE region and the vocab run
-split, their collectives counted (``parallel.mesh.collectives``). The
-other families keep their weights and caches on the mesh's first device.
-Returns the engine.
+``ValueError``. Every config serves the partitioned program: the
+engine lays the weights out on the mesh by the rules (each device its
+blocks, no whole copy kept), prefill lays the caches out by batch and
+sequence (the recurrent states by channel), and attention, the FFNs, the
+MoE region, the SSM and RG-LRU mixers and the vocab run split, their
+collectives counted (``parallel.mesh.collectives``). Returns the
+engine.
 """
 from __future__ import annotations
 

@@ -13,12 +13,12 @@ mesh over every card of this host, or over ``devices`` where the caller
 passes them (``main(argv, devices=["cuda:0"] * 4)``: four shards of one
 card; ``["cpu"] * 4`` in the tests). A model-parallel size that does not
 divide the devices raises ``ValueError``. On a mesh of more than one
-device the decoder-only configs train partitioned (``runtime.Trainer``):
-parameters placed by the logical-axis rules, the forward, the loss and
-the backward run block by block with counted collectives, the ZeRO-1
-moments split by ``opt_shard``, and a checkpoint resumes onto the
-current mesh. The SSM, RG-LRU and encoder-decoder families keep whole
-weights on the mesh's first device.
+device every config trains partitioned (``runtime.Trainer``): parameters
+placed by the logical-axis rules, the forward, the loss and the backward
+run block by block with counted collectives (whisper's encoder and
+cross-attention, the SSM and RG-LRU scans on each shard's channels
+included), the ZeRO-1 moments split by ``opt_shard``, and a checkpoint
+resumes onto the current mesh.
 
 ``main(argv, devices=None)`` takes an argument list and returns the
 trainer's result (``params``, ``opt_state``, ``history``, ``straggler``)

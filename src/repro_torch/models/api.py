@@ -57,13 +57,6 @@ class Model:
     def n_params(self) -> int:
         return count_params(self.specs())
 
-    @property
-    def partitioned(self) -> bool:
-        """Whether prefill, decode and the training step have a partitioned
-        program under a mesh (``place_params``): the decoder-only configs
-        whose every block kind has one (``transformer.partitioned``)."""
-        return not self._audio and transformer.partitioned(self.cfg)
-
     def place(self, params, opt_state=None):
         """``params`` laid out on the active mesh by the rules
         (``params.place_params``). With ``opt_state`` (AdamW's, whole), the

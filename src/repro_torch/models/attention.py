@@ -30,7 +30,9 @@ that owns its position, and decode is a flash-decode merge: each shard
 scores every head over its own positions and keeps its maxima, sums and
 weighted values; an all-gather of the maxima and a reduce-scatter (an
 all-reduce where the heads are whole) of the rescaled sums and values
-give each shard its heads' attention.
+give each shard its heads' attention. Cross-attention
+(``cross_kv_sharded``, ``cross_apply_sharded``) keeps its keys and values
+by heads: each shard projects, caches and attends its own heads only.
 """
 from __future__ import annotations
 
@@ -413,12 +415,14 @@ def _merge_heads(m, l, acc, seq, own):
                 spec=packed.spec)
 
 
-def gqa_full_sharded(p, x, cfg, dtype, rules, window: int = 0):
+def gqa_full_sharded(p, x, cfg, dtype, rules, window: int = 0,
+                     causal: bool = True):
     """Prefill on placed weights, ``x`` (B, S, d) with S and d whole on each
-    shard. Returns ``(out, (k, v))``: ``out`` (B, S, d) partial sums over
-    ``wo``'s row axes, ``k``/``v`` (B, S, KV, hd) with every kv head (keys
-    with RoPE), as the cache keeps them. A shard's query heads attend the
-    kv heads repeated to the head count and cut to its own."""
+    shard (``causal`` False: the encoder's unmasked attention). Returns
+    ``(out, (k, v))``: ``out`` (B, S, d) partial sums over ``wo``'s row
+    axes, ``k``/``v`` (B, S, KV, hd) with every kv head (keys with RoPE),
+    as the cache keeps them. A shard's query heads attend the kv heads
+    repeated to the head count and cut to its own."""
     from ..parallel.sharding import entry_pos, smap
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     own = rules.resolve(("heads",), (h,))[0]
@@ -439,7 +443,7 @@ def gqa_full_sharded(p, x, cfg, dtype, rules, window: int = 0):
             n = qb.shape[2]
             lo = entry_pos(heads, mesh, at) * n
             kr, vr = kr[:, :, lo:lo + n], vr[:, :, lo:lo + n]
-        out = _attend(qb, kr, vr, window)
+        out = _attend(qb, kr, vr, window, causal)
         return out.reshape(*out.shape[:2], -1), kb
     bat = x.spec[0]
     o, k = smap(core, q, k, v, spec=[(bat, None, heads),
@@ -620,3 +624,37 @@ def cross_apply(p, x, k, v, cfg, dtype):
     q = (x @ p["wq"].to(dtype)).reshape(b, s, h, hd)
     out = _sdpa(q, k, v, None, h)
     return out.reshape(b, s, -1) @ p["wo"].to(dtype)
+
+
+def cross_kv_sharded(p, enc, cfg, dtype, rules):
+    """``cross_kv`` on placed weights: ``enc`` the encoder states (B, T, d)
+    with T and d whole. ``wk``/``wv`` are column-parallel: each shard makes
+    its own heads' keys and values, (B, T, H, hd) split by heads as the
+    cache's ``ck``/``cv`` lay them out (every head where the rules keep
+    the heads whole)."""
+    h, hd = cfg.n_heads, cfg.head_dim
+    own = rules.resolve(("heads",), (h,))[0]
+    return tuple(_heads_sharded(_project_sharded(p, w, "b" + w[1], enc,
+                                                 dtype), hd, own)
+                 for w in ("wk", "wv"))
+
+
+def cross_apply_sharded(p, x, k, v, cfg, dtype, rules):
+    """``cross_apply`` on placed weights: ``x`` (B, S, d) with S and d
+    whole, ``k``/``v`` split by heads (``cross_kv_sharded``, or the
+    cache's). Each shard's queries attend its own heads' keys, nothing
+    gathered; ``wo`` row-parallel: the output holds partial sums over its
+    row axes."""
+    from ..parallel.sharding import smap
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = _heads_sharded(_project_sharded(p, "wq", "bq", x, dtype), hd,
+                       rules.resolve(("heads",), (h,))[0])
+    if q.spec[2] != k.spec[2] or k.spec[2] != v.spec[2]:
+        raise ValueError(f"cross-attention queries by heads {q.spec[2]!r} "
+                         f"against keys {k.spec} and values {v.spec}")
+
+    def core(qb, kb, vb):
+        out = _sdpa(qb, kb, vb, None, qb.shape[2])
+        return out.reshape(*out.shape[:2], -1)
+    o = smap(core, q, k, v, spec=(x.spec[0], None, q.spec[2]))
+    return _out_sharded(p, o, dtype)

@@ -31,21 +31,24 @@ saves the matmul outputs (a selective-checkpoint policy, the counterpart of
 ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest. Remat
 changes memory, never values.
 
-The partitioned serving program. Under ``sharding_rules(mesh)`` with the
-weights placed on the mesh (``params.place_params``; the serving engine
-places them), ``decoder_prefill`` and ``decoder_decode_step`` run
-``parallel.sharding.Sharded`` tensors through the ``*_sharded`` layers of
-``attention``, ``ffn`` and ``common``. Between blocks the residual stream
+The partitioned program. Under ``sharding_rules(mesh)`` with the weights
+placed on the mesh (``params.place_params``; the serving engine and the
+trainer place them), ``decoder_prefill``, ``decoder_decode_step`` and
+``decoder_loss`` run ``parallel.sharding.Sharded`` tensors through the
+``*_sharded`` layers of ``attention``, ``ffn``, ``ssm``, ``rglru`` and
+``common``, every block kind included. Between blocks the residual stream
 is held as the rules hold it, ``("batch", "seq_act", None)``: batch over
 the data axes, the sequence over ``"model"`` where it divides. Each shard
 runs its norms on its own rows; an all-gather over the sequence precedes
-each column-parallel product, and a reduce-scatter back to the stream's
-layout (an all-reduce where the sequence is whole, as in decode) follows
-each row-parallel one. The caches are zeros laid out by
-``launch.steps.cache_shardings`` (batch, and the sequence over
-``"model"``). Without a mesh, or with whole weights (training), every
-path is the one above. Block kinds without a partitioned program (the
-SSM, RG-LRU and local-attention ones) raise.
+each column-parallel product (and each mixer: the scans need every
+position on each channel shard), and a reduce-scatter back to the
+stream's layout (an all-reduce where the sequence is whole, as in decode)
+follows each row-parallel one. The caches are laid out by
+``launch.steps.cache_shardings``: keys and values by batch and sequence
+(a ``local`` block's ring of W slots too, each shard writing the slots it
+owns from the prefill's whole keys), the recurrent states by batch and
+channel. Without a mesh, or with whole weights, every path is the one
+above. An unknown block kind raises.
 """
 from __future__ import annotations
 
@@ -60,8 +63,8 @@ from . import attention as attn
 from . import ffn, rglru, ssm
 from .common import (embed_lookup, embed_specs, rmsnorm,
                      sharded_softmax_xent, unembed)
-from .params import (Spec, is_placed, stack, torch_dtype, tree_leaves,
-                     tree_map, tree_unflatten)
+from .params import (Spec, is_placed, stack, torch_dtype, tree_items,
+                     tree_leaves, tree_map, tree_unflatten)
 
 # ---------------------------------------------------------------------------
 # Segment planning
@@ -431,9 +434,13 @@ def decoder_cache_zeros(cfg, batch: int, s_max: int, device=None,
         from ..parallel.sharding import sharded_zeros
         shapes = decoder_cache_zeros(cfg, batch, s_max, device="meta")
         laid = cache_shardings(shapes)
-        flat = [sharded_zeros(t.shape, t.dtype, sh.spec, mesh) for t, sh in
-                zip(tree_leaves(shapes["layers"]),
-                    tree_leaves(laid["layers"]))]
+        items = tree_items(shapes["layers"])
+        flat = [sharded_zeros(t.shape, t.dtype, sh.spec, mesh) for (_, t), sh
+                in zip(items, tree_leaves(laid["layers"]))]
+        for (path, _), t in zip(items, flat):
+            if path.rsplit("/", 1)[-1] == "slot_pos":  # empty slots hold -1
+                for b in t.blocks.values():
+                    b.fill_(-1)
         return {"layers": tree_unflatten(shapes["layers"], flat), "pos": 0}
     dtype = torch_dtype(cfg.compute_dtype)
     caches = []
@@ -523,48 +530,96 @@ def _ffn_sharded(p, h, cfg, kind, dtype, rules, aux: bool = False):
     return relayout(y, h.spec), None
 
 
-_PARTITIONED = ("attn", "attn_moe", "mla_dense", "mla_moe")
+def _write_blocks(cache, names, values) -> None:
+    """``values`` (``Sharded``, laid out as the cache leaves ``names``: a
+    recurrent block's new states, whisper's cross keys) copied into those
+    leaves' blocks. Every value is computed before the first copy:
+    coordinates may share a block."""
+    for name, v in zip(names, values):
+        dst = cache[name]
+        if dst.spec != v.spec:
+            raise ValueError(f"cache {name!r} laid out {dst.spec}, the "
+                             f"value written {v.spec}")
+        for c, b in dst.blocks.items():
+            b.copy_(v.blocks[c])
 
 
-def partitioned(cfg) -> bool:
-    """Whether every block of ``cfg``'s decoder has a partitioned program."""
-    return all(k in _PARTITIONED for unit, _ in segment_plan(cfg)
-               for k in unit)
+def ring_positions(s: int, w: int, lo: int, n: int, device) -> torch.Tensor:
+    """The positions slots ``lo``..``lo + n`` of a ``w``-slot ring hold after
+    a prefill of ``s`` tokens, as ``_ring_layout`` lays them out (-1
+    empty): slot j the last position p < s with p = j mod w."""
+    j = torch.arange(lo, lo + n, device=device)
+    if s >= w:
+        return s - w + torch.remainder(j - s, w)
+    return torch.where(j < s, j, -1)
 
 
-def _check_kind(kind: str):
-    if kind not in _PARTITIONED:
-        raise ValueError(f"block kind {kind!r} has no partitioned program: "
-                         "the SSM, RG-LRU and local-attention blocks run "
-                         "with whole weights")
+def _ring_block(kb, s: int, w: int, lo: int, n: int):
+    """Slots ``lo``..``lo + n`` of the ring from ``kb`` (B, S, KV, hd),
+    whole along the sequence: each slot's position gathered, zeros where
+    it is empty."""
+    pos = ring_positions(s, w, lo, n, kb.device)
+    got = kb[:, pos.clamp(min=0)]
+    return torch.where((pos >= 0)[None, :, None, None], got,
+                       torch.zeros((), dtype=kb.dtype, device=kb.device))
+
+
+def _write_ring(cache, k, v, s: int, w: int) -> None:
+    """A ``local`` block's prefill keys and values (whole along the
+    sequence on every shard) written into its ring, split by slot: each
+    shard takes the positions its slots hold from its own copy, so nothing
+    moves; every shard's ``slot_pos`` is the whole ring's."""
+    for name, t in (("k", k), ("v", v)):
+        dst = cache[name]
+        for c, b in dst.blocks.items():
+            b.copy_(_ring_block(t.blocks[c], s, w, dst.index(c)[1].start,
+                                b.shape[1]))
+    for sp in cache["slot_pos"].blocks.values():
+        sp.copy_(ring_positions(s, w, 0, w, sp.device))
 
 
 def _block_full_sharded(p, x, cfg, kind, dtype, cache, rules,
                         aux: bool = False):
     """``block_apply_full``, partitioned: ``x`` in the stream's layout; with
-    a ``cache`` (prefill) its blocks written at their positions, with
-    ``cache`` None (training) none kept. Returns (x, the MoE aux loss
-    where ``aux`` asks for it, else None)."""
+    a ``cache`` (prefill) its blocks written at their positions (a ring's
+    slots, a recurrent block's states), with ``cache`` None (training)
+    none kept. Returns (x, the MoE aux loss where ``aux`` asks for it,
+    else None)."""
     from ..parallel.sharding import add, relayout, write_prefix
-    _check_kind(kind)
     h = relayout(_norm_sharded(x, p["ln1"], cfg), (x.spec[0], None, None))
     s = x.shape[1]
-    if kind in ("attn", "attn_moe"):
-        out, (k, v) = attn.gqa_full_sharded(p["attn"], h, cfg, dtype, rules,
-                                            window=cfg.attn_window)
+    if kind == "mamba":
+        out, st = ssm.mamba_apply_full_sharded(p["mixer"], h, cfg, dtype,
+                                               return_state=cache is not None)
         if cache is not None:
+            _write_blocks(cache, ("conv", "ssm"), st)
+        return add(x, relayout(out, x.spec)), None     # no ln2, no FFN
+    if kind == "rec":
+        out, st = rglru.rglru_apply_full_sharded(
+            p["rec"], h, cfg, dtype, return_state=cache is not None)
+        if cache is not None:
+            _write_blocks(cache, ("conv", "h"), st)
+    elif kind in ("attn", "attn_moe", "local"):
+        window = cfg.griffin.window if kind == "local" else cfg.attn_window
+        out, (k, v) = attn.gqa_full_sharded(p["attn"], h, cfg, dtype, rules,
+                                            window=window)
+        if cache is not None and kind == "local":
+            _write_ring(cache, k, v, s, window)
+        elif cache is not None:
             write_prefix(cache["k"], 1, k)
             write_prefix(cache["v"], 1, v)
             for sp in cache["slot_pos"].blocks.values():
                 t = torch.arange(sp.shape[0], dtype=torch.int32,
                                  device=sp.device)
                 sp.copy_(torch.where(t < s, t, -1))
-    else:
+    elif kind in ("mla_dense", "mla_moe"):
         out, (latent, krope) = attn.mla_full_sharded(p["attn"], h, cfg, dtype,
                                                      rules)
         if cache is not None:
             write_prefix(cache["latent"], 1, latent)
             write_prefix(cache["krope"], 1, krope)
+    else:
+        raise ValueError(f"block kind {kind!r} has no partitioned program")
     del h
     x = add(x, relayout(out, x.spec))
     y, a = _ffn_sharded(p["ffn"], _norm_sharded(x, p["ln2"], cfg), cfg, kind,
@@ -580,18 +635,33 @@ def _train_block_sharded(p, x, cfg, kind, dtype, rules):
 def _block_decode_sharded(p, x, cfg, kind, dtype, cache, pos, rules):
     """``block_apply_decode``, partitioned."""
     from ..parallel.sharding import add, relayout
-    _check_kind(kind)
-    h = _norm_sharded(x, p["ln1"], cfg)
-    if kind in ("attn", "attn_moe"):
+    h = relayout(_norm_sharded(x, p["ln1"], cfg), (x.spec[0], None, None))
+    if kind == "mamba":
+        out, conv, st = ssm.mamba_decode_sharded(p["mixer"], h, cfg, dtype,
+                                                 cache["conv"], cache["ssm"])
+        _write_blocks(cache, ("conv", "ssm"), (conv, st))
+        return add(x, relayout(out, x.spec))           # no ln2, no FFN
+    if kind == "rec":
+        out, conv, hs = rglru.rglru_decode_sharded(p["rec"], h, cfg, dtype,
+                                                   cache["conv"], cache["h"])
+        _write_blocks(cache, ("conv", "h"), (conv, hs))
+    elif kind == "local":
+        out = attn.gqa_decode_sharded(p["attn"], h, cfg, dtype, cache["k"],
+                                      cache["v"], pos, rules,
+                                      window=cfg.griffin.window,
+                                      slot_pos=cache["slot_pos"])
+    elif kind in ("attn", "attn_moe"):
         out = attn.gqa_decode_sharded(p["attn"], h, cfg, dtype, cache["k"],
                                       cache["v"], pos, rules,
                                       window=cfg.attn_window)
         for sp in cache["slot_pos"].blocks.values():
             sp[pos] = pos
-    else:
+    elif kind in ("mla_dense", "mla_moe"):
         out = attn.mla_decode_sharded(p["attn"], h, cfg, dtype,
                                       cache["latent"], cache["krope"], pos,
                                       rules)
+    else:
+        raise ValueError(f"block kind {kind!r} has no partitioned program")
     x = add(x, relayout(out, x.spec))
     return add(x, _ffn_sharded(p["ffn"], _norm_sharded(x, p["ln2"], cfg),
                                cfg, kind, dtype, rules)[0])
@@ -605,8 +675,16 @@ def _logits_sharded(params, x, cfg):
     return smap(lambda a: a[:, 0], y, spec=y.spec[:1] + y.spec[2:])
 
 
-def _prefill_sharded(params, tokens, cfg, s_max: int, prefix_embed=None):
+def last_logits_sharded(params, x, cfg):
+    """The logits (B, V) of the last position of ``x`` (B, S, d) in the
+    stream's layout: each shard's last row, the sequence's last shard's."""
     from ..parallel.sharding import gather, smap
+    last = gather(smap(lambda a: a[:, -1:], x, spec=x.spec), 1)
+    last = smap(lambda a: a[:, -1:], last, spec=last.spec)
+    return _logits_sharded(params, last, cfg)
+
+
+def _prefill_sharded(params, tokens, cfg, s_max: int, prefix_embed=None):
     rules = _rules_of(params)
     dtype = torch_dtype(cfg.compute_dtype)
     x = _embed_sharded(params, tokens, cfg, rules, prefix_embed)
@@ -620,12 +698,9 @@ def _prefill_sharded(params, tokens, cfg, s_max: int, prefix_embed=None):
                 x, _ = _block_full_sharded(p_slice[f"u{i}"], x, cfg,
                                            kind, dtype, c_slice[f"u{i}"],
                                            rules)
-    x = _norm_sharded(x, params["ln_f"], cfg)
-    # the last position: each shard's last row, the sequence's last shard's
-    last = gather(smap(lambda a: a[:, -1:], x, spec=x.spec), 1)
-    last = smap(lambda a: a[:, -1:], last, spec=last.spec)
     cache["pos"] = s
-    return _logits_sharded(params, last, cfg), cache
+    return last_logits_sharded(params, _norm_sharded(x, params["ln_f"], cfg),
+                               cfg), cache
 
 
 def _decode_step_sharded(params, cache, tokens, cfg):

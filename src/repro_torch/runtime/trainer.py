@@ -10,9 +10,9 @@ Restart-safety comes from stateless data × atomic checkpoints:
 The step runs eagerly on ``device`` (the card unless the caller asks for
 another); the reference's ``jax.jit(donate_argnums)`` has no counterpart,
 the update being in place. Under ``sharding_rules(mesh)`` of more than one
-device, a config with a partitioned program trains partitioned: params
-and moments placed on the mesh (``init_state``), a checkpoint restored
-onto the current mesh whatever mesh wrote it. ``history`` holds the reference's
+device every config trains partitioned: params and moments placed on the
+mesh (``init_state``), a checkpoint restored onto the current mesh
+whatever mesh wrote it. ``history`` holds the reference's
 ``{"step", "loss"}`` at each logged step, plus its ``grad_norm`` and the
 step's host-clock ``ms`` (batch to loss read, which waits for the
 device).
@@ -81,11 +81,10 @@ class Trainer:
 
     def partitioned(self) -> bool:
         """Whether the step runs partitioned: under rules whose mesh has
-        more than one device, for a config with a partitioned program
-        (``Model.partitioned``)."""
+        more than one device (every config has a partitioned program)."""
         rules = current_rules()
         return (rules is not None and rules.mesh is not None
-                and rules.mesh.size > 1 and self.model.partitioned)
+                and rules.mesh.size > 1)
 
     def init_state(self, generator: Optional[torch.Generator] = None):
         """Parameters drawn by ``Model.init`` from ``generator`` (default: a

@@ -10,11 +10,12 @@ There is nothing to compile and nothing donated: the model's functions run
 as they are, and the decode cache is written in place.
 
 Under ``sharding_rules(mesh)`` the engine serves the partitioned program
-where the model has one (``Model.partitioned``: the decoder-only
-configs): it places the weights on the mesh by the rules once
-(``Model.place``, when it is made under the rules or at its first wave
-under them), keeping no whole copy, and prefill lays the caches out by
-``launch.steps.cache_shardings``. Tokens and sampling stay on the mesh's
+(every config, the SSM, hybrid and encoder-decoder ones included): it
+places the weights on the mesh by the rules once (``Model.place``, when
+it is made under the rules or at its first wave under them), keeping no
+whole copy, and prefill lays the caches out by
+``launch.steps.cache_shardings`` (keys and values by sequence, the
+recurrent states by channel). Tokens and sampling stay on the mesh's
 first device: each wave's and step's logits are gathered there
 (``Sharded.whole``, counted in ``parallel.mesh.moved_bytes``).
 
@@ -294,13 +295,11 @@ class ServingEngine:
 
     def _place(self) -> None:
         """Under ``sharding_rules(mesh)``, the weights laid out on that mesh
-        once, for a model with a partitioned program; weights placed on
-        another mesh raise."""
+        once; weights placed on another mesh raise."""
         from ..models.params import is_placed, tree_leaves
         from ..parallel.sharding import current_rules
         rules = current_rules()
-        if self.model is None or rules is None or rules.mesh is None \
-                or not self.model.partitioned:
+        if self.model is None or rules is None or rules.mesh is None:
             return
         if is_placed(self.params):
             if tree_leaves(self.params)[0].mesh is not rules.mesh:

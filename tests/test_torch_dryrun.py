@@ -314,7 +314,7 @@ def test_op_analysis_counts_a_loop():
         assert cost["peak_live_bytes"] == 3 * 256
         assert cost["n_ops"] == 5
         assert cost["collective_bytes"] is None
-        assert "item 9" in cost["gaps"]["collective_bytes"]
+        assert "collective_trace" in cost["gaps"]["collective_bytes"]
         assert out.shape == (8, 8)
 
 
@@ -404,8 +404,10 @@ def test_collectives_filled_for_decoder_serving_cells():
     sequence splits 16 ways), plus the embedding's; in decode an
     all-reduce for each and for the flash merge (14 heads do not split 16
     ways). A train cell of a decoder counts its step's collectives (none
-    on a mesh of one device); an SSM cell keeps null, its gaps naming the
-    slice to come."""
+    on a mesh of one device). An SSM decode cell on (1, 4) counts, per
+    layer, the in-projection's all-gather and the all-reduces of ``w_x``'s
+    and ``w_out``'s partial sums, plus the vocab's all-reduce and
+    all-gather."""
     cfg = get_config("qwen2-0.5b")
     kinds = {"all-gather", "all-reduce", "reduce-scatter", "all-to-all",
              "collective-permute"}
@@ -426,11 +428,14 @@ def test_collectives_filled_for_decoder_serving_cells():
     assert set(rec["collective_count"]) == kinds
     assert not any(rec["collective_count"].values())
     assert "collective_bytes" not in rec["gaps"]
-    rec = dryrun.analyze_cell(get_config("falcon-mamba-7b-smoke"),
-                              ShapeCase("d", 32, 2, "decode"), small)
-    assert rec["collective_bytes"] is None
-    assert rec["collective_count"] is None
-    assert "item 9" in rec["gaps"]["collective_bytes"]
+    cfg = get_config("falcon-mamba-7b-smoke")
+    rec = dryrun.analyze_cell(cfg, ShapeCase("d", 32, 2, "decode"),
+                              small_mesh((1, 4), ("data", "model")))
+    assert set(rec["collective_bytes"]) == kinds
+    assert rec["collective_count"] == {
+        "all-gather": cfg.n_layers + 1, "all-reduce": 2 * cfg.n_layers + 1,
+        "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}
+    assert "collective_bytes" not in rec["gaps"]
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +444,8 @@ def test_collectives_filled_for_decoder_serving_cells():
 
 def test_dryrun_entrypoint_single_cell(tmp_path):
     """The cheapest cell, falcon-mamba long_500k (decode, batch 1), through
-    ``python -m repro_torch.launch.dryrun``."""
+    ``python -m repro_torch.launch.dryrun``, its collectives counted: the
+    64 layers' in-projection gathers and partial-sum reduces."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -453,7 +459,10 @@ def test_dryrun_entrypoint_single_cell(tmp_path):
     assert rec["flops"] > 0
     assert rec["mem_per_device"]["argument_bytes"] == ref_argument_bytes(
         "falcon-mamba-7b", "long_500k", "pod16x16")
-    assert rec["collective_bytes"] is None and "gaps" in rec
+    assert rec["collective_count"]["all-gather"] >= 64
+    assert rec["collective_count"]["all-reduce"] >= 2 * 64
+    assert rec["collective_bytes"]["all-reduce"] > 0
+    assert set(rec["gaps"]) == {"temp_bytes"}
 
 
 def test_dryrun_records_failures(tmp_path, capsys):

@@ -517,14 +517,35 @@ def test_layers_outside_the_decoders_partitioned(layer):
     assert float((got - want).abs().max()) <= RTOL * float(want.abs().max())
 
 
-def test_blocks_without_a_partitioned_program_raise():
-    """A block kind with no partitioned program raises rather than run
-    whole on the first device; its families keep whole weights in the
-    engine."""
+def test_blocks_without_a_partitioned_program_raise(tmp_path, monkeypatch):
+    """Under the rules of a mesh of more than one device every config is
+    placed, the SSM, RG-LRU, local-attention and encoder-decoder ones
+    included: the engine lays its weights out on the mesh and the trainer
+    draws them placed. A block kind without a partitioned program (an
+    unknown kind) raises, in the loss and in a decode step, rather than
+    run whole on the first device."""
     from repro_torch.models import transformer
-    with pytest.raises(ValueError, match="no partitioned program"):
-        transformer._check_kind("mamba")
-    for arch in ("falcon-mamba-7b", "recurrentgemma-9b", "whisper-medium"):
-        assert not tbuild(tcfg.get_config(arch).reduced()).partitioned
-    for arch in ARCHS:
-        assert tbuild(tcfg.get_config(arch).reduced()).partitioned
+    from repro_torch.models.params import is_placed
+    from repro_torch.runtime import Trainer, TrainerConfig
+    with sharding_rules(_mesh((2, 2))):
+        for arch in tcfg.ARCHS:
+            model = tbuild(_config(arch))
+            eng = ServingEngine(model, model.init(
+                torch.Generator().manual_seed(1), device="cpu"),
+                ServeConfig(**SERVE))
+            assert is_placed(eng.params), arch
+            trainer = Trainer(model, TrainerConfig(ckpt_dir=str(tmp_path)),
+                              device="cpu")
+            assert trainer.partitioned(), arch
+            assert is_placed(trainer.init_state()[0]), arch
+        model = tbuild(_config("qwen2-0.5b"))
+        params = model.place(_weights("qwen2-0.5b"))
+        tokens = torch.from_numpy(_padded(_prompts(model.cfg.vocab)))
+        _, cache = model.prefill(params, {"tokens": tokens}, SERVE["s_max"])
+        plan = transformer.segment_plan
+        monkeypatch.setattr(transformer, "segment_plan", lambda cfg: [
+            (("conv",) * len(unit), reps) for unit, reps in plan(cfg)])
+        with pytest.raises(ValueError, match="no partitioned program"):
+            model.loss(params, {"tokens": tokens})
+        with pytest.raises(ValueError, match="no partitioned program"):
+            model.decode_step(params, cache, tokens[:, -1:])

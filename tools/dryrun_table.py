@@ -4,10 +4,9 @@ column a shape, each cell ``argument GiB a device on (16,16)/(2,16,16)
 split) · the whole program's peak live GiB · trace seconds on each``. The
 bytes and FLOPs are counts from the resolved layouts and
 ``launch/op_analysis.py``, not times. A second table gives the
-partitioned program's collectives where the records have them (the
-decoder-only configs' prefill and decode cells): one device's GiB and the
-ops of each kind on each mesh, ``AG`` all-gather, ``AR`` all-reduce,
-``RS`` reduce-scatter (the other two kinds are zero).
+partitioned program's collectives (every record has them): one device's
+GiB and the ops of each kind on each mesh, ``AG`` all-gather, ``AR``
+all-reduce, ``RS`` reduce-scatter (the other two kinds are zero).
 
 Run from the repository root after ``python -m repro_torch.launch.dryrun
 --all`` (or with the directory it wrote to):
